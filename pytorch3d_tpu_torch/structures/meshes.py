@@ -1,0 +1,270 @@
+"""Heterogeneous batches of triangle meshes (port of pytorch3d_tpu/structures/meshes.py).
+
+The storage follows the JAX package exactly, so outputs compare element by
+element:
+
+- **Padded-first**: verts `(N, V, 3)` and faces `(N, F, 3)` with per-mesh
+  counts; faces are padded with -1, verts with 0.
+- **Packed views are reshapes**: mesh i's packed vertex rows are
+  `[i*V, (i+1)*V)` and its packed face rows `[i*F, (i+1)*F)`.  Padding rows
+  of `faces_packed()` are -1; `verts_packed()[faces_packed()]` through such
+  a row wraps to the last vertex in both frameworks, so every consumer masks
+  with `faces_packed_mask()`.
+
+`Meshes` is a plain class holding tensors.  `create` builds one on a device
+(CUDA unless the caller names another) and `replace` returns a copy with
+some fields swapped, as the flax dataclass does in the JAX package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, List, Optional, Sequence, Union
+
+import torch
+
+from ..common import DEFAULT_DEVICE
+from .utils import list_to_padded
+
+
+@dataclasses.dataclass(frozen=True)
+class Meshes:
+    """A batch of N triangle meshes with up to V verts / F faces each."""
+
+    _verts_padded: torch.Tensor  # (N, V, 3) float
+    _faces_padded: torch.Tensor  # (N, F, 3) int64, -1 padded
+    _num_verts_per_mesh: torch.Tensor  # (N,) int64
+    _num_faces_per_mesh: torch.Tensor  # (N,) int64
+    textures: Optional[Any] = None
+
+    # ------------------------------------------------------------------ #
+    # Construction
+    # ------------------------------------------------------------------ #
+    @classmethod
+    def create(
+        cls,
+        verts: Union[Sequence[torch.Tensor], torch.Tensor],
+        faces: Union[Sequence[torch.Tensor], torch.Tensor],
+        textures: Optional[Any] = None,
+        num_verts_per_mesh: Optional[torch.Tensor] = None,
+        num_faces_per_mesh: Optional[torch.Tensor] = None,
+        device: Union[str, torch.device] = DEFAULT_DEVICE,
+    ) -> "Meshes":
+        """Build from lists of per-mesh arrays or already-padded tensors.
+
+        Lists may be heterogeneous; padded tensors are (N, V, 3)/(N, F, 3).
+        Items may be tensors or numpy arrays; all are moved to `device`.
+        When padded tensors are given without counts, all meshes use the
+        full vertex capacity and count faces as the rows without a -1.
+        """
+        device = torch.device(device)
+        if isinstance(verts, (list, tuple)):
+            vs = [torch.as_tensor(v, dtype=torch.float32, device=device) for v in verts]
+            nv = torch.tensor([v.shape[0] for v in vs], dtype=torch.int64, device=device)
+            verts_padded = (
+                list_to_padded(vs)
+                if vs
+                else torch.zeros((0, 0, 3), dtype=torch.float32, device=device)
+            )
+        else:
+            verts_padded = torch.as_tensor(verts, dtype=torch.float32, device=device)
+            if verts_padded.ndim != 3 or verts_padded.shape[-1] != 3:
+                raise ValueError("verts must be (N, V, 3)")
+            if num_verts_per_mesh is not None:
+                nv = torch.as_tensor(num_verts_per_mesh, dtype=torch.int64, device=device)
+            else:
+                nv = torch.full(
+                    (verts_padded.shape[0],), verts_padded.shape[1],
+                    dtype=torch.int64, device=device,
+                )
+        if isinstance(faces, (list, tuple)):
+            fs = [torch.as_tensor(f, dtype=torch.int64, device=device) for f in faces]
+            nf = torch.tensor([f.shape[0] for f in fs], dtype=torch.int64, device=device)
+            faces_padded = (
+                list_to_padded(fs, pad_value=-1)
+                if fs
+                else torch.zeros((0, 0, 3), dtype=torch.int64, device=device)
+            )
+        else:
+            faces_padded = torch.as_tensor(faces, dtype=torch.int64, device=device)
+            if faces_padded.ndim != 3 or faces_padded.shape[-1] != 3:
+                raise ValueError("faces must be (N, F, 3)")
+            if num_faces_per_mesh is not None:
+                nf = torch.as_tensor(num_faces_per_mesh, dtype=torch.int64, device=device)
+            else:
+                nf = torch.sum(torch.all(faces_padded >= 0, dim=-1), dim=-1)
+        if verts_padded.shape[0] != faces_padded.shape[0]:
+            raise ValueError("verts and faces must have the same batch dimension")
+        return cls(
+            _verts_padded=verts_padded,
+            _faces_padded=faces_padded,
+            _num_verts_per_mesh=nv,
+            _num_faces_per_mesh=nf,
+            textures=textures,
+        )
+
+    def replace(self, **changes) -> "Meshes":
+        """A copy with the named fields replaced."""
+        return dataclasses.replace(self, **changes)
+
+    # ------------------------------------------------------------------ #
+    # Basic properties
+    # ------------------------------------------------------------------ #
+    def __len__(self) -> int:
+        return self._verts_padded.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self._verts_padded.device
+
+    @property
+    def max_verts(self) -> int:
+        return self._verts_padded.shape[1]
+
+    @property
+    def max_faces(self) -> int:
+        return self._faces_padded.shape[1]
+
+    def num_verts_per_mesh(self) -> torch.Tensor:
+        return self._num_verts_per_mesh
+
+    def num_faces_per_mesh(self) -> torch.Tensor:
+        return self._num_faces_per_mesh
+
+    # ------------------------------------------------------------------ #
+    # Padded views
+    # ------------------------------------------------------------------ #
+    def verts_padded(self) -> torch.Tensor:
+        return self._verts_padded
+
+    def faces_padded(self) -> torch.Tensor:
+        return self._faces_padded
+
+    def verts_padded_mask(self) -> torch.Tensor:
+        """(N, V) bool — which padded vertex slots are real."""
+        ar = torch.arange(self.max_verts, device=self.device)
+        return ar[None, :] < self._num_verts_per_mesh[:, None]
+
+    def faces_padded_mask(self) -> torch.Tensor:
+        """(N, F) bool — which padded face slots are real."""
+        ar = torch.arange(self.max_faces, device=self.device)
+        return ar[None, :] < self._num_faces_per_mesh[:, None]
+
+    # ------------------------------------------------------------------ #
+    # Packed views (reshapes + masks)
+    # ------------------------------------------------------------------ #
+    def verts_packed(self) -> torch.Tensor:
+        """(N*V, 3) — mesh i occupies rows [i*V, (i+1)*V)."""
+        N, V, _ = self._verts_padded.shape
+        return self._verts_padded.reshape(N * V, 3)
+
+    def verts_packed_mask(self) -> torch.Tensor:
+        return self.verts_padded_mask().reshape(-1)
+
+    def verts_packed_to_mesh_idx(self) -> torch.Tensor:
+        N, V, _ = self._verts_padded.shape
+        return torch.arange(N, device=self.device).repeat_interleave(V)
+
+    def mesh_to_verts_packed_first_idx(self) -> torch.Tensor:
+        return torch.arange(len(self), device=self.device) * self.max_verts
+
+    def faces_packed(self) -> torch.Tensor:
+        """(N*F, 3) faces with *global* packed vertex indices; padding rows
+        are -1 (mask with `faces_packed_mask`)."""
+        N, F, _ = self._faces_padded.shape
+        offsets = (torch.arange(N, device=self.device) * self.max_verts)[:, None, None]
+        faces = torch.where(self._faces_padded >= 0, self._faces_padded, 0)
+        packed = (faces + offsets).reshape(N * F, 3)
+        return torch.where(self.faces_packed_mask()[:, None], packed, -1)
+
+    def faces_packed_mask(self) -> torch.Tensor:
+        return self.faces_padded_mask().reshape(-1)
+
+    def faces_packed_to_mesh_idx(self) -> torch.Tensor:
+        N, F, _ = self._faces_padded.shape
+        return torch.arange(N, device=self.device).repeat_interleave(F)
+
+    def mesh_to_faces_packed_first_idx(self) -> torch.Tensor:
+        return torch.arange(len(self), device=self.device) * self.max_faces
+
+    # ------------------------------------------------------------------ #
+    # Normals and areas
+    # ------------------------------------------------------------------ #
+    def faces_verts_packed(self) -> torch.Tensor:
+        """(N*F, 3, 3) — the three vertex positions of each packed face."""
+        return self.verts_packed()[self.faces_packed()]
+
+    def _face_areas_normals(self):
+        fv = self.faces_verts_packed()
+        v0, v1, v2 = fv[:, 0], fv[:, 1], fv[:, 2]
+        n = torch.linalg.cross(v1 - v0, v2 - v0)
+        nn2 = torch.sum(n * n, dim=-1, keepdim=True)
+        # Degenerate faces (padding included) get zero area and normal with
+        # zero, not NaN, gradients.
+        degenerate = nn2 < 1e-20
+        nn = torch.sqrt(torch.where(degenerate, torch.ones_like(nn2), nn2))
+        areas = torch.where(degenerate[..., 0], 0.0, 0.5 * nn[..., 0])
+        normals = torch.where(degenerate, 0.0, n / nn)
+        mask = self.faces_packed_mask()
+        return torch.where(mask, areas, 0.0), torch.where(mask[:, None], normals, 0.0)
+
+    def faces_areas_packed(self) -> torch.Tensor:
+        return self._face_areas_normals()[0]
+
+    def faces_normals_packed(self) -> torch.Tensor:
+        return self._face_areas_normals()[1]
+
+    def faces_normals_padded(self) -> torch.Tensor:
+        N, F, _ = self._faces_padded.shape
+        return self.faces_normals_packed().reshape(N, F, 3)
+
+    def verts_normals_packed(self) -> torch.Tensor:
+        """Area-weighted vertex normals.
+
+        Each face adds its unnormalized cross product to its three vertices
+        and the sums are normalized.  Padding faces add zero to vertex 0
+        (torch's `index_add_` refuses the -1 index JAX would wrap).
+        """
+        verts = self.verts_packed()
+        faces = self.faces_packed()
+        mask = self.faces_packed_mask()
+        fv = verts[faces]
+        n = torch.linalg.cross(fv[:, 2] - fv[:, 1], fv[:, 0] - fv[:, 1])
+        n = torch.where(mask[:, None], n, 0.0)
+        idx = faces.clamp(min=0)
+        acc = torch.zeros_like(verts)
+        for k in range(3):
+            acc = acc.index_add(0, idx[:, k], n)
+        nn2 = torch.sum(acc * acc, dim=-1, keepdim=True)
+        zero = nn2 < 1e-20
+        return torch.where(zero, 0.0, acc / torch.sqrt(torch.where(zero, torch.ones_like(nn2), nn2)))
+
+    def verts_normals_padded(self) -> torch.Tensor:
+        N, V, _ = self._verts_padded.shape
+        return self.verts_normals_packed().reshape(N, V, 3)
+
+    # ------------------------------------------------------------------ #
+    # Updates (functional)
+    # ------------------------------------------------------------------ #
+    def update_padded(self, new_verts_padded: torch.Tensor) -> "Meshes":
+        """Replace vertex positions, keeping topology and textures."""
+        if new_verts_padded.shape != self._verts_padded.shape:
+            raise ValueError("new values must have the same shape as the current.")
+        return self.replace(_verts_padded=new_verts_padded)
+
+    # ------------------------------------------------------------------ #
+    # List accessors (host-side)
+    # ------------------------------------------------------------------ #
+    def verts_list(self) -> List[torch.Tensor]:
+        counts = self._num_verts_per_mesh.tolist()
+        return [self._verts_padded[i, :n] for i, n in enumerate(counts)]
+
+    def faces_list(self) -> List[torch.Tensor]:
+        counts = self._num_faces_per_mesh.tolist()
+        return [self._faces_padded[i, :n] for i, n in enumerate(counts)]
+
+    def sample_textures(self, fragments):
+        if self.textures is None:
+            raise ValueError("Meshes does not have textures")
+        return self.textures.sample_textures(fragments, faces_packed=self.faces_packed())
+
