@@ -1,11 +1,10 @@
 """Build the port's CUDA kernels from `csrc/` at first use.
 
-Each kernel source is compiled by `nvcc` into its own shared library with a
-plain C interface, loaded with `ctypes` (no PyTorch headers, so a build
-takes seconds).  Libraries go to `build/kernels/` at the root of the
-checkout, named by a hash of the source and flags, so an edited source is
-rebuilt and an unchanged one is reused.  Several kernels build in parallel,
-one `nvcc` process each.
+A kernel source `csrc/<name>.cu` is compiled by `nvcc` into its own shared
+library with a plain C interface, loaded with `ctypes` (no PyTorch headers,
+so a build takes seconds).  Libraries go to `build/kernels/` at the root of
+the checkout, named by a hash of the source and flags, so an edited source
+is rebuilt and an unchanged one is reused.
 """
 
 from __future__ import annotations
@@ -18,14 +17,11 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
-
-# One entry per kernel library: name -> source file under csrc/.
-KERNEL_SOURCES = {"rasterize_fine": "rasterize_fine.cu"}
 
 # --fmad=false keeps every a*b+c as a rounded multiply and a rounded add, as
 # the plain PyTorch version computes it, so coverage at pixels on an edge
@@ -37,7 +33,6 @@ NVCC_FLAGS = (
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
-build_log: Dict[str, str] = {}  # name -> nvcc's output (ptxas registers/spills)
 
 
 def _nvcc() -> str:
@@ -55,48 +50,40 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    source = CSRC_DIR / KERNEL_SOURCES[name]
+    source = CSRC_DIR / f"{name}.cu"
     digest = hashlib.sha1(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def build(names: Iterable[str] = tuple(KERNEL_SOURCES)) -> Dict[str, float]:
-    """Compile every named library that is not built yet, all at once.
+def build(name: str) -> Tuple[float, str]:
+    """Compile `csrc/<name>.cu` unless its library is built already.
 
-    Returns the seconds each build took (0.0 where the library existed).
-    Raises RuntimeError with nvcc's output if any build fails.
+    Returns the seconds the build took (0.0 where the library existed) and
+    nvcc's output (ptxas registers and spills).  Raises RuntimeError with
+    that output if nvcc fails.
     """
+    out = library_path(name)
+    if out.exists():
+        return 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    seconds: Dict[str, float] = {}
-    running = {}
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            seconds[name] = 0.0
-            continue
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / KERNEL_SOURCES[name])]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        running[name] = (proc, tmp, out, time.perf_counter())
-    failures = []
-    for name, (proc, tmp, out, t0) in running.items():
-        log, _ = proc.communicate()
-        seconds[name] = time.perf_counter() - t0
-        build_log[name] = log
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            failures.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
-        else:
-            os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-    if failures:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
-    return seconds
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"kernel build failed: {name}: nvcc exited {proc.returncode}\n{proc.stdout}")
+    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    return seconds, proc.stdout
 
 
 def load(name: str) -> ctypes.CDLL:
     """The named kernel library, built first if needed."""
     if name not in _loaded:
-        build([name])
+        build(name)
         _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return _loaded[name]

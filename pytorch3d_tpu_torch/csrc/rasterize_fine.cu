@@ -25,13 +25,17 @@
 // version's stable sort does.  K is a template bucket (1..64); the runtime
 // K masks the live prefix.
 //
-// What bounds it.  At the shapes the main path gives it (512^2, K=8, a few
-// thousand faces) the candidate tests are a few million at ~100 operations
-// each, a few microseconds of the card's fp32 rate, while the fragments
-// written are 24 bytes per slot (50 MB per image at 512^2, K=8): the bound
-// is the bytes.  Each thread writes its K slots of each output as one
+// What bounds it.  At the shapes the main path gives it (two images at
+// 512^2, K=8, ~15 thousand faces) the fragments written are 24 bytes per
+// slot, ~100 MB or ~0.03 ms of HBM, and the candidate (pixel, face) tests
+// are ~15 million at ~108 operations each.  Built without FMA contraction
+// every multiply and add issues on its own, at half the data sheet's
+// 67 TFLOP/s, so the tests take ~0.05 ms: the arithmetic binds, the bytes
+// come close behind.  Each thread writes its K slots of each output as one
 // contiguous run and the face lists are read once per block, so nothing but
-// the outputs moves in bulk.  The arithmetic follows the TPU kernel's
+// the outputs moves in bulk; the per-face terms (area, edge vectors) are
+// still recomputed by every thread, which is the arithmetic to take out
+// first.  The arithmetic follows the TPU kernel's
 // (rasterize_pallas.py:375-460): vertex-centred edge functions scaled by
 // 1/(area + eps), strict inside test, max(denom, eps) for the perspective
 // correction and max(sum, 1e-5) for the clip.
@@ -211,16 +215,22 @@ void launch(const float* face_verts, const int* tile_faces, const int* tile_star
 
 }  // namespace
 
+// The pixel tile (rows, cols) of one block, which the binning must use.
+extern "C" void rasterize_fine_tile(int* rows, int* cols) {
+  *rows = kTileH;
+  *cols = kTileW;
+}
+
 // Returns cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue when the tile shape or K is not one this build takes.
+// cudaErrorInvalidValue when K or N is not one this build takes.
 extern "C" int rasterize_fine(const float* face_verts, const int* tile_faces,
                               const int* tile_start, const float* xs,
                               const float* ys, int N, int F, int H, int W,
-                              int tile_h, int tile_w, int n_ty, int n_tx,
-                              float blur_radius, int K, int perspective_correct,
+                              int n_ty, int n_tx, float blur_radius, int K,
+                              int perspective_correct,
                               int clip_barycentric_coords, int* idx, float* z,
                               float* bary, float* dist, void* stream) {
-  if (tile_h != kTileH || tile_w != kTileW || K < 1 || K > 64 || N < 1) {
+  if (K < 1 || K > 64 || N < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);

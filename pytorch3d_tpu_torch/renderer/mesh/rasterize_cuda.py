@@ -6,8 +6,9 @@ emit_fragments=True (rasterize_pallas.py:324, its pallas_call at :1235 in
 `_rfp_fwd_impl` behind `rasterize_fragments_pallas` :1121).  On CUDA
 tensors it bins the faces to 16x16 pixel tiles with plain torch (`bin_faces`)
 and launches the hand-written kernel `csrc/rasterize_fine.cu` once for the
-whole batch; that source's header says what bounds it on an H100 (the bytes
-of the fragments it writes) and how the design meets it.  On CPU tensors it
+whole batch; that source's header says what bounds it on an H100 (the
+per-pixel arithmetic, with the bytes of the fragments it writes close
+behind) and how the design meets it.  On CPU tensors it
 runs `rasterize_fragments_plain`, the plain PyTorch version of the same
 function, which the kernel is held against on the card.
 
@@ -33,7 +34,7 @@ from .rasterize_meshes import (
     rasterize_topk,
 )
 
-TILE = (16, 16)  # pixel tile (rows, cols) of one thread block; fixed in the .cu
+TILE = (16, 16)  # pixel tile (rows, cols) of one thread block; checked against the .cu at load
 MAX_FACES_PER_PIXEL = 64  # largest K bucket the kernel is built for
 
 
@@ -54,7 +55,6 @@ def bin_faces(
     ok: torch.Tensor,  # (N, F) bool: faces that may cover any pixel
     image_size: Tuple[int, int],
     blur_radius: float,
-    tile: Tuple[int, int] = TILE,
 ):
     """Per-tile face lists as CSR: (tile_faces, tile_start, n_ty, n_tx).
 
@@ -67,7 +67,7 @@ def bin_faces(
     """
     N, F = face_verts.shape[:2]
     H, W = image_size
-    TH, TW = tile
+    TH, TW = TILE
     n_ty, n_tx = -(-H // TH), -(-W // TW)
     device = face_verts.device
     grow = (math.sqrt(blur_radius) if blur_radius > 0 else 0.0) + max(
@@ -138,8 +138,15 @@ def rasterize_fragments_plain(
 def _library() -> ctypes.CDLL:
     lib = _build.load("rasterize_fine")
     if not lib.rasterize_fine.argtypes:
+        rows, cols = ctypes.c_int(), ctypes.c_int()
+        lib.rasterize_fine_tile(ctypes.byref(rows), ctypes.byref(cols))
+        if (rows.value, cols.value) != TILE:
+            raise RuntimeError(
+                f"rasterize_fine.cu rasterizes {rows.value}x{cols.value} tiles but"
+                f" the binning makes {TILE[0]}x{TILE[1]} tiles"
+            )
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rasterize_fine.argtypes = [p] * 5 + [i] * 8 + [ctypes.c_float, i, i, i] + [p] * 5
+        lib.rasterize_fine.argtypes = [p] * 5 + [i] * 6 + [ctypes.c_float, i, i, i] + [p] * 5
         lib.rasterize_fine.restype = ctypes.c_int
     return lib
 
@@ -158,13 +165,15 @@ def _run_kernel(face_verts, bins, image_size, blur_radius, K, perspective_correc
     dists = torch.empty((N, H, W, K), dtype=torch.float32, device=device)
     if N == 0:
         return idx, zbuf, bary, dists
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = _library().rasterize_fine(
-        face_verts.data_ptr(), tile_faces.data_ptr(), tile_start.data_ptr(),
-        xs.data_ptr(), ys.data_ptr(), N, F, H, W, TILE[0], TILE[1], n_ty, n_tx,
-        float(blur_radius), K, int(perspective_correct), int(clip_barycentric_coords),
-        idx.data_ptr(), zbuf.data_ptr(), bary.data_ptr(), dists.data_ptr(), stream,
-    )
+    lib = _library()
+    with torch.cuda.device(device):  # launch in the tensors' context
+        err = lib.rasterize_fine(
+            face_verts.data_ptr(), tile_faces.data_ptr(), tile_start.data_ptr(),
+            xs.data_ptr(), ys.data_ptr(), N, F, H, W, n_ty, n_tx,
+            float(blur_radius), K, int(perspective_correct), int(clip_barycentric_coords),
+            idx.data_ptr(), zbuf.data_ptr(), bary.data_ptr(), dists.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"rasterize_fine launch failed: CUDA error {err}")
     rasterize_fragments_cuda.launches += 1

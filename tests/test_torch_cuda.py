@@ -38,7 +38,6 @@ def _batch_faces(device, image_size, aspect_ratio=1.0):
     return fv, ndc.faces_packed_mask().reshape(N, F)
 
 
-@pytest.mark.cuda
 @pytest.mark.parametrize("size,blur,K,persp,clip,cull", [
     ((128, 128), 1e-4, 8, True, True, False),
     ((128, 128), 0.0, 1, True, False, False),
@@ -54,14 +53,16 @@ def test_fine_kernel_matches_plain(cuda_device, size, blur, K, persp, clip, cull
     assert trc.rasterize_fragments_cuda.launches == before + 1
     want = trc.rasterize_fragments_plain(fv, valid, size, blur, K, persp, clip, cull)
     same = got[0].long() == want[0]
-    # bench.py:_row_ok's tolerances for a kernel against its oracle.
+    # bench.py:_row_ok's tolerances for a kernel against its oracle, with
+    # dists held at 1e-6 (as chip_smoke.py does): with blur 1e-4 most
+    # filled slots hold |dist| < 1e-4, so 1e-4 would pass a zero or a wrong
+    # sign; the two agree to ~2e-9 on an H100.
     assert same.float().mean() > 0.999, same.float().mean()
     assert (got[1] - want[1]).abs()[same].max() < 5e-3
     assert (got[2] - want[2]).abs()[same[..., None].expand_as(got[2])].max() <= 1e-4
-    assert (got[3] - want[3]).abs()[same].max() <= 1e-4
+    assert (got[3] - want[3]).abs()[same].max() <= 1e-6
 
 
-@pytest.mark.cuda
 def test_fine_kernel_backward_raises(cuda_device):
     fv, valid = _batch_faces(cuda_device, (32, 32))
     fv = fv.requires_grad_(True)
@@ -70,7 +71,6 @@ def test_fine_kernel_backward_raises(cuda_device):
         zbuf.sum().backward()
 
 
-@pytest.mark.cuda
 def test_fine_kernel_refuses_what_it_does_not_take(cuda_device):
     fv, valid = _batch_faces(cuda_device, (32, 32))
     with pytest.raises(ValueError):
