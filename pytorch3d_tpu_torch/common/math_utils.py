@@ -19,3 +19,11 @@ def safe_norm(
     safe = torch.sqrt(torch.where(ok, sq, torch.ones_like(sq)))
     return torch.where(ok, safe, torch.zeros_like(sq))
 
+
+
+def safe_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-20) -> torch.Tensor:
+    """x / ||x|| with a zero output (and zero gradient) where ||x|| == 0."""
+    sq = torch.sum(x * x, dim=dim, keepdim=True)
+    ok = sq > eps
+    inv = torch.where(ok, 1.0 / torch.sqrt(torch.where(ok, sq, torch.ones_like(sq))), 0.0)
+    return x * inv

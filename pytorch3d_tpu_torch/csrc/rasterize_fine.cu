@@ -35,10 +35,15 @@
 // contiguous run and the face lists are read once per block, so nothing but
 // the outputs moves in bulk; the per-face terms (area, edge vectors) are
 // still recomputed by every thread, which is the arithmetic to take out
-// first.  The arithmetic follows the TPU kernel's
-// (rasterize_pallas.py:375-460): vertex-centred edge functions scaled by
-// 1/(area + eps), strict inside test, max(denom, eps) for the perspective
-// correction and max(sum, 1e-5) for the clip.
+// first.  The arithmetic is the plain version's, operation for operation
+// and in its order: edge functions divided by (area + eps) (the TPU kernel,
+// rasterize_pallas.py:375-460, multiplies by a reciprocal), the strict
+// inside test on the perspective-corrected bary, max(denom, eps) for the
+// perspective correction, max(sum, 1e-5) for the clip and a division for
+// the segment parameter.  With --fmad=false every value, and so every id,
+// then matches the plain version's bit for bit, which lets a gradient
+// through this kernel and the backward kernel be held against autograd
+// through the plain path (bin_size=0) without a selection difference.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -55,8 +60,7 @@ __device__ __forceinline__ float seg_dist2(float px, float py, float ax, float a
   const float vx = bx - ax;
   const float vy = by - ay;
   const float l2 = vx * vx + vy * vy;
-  const float inv_l2 = 1.0f / fmaxf(l2, kEpsilon);
-  float t = ((px - ax) * vx + (py - ay) * vy) * inv_l2;
+  float t = (vx * (px - ax) + vy * (py - ay)) / fmaxf(l2, kEpsilon);
   t = fminf(fmaxf(t, 0.0f), 1.0f);
   if (l2 <= kEpsilon) t = 1.0f;  // degenerate segment: distance to b
   const float dx = px - (ax + t * vx);
@@ -123,36 +127,35 @@ rasterize_fine_kernel(const float* __restrict__ face_verts,  // (N*F, 9)
       const float v1x = s_fv[3][j], v1y = s_fv[4][j], v1z = s_fv[5][j];
       const float v2x = s_fv[6][j], v2y = s_fv[7][j], v2z = s_fv[8][j];
 
+      // The plain version's operations in its order, divisions included,
+      // so z, bary and dists (and with them the ids) match it bit for bit.
       const float area = (v2x - v0x) * (v1y - v0y) - (v2y - v0y) * (v1x - v0x);
-      const float inv_area = 1.0f / (area + kEpsilon);
-      const float d01x = v2x - v1x, d01y = v2y - v1y;
-      const float d12x = v0x - v2x, d12y = v0y - v2y;
-      const float d20x = v1x - v0x, d20y = v1y - v0y;
-      const float w0 = ((px - v1x) * d01y - (py - v1y) * d01x) * inv_area;
-      const float w1 = ((px - v2x) * d12y - (py - v2y) * d12x) * inv_area;
-      const float w2 = ((px - v0x) * d20y - (py - v0y) * d20x) * inv_area;
-      const bool inside = w0 > 0.0f && w1 > 0.0f && w2 > 0.0f;
+      const float area_eps = area + kEpsilon;
+      const float w0 = ((px - v1x) * (v2y - v1y) - (py - v1y) * (v2x - v1x)) / area_eps;
+      const float w1 = ((px - v2x) * (v0y - v2y) - (py - v2y) * (v0x - v2x)) / area_eps;
+      const float w2 = ((px - v0x) * (v1y - v0y) - (py - v0y) * (v1x - v0x)) / area_eps;
 
       float wz0 = w0, wz1 = w1, wz2 = w2;
       if (perspective_correct) {
-        const float t0 = w0 * (v1z * v2z);
-        const float t1 = w1 * (v0z * v2z);
-        const float t2 = w2 * (v0z * v1z);
-        const float rdenom = 1.0f / fmaxf(t0 + t1 + t2, kEpsilon);
-        wz0 = t0 * rdenom;
-        wz1 = t1 * rdenom;
-        wz2 = t2 * rdenom;
+        const float t0 = (w0 * v1z) * v2z;
+        const float t1 = (v0z * w1) * v2z;
+        const float t2 = (v0z * v1z) * w2;
+        const float denom = fmaxf((t0 + t1) + t2, kEpsilon);
+        wz0 = t0 / denom;
+        wz1 = t1 / denom;
+        wz2 = t2 / denom;
       }
+      const bool inside = wz0 > 0.0f && wz1 > 0.0f && wz2 > 0.0f;
       if (clip_barycentric_coords) {
         wz0 = fmaxf(wz0, 0.0f);
         wz1 = fmaxf(wz1, 0.0f);
         wz2 = fmaxf(wz2, 0.0f);
-        const float rwsum = 1.0f / fmaxf(wz0 + wz1 + wz2, 1e-5f);
-        wz0 *= rwsum;
-        wz1 *= rwsum;
-        wz2 *= rwsum;
+        const float wsum = fmaxf((wz0 + wz1) + wz2, 1e-5f);
+        wz0 = wz0 / wsum;
+        wz1 = wz1 / wsum;
+        wz2 = wz2 / wsum;
       }
-      const float pz = wz0 * v0z + wz1 * v1z + wz2 * v2z;
+      const float pz = (wz0 * v0z + wz1 * v1z) + wz2 * v2z;
 
       float d2 = seg_dist2(px, py, v0x, v0y, v1x, v1y);
       d2 = fminf(d2, seg_dist2(px, py, v1x, v1y, v2x, v2y));

@@ -1,4 +1,4 @@
-"""The fine mesh-rasterizer kernel: binning, wrapper and plain version
+"""The fine mesh-rasterizer kernels: binning, wrappers and plain versions
 (port of pytorch3d_tpu/renderer/mesh/rasterize_pallas.py, fragments path).
 
 `rasterize_fragments_cuda` replaces the TPU kernel `_fine_kernel` with
@@ -12,18 +12,22 @@ behind) and how the design meets it.  On CPU tensors it
 runs `rasterize_fragments_plain`, the plain PyTorch version of the same
 function, which the kernel is held against on the card.
 
-The kernel's backward (#4 of the kernel table in PERF.md) lands with the
-training slice.  Until then the CUDA path's backward raises; `bin_size=0`
-asks `rasterize_meshes` for the plain path, which autograd differentiates.
+Its backward, `rasterize_grad_cuda`, replaces the TPU kernel `_grad_kernel`
+(rasterize_pallas.py:809, its pallas_call at :1092 in
+`rasterize_grad_pallas`): on CUDA tensors it launches
+`csrc/rasterize_grad.cu`, one thread per (pixel, slot) with atomic adds
+per face; on CPU tensors it runs `rasterize_grad_plain`.  On CPU the
+forward is the plain version, which autograd differentiates directly.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ... import _build
 from .rasterize_meshes import (
@@ -31,6 +35,7 @@ from .rasterize_meshes import (
     interpolate_fragments,
     non_square_ndc_range,
     pixel_grid_ndc,
+    rasterize_grad_plain,
     rasterize_topk,
 )
 
@@ -180,9 +185,88 @@ def _run_kernel(face_verts, bins, image_size, blur_radius, K, perspective_correc
     return idx, zbuf, bary, dists
 
 
+def _ptr(t: Optional[torch.Tensor]):
+    """A tensor's device pointer; None (a null pointer) for a zero cotangent."""
+    return None if t is None else t.data_ptr()
+
+
+def _grad_library() -> ctypes.CDLL:
+    lib = _build.load("rasterize_grad")
+    if not lib.rasterize_grad.argtypes:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.rasterize_grad.argtypes = [p] * 7 + [i] * 7 + [p, p]
+        lib.rasterize_grad.restype = ctypes.c_int
+    return lib
+
+
+def rasterize_grad_cuda(
+    face_verts: torch.Tensor,  # (N, F, 3, 3)
+    pix_to_face: torch.Tensor,  # (N, H, W, K) int32 local ids, -1 = empty
+    gz: Optional[torch.Tensor],  # (N, H, W, K) or None (= 0)
+    gbary: Optional[torch.Tensor],  # (N, H, W, K, 3) or None
+    gdists: Optional[torch.Tensor],  # (N, H, W, K) or None
+    image_size: Tuple[int, int],
+    perspective_correct: bool = False,
+    clip_barycentric_coords: bool = False,
+) -> torch.Tensor:
+    """(N, F, 3, 3) gradient of (zbuf, bary, dists) w.r.t. `face_verts`.
+
+    CUDA tensors launch the backward kernel (and count the launch in
+    `rasterize_grad_cuda.launches`); CPU tensors run the plain version.
+    The kernel takes float32 contiguous tensors and int32 ids; anything
+    else raises.  Its fp32 atomics add in an order that changes from run
+    to run, so two runs agree to rounding, not bit for bit.
+    """
+    if face_verts.device.type == "cpu":
+        return rasterize_grad_plain(
+            face_verts, pix_to_face, gz, gbary, gdists, image_size,
+            perspective_correct, clip_barycentric_coords,
+        )
+    if face_verts.device.type != "cuda":
+        raise ValueError(f"rasterize_grad_cuda: unsupported device {face_verts.device}")
+    if face_verts.dtype != torch.float32 or face_verts.ndim != 4 or face_verts.shape[2:] != (3, 3):
+        raise TypeError("rasterize_grad_cuda: face_verts must be a float32 (N, F, 3, 3) tensor")
+    N, F = face_verts.shape[:2]
+    if pix_to_face.dtype != torch.int32 or pix_to_face.ndim != 4 or pix_to_face.shape[0] != N:
+        raise TypeError("rasterize_grad_cuda: pix_to_face must be an int32 (N, H, W, K) tensor")
+    H, W = image_size
+    if pix_to_face.shape[1:3] != (H, W):
+        raise ValueError(f"rasterize_grad_cuda: pix_to_face {tuple(pix_to_face.shape)} is not {H}x{W}")
+    shapes = (pix_to_face.shape, (*pix_to_face.shape, 3), pix_to_face.shape)
+    for name, g, shape in zip(("gz", "gbary", "gdists"), (gz, gbary, gdists), shapes):
+        if g is None:
+            continue
+        if g.dtype != torch.float32 or g.shape != shape or g.device != face_verts.device:
+            raise TypeError(f"rasterize_grad_cuda: {name} must be float32 {tuple(shape)} on the faces' device")
+        if not g.is_contiguous():
+            raise ValueError(f"rasterize_grad_cuda: {name} must be contiguous")
+    if not (face_verts.is_contiguous() and pix_to_face.is_contiguous()):
+        raise ValueError("rasterize_grad_cuda: face_verts and pix_to_face must be contiguous")
+    grad = torch.zeros((N, F, 3, 3), dtype=torch.float32, device=face_verts.device)
+    K = pix_to_face.shape[3]
+    if grad.numel() == 0 or pix_to_face.numel() == 0:
+        return grad
+    ys, xs = pixel_grid_ndc(H, W, face_verts.device)
+    lib = _grad_library()
+    with torch.cuda.device(face_verts.device):
+        err = lib.rasterize_grad(
+            face_verts.data_ptr(), pix_to_face.data_ptr(), _ptr(gz), _ptr(gbary), _ptr(gdists),
+            xs.data_ptr(), ys.data_ptr(), N, F, H, W, K, int(perspective_correct),
+            int(clip_barycentric_coords), grad.data_ptr(),
+            torch.cuda.current_stream(face_verts.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"rasterize_grad launch failed: CUDA error {err}")
+    rasterize_grad_cuda.launches += 1
+    return grad
+
+
+rasterize_grad_cuda.launches = 0
+
+
 class _RasterizeFine(torch.autograd.Function):
-    """The CUDA fine rasterizer as an autograd op: forward is the kernel;
-    the backward kernel comes with the training slice."""
+    """The CUDA fine rasterizer as an autograd op: forward and backward are
+    the two kernels."""
 
     @staticmethod
     def forward(ctx, face_verts, valid, image_size, blur_radius, K,
@@ -194,15 +278,22 @@ class _RasterizeFine(torch.autograd.Function):
             clip_barycentric_coords,
         )
         ctx.mark_non_differentiable(idx)
+        ctx.set_materialize_grads(False)  # an unused output's cotangent stays None
+        ctx.save_for_backward(fv, idx)
+        ctx.raster = (image_size, perspective_correct, clip_barycentric_coords)
         return idx, zbuf, bary, dists
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "the backward of the CUDA fine rasterizer (kernel #4, the training"
-            " slice of the port) is not ported yet; rasterize with bin_size=0"
-            " to differentiate through the plain path"
+    @once_differentiable
+    def backward(ctx, _gidx, gz, gbary, gdists):
+        fv, idx = ctx.saved_tensors
+        image_size, perspective_correct, clip_barycentric_coords = ctx.raster
+        gz, gbary, gdists = (None if g is None else g.float().contiguous() for g in (gz, gbary, gdists))
+        grad = rasterize_grad_cuda(
+            fv, idx, gz, gbary, gdists, image_size,
+            perspective_correct, clip_barycentric_coords,
         )
+        return grad, None, None, None, None, None, None, None
 
 
 def rasterize_fragments_cuda(

@@ -87,7 +87,9 @@ def barycentric_perspective_correction(bary, z0, z1, z2):
 
 def barycentric_clip(bary):
     w = torch.clamp(bary, min=0.0)
-    w_sum = torch.clamp(torch.sum(w, dim=-1, keepdim=True), min=1e-5)
+    # (w0 + w1) + w2 written out: a reduction kernel may add in another
+    # order, and the CUDA fine kernel adds in this one.
+    w_sum = torch.clamp(w[..., 0:1] + w[..., 1:2] + w[..., 2:3], min=1e-5)
     return w / w_sum
 
 
@@ -280,13 +282,50 @@ def interpolate_fragments(
     """Differentiably recompute (zbuf, bary_coords, dists) for selected faces.
 
     Empty slots get zbuf = bary = dists = -1.  Autograd differentiates the
-    gather; the JAX package's custom backward (`_interp_bwd`) comes with the
-    training slice of the port.
+    gather; `rasterize_grad_plain` is the same gradient written out.
     """
     fv = face_verts[pix_to_face.clamp(min=0)]  # (H, W, K, 3, 3)
     return _fragments_from_gathered(
         fv, pix_to_face, image_size, perspective_correct, clip_barycentric_coords
     )
+
+
+def rasterize_grad_plain(
+    face_verts: torch.Tensor,  # (N, F, 3, 3)
+    pix_to_face: torch.Tensor,  # (N, H, W, K) per-image local ids, -1 = empty
+    gz: Optional[torch.Tensor],  # (N, H, W, K) or None (= 0)
+    gbary: Optional[torch.Tensor],  # (N, H, W, K, 3) or None
+    gdists: Optional[torch.Tensor],  # (N, H, W, K) or None
+    image_size: Tuple[int, int],
+    perspective_correct: bool = False,
+    clip_barycentric_coords: bool = False,
+) -> torch.Tensor:
+    """(N, F, 3, 3) gradient of (zbuf, bary, dists) w.r.t. `face_verts`.
+
+    The JAX package's `_interp_bwd`: the VJP of `_fragments_from_gathered`
+    on the per-pixel gathered verts (`torch.autograd.grad`), empty slots
+    masked, scattered back to faces with `index_add_`.  It is the plain
+    version of the CUDA backward kernel in `rasterize_cuda.py`.
+    """
+    N, F = face_verts.shape[:2]
+    idx = pix_to_face.long()
+    flat = (idx.clamp(min=0) + (torch.arange(N, device=idx.device) * F)[:, None, None, None])
+    with torch.enable_grad():
+        fv = face_verts.detach().reshape(N * F, 3, 3)[flat].requires_grad_(True)
+        outs = _fragments_from_gathered(
+            fv, idx, image_size, perspective_correct, clip_barycentric_coords
+        )
+        pairs = [(o, g) for o, g in zip(outs, (gz, gbary, gdists)) if g is not None]
+        if pairs:
+            (gfv,) = torch.autograd.grad(
+                [o for o, _ in pairs], fv, [g.to(o.dtype) for o, g in pairs]
+            )
+        else:
+            gfv = torch.zeros_like(fv)
+    gfv = torch.where((idx >= 0)[..., None, None], gfv, 0.0)
+    grad = torch.zeros((N * F, 3, 3), dtype=gfv.dtype, device=gfv.device)
+    grad.index_add_(0, flat.reshape(-1), gfv.reshape(-1, 3, 3))
+    return grad.reshape(N, F, 3, 3)
 
 
 # --------------------------------------------------------------------------- #

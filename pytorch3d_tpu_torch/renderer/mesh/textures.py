@@ -38,6 +38,11 @@ class TexturesVertex:
             raise ValueError("verts_features must be (N, V, C)")
         return cls(_verts_features_padded=verts_features)
 
+    def __getitem__(self, index) -> "TexturesVertex":
+        if isinstance(index, int):
+            index = [index]
+        return TexturesVertex(_verts_features_padded=self._verts_features_padded[index])
+
     def verts_features_padded(self) -> torch.Tensor:
         return self._verts_features_padded
 

@@ -19,6 +19,7 @@ some fields swapped, as the flax dataclass does in the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, List, Optional, Sequence, Union
 
 import torch
@@ -125,6 +126,9 @@ class Meshes:
     def max_faces(self) -> int:
         return self._faces_padded.shape[1]
 
+    def isempty(self) -> bool:
+        return len(self) == 0 or self.max_verts == 0
+
     def num_verts_per_mesh(self) -> torch.Tensor:
         return self._num_verts_per_mesh
 
@@ -186,6 +190,74 @@ class Meshes:
 
     def mesh_to_faces_packed_first_idx(self) -> torch.Tensor:
         return torch.arange(len(self), device=self.device) * self.max_faces
+
+    # ------------------------------------------------------------------ #
+    # Edges (sort-dedup, capacity 3*N*F)
+    # ------------------------------------------------------------------ #
+    @functools.cached_property
+    def _edges(self):
+        """(edges_packed, edges_mask, faces_to_edges, num_edges), computed
+        once per instance (topology and vertex count are fixed for it)."""
+        faces = self.faces_packed()  # (NF, 3) global ids
+        valid = self.faces_packed_mask()  # (NF,)
+        NF = faces.shape[0]
+        NV = self.verts_packed().shape[0]
+        device = faces.device
+
+        # Edge order per face as in the JAX package: (v1,v2), (v0,v2), (v0,v1).
+        edges_all = torch.cat([faces[:, 1:3], faces[:, 0:3:2], faces[:, 0:2]], dim=0)  # (3NF, 2)
+        valid_all = valid.repeat(3)
+        a = torch.minimum(edges_all[:, 0], edges_all[:, 1])
+        b = torch.maximum(edges_all[:, 0], edges_all[:, 1])
+        # Invalid edges go to a sentinel that sorts last.
+        a = torch.where(valid_all, a, NV)
+        b = torch.where(valid_all, b, NV)
+        # Sort by a, then b (a stable two-pass sort, as jnp.lexsort).
+        order = torch.sort(b, stable=True).indices
+        order = order[torch.sort(a[order], stable=True).indices]
+        a_s, b_s = a[order], b[order]
+        first = torch.ones_like(a_s, dtype=torch.bool)
+        first[1:] = (a_s[1:] != a_s[:-1]) | (b_s[1:] != b_s[:-1])
+        uniq = first & (a_s < NV)
+        ranks = torch.cumsum(uniq.long(), 0) - 1  # rank of each sorted edge's unique id
+        num_edges = uniq.sum()
+
+        E_cap = 3 * NF
+        # Unique edges compacted in rank order; padding rows stay -1.
+        edges_packed = torch.full((E_cap, 2), -1, dtype=torch.int64, device=device)
+        edges_packed[ranks[uniq]] = torch.stack([a_s, b_s], dim=-1)[uniq]
+        edges_mask = torch.arange(E_cap, device=device) < num_edges
+        # Each (face, slot) to its unique edge index.
+        inverse = torch.zeros(E_cap, dtype=torch.int64, device=device)
+        inverse[order] = ranks
+        faces_to_edges = torch.stack([inverse[0:NF], inverse[NF : 2 * NF], inverse[2 * NF :]], dim=1)
+        return edges_packed, edges_mask, faces_to_edges, num_edges
+
+    def edges_packed(self) -> torch.Tensor:
+        """(3*N*F, 2) unique edges (global vert ids, smaller first), in
+        ascending order, -1 past `num_edges()`."""
+        return self._edges[0]
+
+    def edges_packed_mask(self) -> torch.Tensor:
+        return self._edges[1]
+
+    def faces_packed_to_edges_packed(self) -> torch.Tensor:
+        """(N*F, 3): per-face unique-edge ids; column k is the edge opposite
+        vertex k."""
+        return self._edges[2]
+
+    def num_edges(self) -> torch.Tensor:
+        return self._edges[3]
+
+    def edges_packed_to_mesh_idx(self) -> torch.Tensor:
+        edges, mask, _, _ = self._edges
+        return torch.where(mask, edges[:, 0] // self.max_verts, -1)
+
+    def num_edges_per_mesh(self) -> torch.Tensor:
+        mask = self.edges_packed_mask()
+        idx = torch.where(mask, self.edges_packed_to_mesh_idx(), 0)
+        counts = torch.zeros(len(self), dtype=torch.int64, device=self.device)
+        return counts.index_add_(0, idx, mask.long())
 
     # ------------------------------------------------------------------ #
     # Normals and areas
@@ -251,6 +323,30 @@ class Meshes:
         if new_verts_padded.shape != self._verts_padded.shape:
             raise ValueError("new values must have the same shape as the current.")
         return self.replace(_verts_padded=new_verts_padded)
+
+    # ------------------------------------------------------------------ #
+    # Batch manipulation
+    # ------------------------------------------------------------------ #
+    def __getitem__(self, index) -> "Meshes":
+        """The meshes at `index` (an int, a list, a slice or an index
+        tensor), as one batch of the same padded widths."""
+        if isinstance(index, int):
+            index = [index]
+        if isinstance(index, (list, tuple)):
+            index = torch.as_tensor(index, dtype=torch.int64, device=self.device)
+        return Meshes(
+            _verts_padded=self._verts_padded[index],
+            _faces_padded=self._faces_padded[index],
+            _num_verts_per_mesh=self._num_verts_per_mesh[index],
+            _num_faces_per_mesh=self._num_faces_per_mesh[index],
+            textures=self.textures[index] if self.textures is not None else None,
+        )
+
+    def extend(self, N: int) -> "Meshes":
+        """Each mesh repeated N times, consecutively."""
+        if not isinstance(N, int) or N <= 0:
+            raise ValueError("N must be > 0.")
+        return self[torch.arange(len(self), device=self.device).repeat_interleave(N)]
 
     # ------------------------------------------------------------------ #
     # List accessors (host-side)

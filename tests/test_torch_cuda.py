@@ -7,9 +7,12 @@ import no JAX, so they run on a machine with the card alone:
     python -m pytest tests/test_torch_cuda.py -q
 """
 
+import importlib
+
 import pytest
 import torch
 
+from pytorch3d_tpu_torch.ops import knn as tknn
 from pytorch3d_tpu_torch.renderer import FoVPerspectiveCameras, MeshRasterizer, look_at_view_transform
 from pytorch3d_tpu_torch.renderer.mesh import rasterize_cuda as trc
 from pytorch3d_tpu_torch.structures import Meshes
@@ -38,13 +41,18 @@ def _batch_faces(device, image_size, aspect_ratio=1.0):
     return fv, ndc.faces_packed_mask().reshape(N, F)
 
 
-@pytest.mark.parametrize("size,blur,K,persp,clip,cull", [
+trm = importlib.import_module("pytorch3d_tpu_torch.renderer.mesh.rasterize_meshes")
+
+_GRID = [
     ((128, 128), 1e-4, 8, True, True, False),
     ((128, 128), 0.0, 1, True, False, False),
     ((128, 128), 1e-4, 8, True, True, True),
     ((96, 128), 1e-4, 3, False, False, False),
     ((128, 128), 4e-3, 40, True, True, False),
-])
+]
+
+
+@pytest.mark.parametrize("size,blur,K,persp,clip,cull", _GRID)
 def test_fine_kernel_matches_plain(cuda_device, size, blur, K, persp, clip, cull):
     fv, valid = _batch_faces(cuda_device, size, aspect_ratio=size[1] / size[0])
     before = trc.rasterize_fragments_cuda.launches
@@ -63,12 +71,90 @@ def test_fine_kernel_matches_plain(cuda_device, size, blur, K, persp, clip, cull
     assert (got[3] - want[3]).abs()[same].max() <= 1e-6
 
 
-def test_fine_kernel_backward_raises(cuda_device):
+def _cotangents(like_z, like_bary, seed=0):
+    gen = torch.Generator(device=like_z.device).manual_seed(seed)
+    return tuple(
+        torch.randn(t.shape, generator=gen, device=t.device) for t in (like_z, like_bary, like_z)
+    )
+
+
+def _grad_close(got, want):
+    # fp32 atomics (kernel) and index_add_ (plain, atomics on the card too)
+    # sum per-pixel terms in orders that change from run to run: the gate is
+    # relative to the largest gradient, as in chip_smoke.py.
+    assert torch.isfinite(got).all()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    assert scale > 0 and err <= 1e-4 * scale, (err, scale)
+
+
+@pytest.mark.parametrize("size,blur,K,persp,clip,cull", _GRID)
+def test_grad_kernel_matches_plain(cuda_device, size, blur, K, persp, clip, cull):
+    fv, valid = _batch_faces(cuda_device, size, aspect_ratio=size[1] / size[0])
+    idx, zbuf, bary, _ = trc.rasterize_fragments_cuda(fv, valid, size, blur, K, persp, clip, cull)
+    gz, gbary, gdists = _cotangents(zbuf, bary)
+    before = trc.rasterize_grad_cuda.launches
+    got = trc.rasterize_grad_cuda(fv, idx, gz, gbary, gdists, size, persp, clip)
+    torch.cuda.synchronize()
+    assert trc.rasterize_grad_cuda.launches == before + 1
+    want = trm.rasterize_grad_plain(fv, idx, gz, gbary, gdists, size, persp, clip)
+    _grad_close(got, want)
+    # A missing cotangent is zero.
+    _grad_close(
+        trc.rasterize_grad_cuda(fv, idx, None, None, gdists, size, persp, clip),
+        trm.rasterize_grad_plain(fv, idx, None, None, gdists, size, persp, clip),
+    )
+
+
+def test_backward_through_the_cuda_path_launches_the_grad_kernel(cuda_device):
+    fv, valid = _batch_faces(cuda_device, (128, 128))
+
+    def loss(bin_size):  # bench.py:110-119: rasterize_meshes' defaults, no perspective or clip
+        verts = fv.clone().requires_grad_(True)
+        rasterize = trc.rasterize_fragments_plain if bin_size == 0 else trc.rasterize_fragments_cuda
+        _, zbuf, _, dists = rasterize(verts, valid, (128, 128), 1e-4, 8, False, False, False)
+        (torch.sum(torch.sigmoid(-dists / 1e-4)) * 1e-6 + torch.sum(zbuf) * 1e-6).backward()
+        return verts.grad
+
+    fine, grad = trc.rasterize_fragments_cuda.launches, trc.rasterize_grad_cuda.launches
+    got = loss(None)
+    assert trc.rasterize_fragments_cuda.launches == fine + 1
+    assert trc.rasterize_grad_cuda.launches == grad + 1
+    _grad_close(got, loss(0))
+
+
+@pytest.mark.parametrize("K,norm,lengths", [
+    (1, 2, False), (4, 2, True), (16, 2, True), (1, 1, False), (4, 1, True), (16, 1, False),
+])
+def test_knn_kernel_matches_plain(cuda_device, K, norm, lengths):
+    gen = torch.Generator(device=cuda_device).manual_seed(K + 10 * norm)
+    p1 = torch.rand((2, 700, 3), generator=gen, device=cuda_device)
+    p2 = torch.rand((2, 900, 3), generator=gen, device=cuda_device)
+    l2 = torch.tensor([900, 10], device=cuda_device) if lengths else None
+    before = tknn.knn_points_cuda.launches
+    d, i = tknn.knn_points_cuda(p1, p2, l2, K, norm)
+    torch.cuda.synchronize()
+    assert tknn.knn_points_cuda.launches == before + 1
+    dp, ip = tknn.knn_points_plain(p1, p2, l2, K, norm)
+    # The same sums in the same order, the same tie rule: ids equal, dists
+    # equal to rounding (both built without FMA contraction).
+    assert torch.equal(i, ip)
+    assert torch.allclose(d, dp, rtol=1e-6, atol=0.0)
+    # Through the public entry: empty slots (K > length2) zero-filled.
+    out = tknn.knn_points(p1, p2, lengths2=l2, K=K, norm=norm)
+    assert tknn.knn_points_cuda.launches == before + 2
+    if lengths:
+        assert (out.dists[1, :, 10:] == 0).all() and (out.idx[1, :, 10:] == 0).all()
+
+
+def test_each_cuda_call_counts_its_launch(cuda_device):
     fv, valid = _batch_faces(cuda_device, (32, 32))
-    fv = fv.requires_grad_(True)
-    _, zbuf, _, _ = trc.rasterize_fragments_cuda(fv, valid, (32, 32), 1e-4, 4)
-    with pytest.raises(NotImplementedError):
-        zbuf.sum().backward()
+    counters = (trc.rasterize_fragments_cuda, trc.rasterize_grad_cuda, tknn.knn_points_cuda)
+    before = [c.launches for c in counters]
+    idx, zbuf, bary, dists = trc.rasterize_fragments_cuda(fv, valid, (32, 32), 1e-4, 4)
+    trc.rasterize_grad_cuda(fv, idx, zbuf, bary, dists, (32, 32))
+    tknn.knn_points_cuda(fv[:, :, 0].contiguous(), fv[:, :, 1].contiguous(), None, 2)
+    assert [c.launches for c in counters] == [b + 1 for b in before]
 
 
 def test_fine_kernel_refuses_what_it_does_not_take(cuda_device):
@@ -79,3 +165,28 @@ def test_fine_kernel_refuses_what_it_does_not_take(cuda_device):
         trc.rasterize_fragments_cuda(fv.double(), valid, (32, 32), 1e-4, 4)
     with pytest.raises(ValueError):
         trc.rasterize_fragments_cuda(fv.transpose(2, 3), valid, (32, 32), 1e-4, 4)  # not contiguous
+
+    idx, zbuf, bary, dists = trc.rasterize_fragments_cuda(fv, valid, (32, 32), 1e-4, 4)
+    with pytest.raises(TypeError):
+        trc.rasterize_grad_cuda(fv.double(), idx, zbuf, bary, dists, (32, 32))
+    with pytest.raises(TypeError):
+        trc.rasterize_grad_cuda(fv, idx.long(), zbuf, bary, dists, (32, 32))
+    with pytest.raises(ValueError):
+        trc.rasterize_grad_cuda(fv, idx, zbuf.transpose(1, 2), bary, dists, (32, 32))  # not contiguous
+
+
+def test_knn_kernel_refuses_what_it_does_not_take(cuda_device):
+    p = torch.rand((1, 64, 3), device=cuda_device)
+    with pytest.raises(TypeError):
+        tknn.knn_points_cuda(p.double(), p.double(), None, 1)
+    with pytest.raises(ValueError):
+        tknn.knn_points_cuda(p.transpose(1, 2), p.transpose(1, 2), None, 1)  # not contiguous
+    wide = torch.rand((1, 64, tknn.MAX_D + 1), device=cuda_device)
+    with pytest.raises(ValueError):
+        tknn.knn_points_cuda(wide, wide, None, 1)
+    with pytest.raises(ValueError):
+        tknn.knn_points_cuda(p, p, None, tknn.MAX_K + 1)
+    # knn_points takes the plain version outside the kernel's limits.
+    before = tknn.knn_points_cuda.launches
+    out = tknn.knn_points(wide, wide, K=tknn.MAX_K + 1)
+    assert tknn.knn_points_cuda.launches == before and out.idx.shape == (1, 64, tknn.MAX_K + 1)
