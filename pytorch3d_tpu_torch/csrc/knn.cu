@@ -23,14 +23,15 @@
 // the test against the K-th best and cost no insertion.  blockIdx.y walks
 // the batch; lengths2 bounds the walk.  D <= 8 and K <= 16, as on the TPU.
 //
-// What bounds it.  The arithmetic: 3*D fp32 operations per (query, point)
-// pair for norm 2 (difference, square, add), 25 M pairs or ~7 us at 5000 x
-// 5000, D=3 at the 33.5 T operations/s that --fmad=false leaves; the bytes
-// (the two clouds read once, K results written) are a fraction of that.
-// At the chamfer fit's 5000 points the kernel is too small to fill the
-// card (79 blocks of 64 threads on 132 SMs) and its time is the latency of
-// one thread's sequential walk plus the launch; splitting the database
-// across blocks with a merge is the step to take when that matters.
+// What bounds it on an H100 (data sheet: 3.35 TB/s, 67 TFLOP/s fp32). The
+// arithmetic: 3*D fp32 operations per (query, point) pair for norm 2
+// (difference, square, add), 25 M pairs or ~7 us at 5000 x 5000, D=3 at the
+// 33.5 T operations/s that --fmad=false leaves; the bytes (the two clouds
+// read once, K results written) are a fraction of that. At the chamfer fit's
+// 5000 points the kernel is too small to fill the card (79 blocks of 64
+// threads on 132 SMs) and its time is the latency of one thread's sequential
+// walk plus the launch; splitting the database across blocks with a merge is
+// the step to take when that matters.
 #include <cuda_runtime.h>
 
 #include <cmath>

@@ -25,25 +25,26 @@
 // version's stable sort does.  K is a template bucket (1..64); the runtime
 // K masks the live prefix.
 //
-// What bounds it.  At the shapes the main path gives it (two images at
-// 512^2, K=8, ~15 thousand faces) the fragments written are 24 bytes per
-// slot, ~100 MB or ~0.03 ms of HBM, and the candidate (pixel, face) tests
-// are ~15 million at ~108 operations each.  Built without FMA contraction
-// every multiply and add issues on its own, at half the data sheet's
-// 67 TFLOP/s, so the tests take ~0.05 ms: the arithmetic binds, the bytes
-// come close behind.  Each thread writes its K slots of each output as one
-// contiguous run and the face lists are read once per block, so nothing but
-// the outputs moves in bulk; the per-face terms (area, edge vectors) are
-// still recomputed by every thread, which is the arithmetic to take out
-// first.  The arithmetic is the plain version's, operation for operation
-// and in its order: edge functions divided by (area + eps) (the TPU kernel,
-// rasterize_pallas.py:375-460, multiplies by a reciprocal), the strict
-// inside test on the perspective-corrected bary, max(denom, eps) for the
-// perspective correction, max(sum, 1e-5) for the clip and a division for
-// the segment parameter.  With --fmad=false every value, and so every id,
-// then matches the plain version's bit for bit, which lets a gradient
-// through this kernel and the backward kernel be held against autograd
-// through the plain path (bin_size=0) without a selection difference.
+// What bounds it on an H100 (data sheet: 3.35 TB/s, 67 TFLOP/s fp32). At the
+// shapes the main path gives it (two images at 512^2, K=8, ~15 thousand
+// faces) the fragments written are 24 bytes per slot, ~100 MB or ~0.03 ms of
+// HBM, and the candidate (pixel, face) tests are ~15 million at ~108
+// operations each. Built without FMA contraction every multiply and add
+// issues on its own, at half the data sheet's 67 TFLOP/s, so the tests take
+// ~0.05 ms: the arithmetic binds, the bytes come close behind. Each thread
+// writes its K slots of each output as one contiguous run and the face lists
+// are read once per block, so nothing but the outputs moves in bulk; the
+// per-face terms (area, edge vectors) are still recomputed by every thread,
+// which is the arithmetic to take out first. The arithmetic is the plain
+// version's, operation for operation and in its order: edge functions divided
+// by (area + eps) (the TPU kernel, rasterize_pallas.py:375-460, multiplies by
+// a reciprocal), the strict inside test on the perspective-corrected bary,
+// max(denom, eps) for the perspective correction, max(sum, 1e-5) for the clip
+// and a division for the segment parameter. With --fmad=false every value,
+// and so every id, then matches the plain version's bit for bit, which lets a
+// gradient through this kernel and the backward kernel be held against
+// autograd through the plain path (bin_size=0) without a selection
+// difference.
 #include <cuda_runtime.h>
 
 #include <cstdint>

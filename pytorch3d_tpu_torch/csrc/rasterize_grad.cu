@@ -39,12 +39,13 @@
 // between its two arguments, in the plain version's order
 // min(min(e01, e02), e12).
 //
-// What bounds it.  Every slot's id and cotangents are read once (24 bytes a
-// slot) and each filled slot costs ~320 fp32 operations (forward recompute
-// and reverse, counted in chip_smoke.py's grad_ops_per_slot) at
-// the 33.5 T operations/s that --fmad=false leaves.  At the textured-mesh
-// fit's 8 views of 512^2 with K=16 the bytes bind (~0.24 ms for 808 MB,
-// against ~0.13 ms of operations); chip_smoke.py computes both per run.
+// What bounds it on an H100 (data sheet: 3.35 TB/s, 67 TFLOP/s fp32). Every
+// slot's id and cotangents are read once (24 bytes a slot) and each filled
+// slot costs ~320 fp32 operations (forward recompute and reverse, counted in
+// chip_smoke.py's grad_ops_per_slot) at the 33.5 T operations/s that
+// --fmad=false leaves. At the textured-mesh fit's 8 views of 512^2 with K=16
+// the bytes bind (~0.24 ms for 808 MB, against ~0.13 ms of operations);
+// chip_smoke.py computes both per run.
 #include <cuda_runtime.h>
 
 #include <cstdint>
