@@ -19,7 +19,9 @@ final result line:
    float64, within 1e-4 of the largest gradient or no further off than
    1.5x the float32 plain version is (fp32 atomics add in a different order
    on every run, and the float32 gradient is ill-conditioned at sliver
-   faces); KNN with ids equal on >= 99.99 % of queries and dists within
+   faces), and per face within 1e-4 of (the face's largest |g| + the median
+   of that) on >= 99.7 % of the faces; KNN with ids equal on >= 99.99 % of
+   queries and dists within
    1e-6 relative;
 4. serving: `MeshRenderer(MeshRasterizer, SoftPhongShader)` renders a batch
    of two meshes of different face counts (ico_sphere(4) and a torus) at
@@ -90,6 +92,12 @@ GRAD_GATE = 1e-4  # max |g - g_ref| <= GRAD_GATE * max |g_ref|
 # The backward kernel against the float64 plain version: within GRAD_GATE,
 # or no further from it than this factor times the float32 plain version.
 GRAD_PLAIN_FACTOR = 1.5
+# Per face, against the float64 plain version: within GRAD_GATE of (the
+# face's largest |g| + the median of that) on at least this share of the
+# faces the slots touch.  Both the kernel and the float32 plain version
+# leave a few ill-conditioned sliver faces outside; PERF.md records the
+# shares this script reads.
+GRAD_FACE_SHARE = 0.997
 KNN_IDS_GATE = 0.9999  # share of queries whose K ids all agree
 KNN_DISTS_RTOL = 1e-6
 
@@ -252,16 +260,36 @@ def grad_error(got, want):
     return err, (err / scale if scale > 0 else math.inf)
 
 
+def face_agreement(got, want, exact):
+    """Per face against the float64 plain version `exact`: a face agrees
+    where its 9 entries lie within GRAD_GATE * (its largest |exact| + the
+    median of that over the touched faces).  The largest gradient of all is
+    heavy-tailed (sliver faces), so a tolerance set from it alone can
+    exceed ordinary faces' gradients.
+
+    Returns the shares of the touched faces on which the kernel `got` and
+    the float32 plain version `want` agree."""
+    scale = exact.abs().reshape(-1, 9).amax(dim=1)
+    touched = scale > 0
+    tol = GRAD_GATE * (scale[touched] + scale[touched].median())
+    shares = []
+    for g in (got, want):
+        err = (g.double() - exact).abs().reshape(-1, 9).amax(dim=1)[touched]
+        shares.append(float((err <= tol).double().mean()))
+    return tuple(shares)
+
+
 def compare_grad(fv, valid, size, blur, k, persp, clip, cotangents):
     """The backward kernel against its plain version on the same ids and
     cotangents (seeded random, or the headline loss's).
 
     Returns (finite, max |g - g_plain|, the three ratios to the largest
     gradient: kernel vs plain, kernel vs the plain version in float64,
-    plain vs the plain version in float64).  The float64 plain version is
-    the reference of the gate: where the float32 gradient is ill-conditioned
-    (sums over Sum(bary) = 1 that cancel at sliver faces) the float32 plain
-    version itself is off it by more than 1e-4 of the largest gradient.
+    plain vs the plain version in float64; `face_agreement`'s two shares;
+    the filled slots).  The float64 plain version is the reference of the
+    gate: where the float32 gradient is ill-conditioned (sums over
+    Sum(bary) = 1 that cancel at sliver faces) the float32 plain version
+    itself is off it by more than 1e-4 of the largest gradient.
     """
     import torch
 
@@ -283,7 +311,8 @@ def compare_grad(fv, valid, size, blur, k, persp, clip, cotangents):
     err, ratio = grad_error(got, want)
     _, ratio_exact = grad_error(got.double(), exact)
     _, ratio_plain = grad_error(want.double(), exact)
-    return bool(torch.isfinite(got).all()), err, (ratio, ratio_exact, ratio_plain), int((idx >= 0).sum())
+    faces = face_agreement(got, want, exact)
+    return bool(torch.isfinite(got).all()), err, (ratio, ratio_exact, ratio_plain), faces, int((idx >= 0).sum())
 
 
 def compare_knn(p1, p2, lengths2, k, norm=2):
@@ -376,12 +405,14 @@ def grad_ops_per_slot(persp, clip):
 
 
 def grad_bound(fv, idx, cots, persp, clip):
-    """Least time for this run's backward: bytes (every slot's id and the
-    cotangents given read once, face verts read once, the gradient written
-    once) against the operations of the filled slots."""
+    """Least time for this run's backward: bytes (every slot's id read once,
+    the cotangents given read once for the filled slots only, as empty
+    slots add nothing; face verts read once, the gradient written once)
+    against the operations of the filled slots."""
     slots = idx.numel()
     filled = int((idx >= 0).sum())
-    bytes_moved = slots * 4 + sum(c.numel() * 4 for c in cots if c is not None) + 2 * fv.numel() * 4
+    cot_bytes_per_slot = sum(4 * (c.numel() // slots) for c in cots if c is not None)
+    bytes_moved = slots * 4 + filled * cot_bytes_per_slot + 2 * fv.numel() * 4
     ops = filled * grad_ops_per_slot(persp, clip)
     t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S, ops / PEAK_FP32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), filled, bytes_moved
@@ -490,20 +521,25 @@ def phase_grad_kernel(device):
     ):
         fv, valid = face_inputs(meshes, cams, size)
         for cotangents in ("random", "headline loss"):
-            finite, err, (ratio, ratio_exact, ratio_plain), filled = compare_grad(
+            finite, err, (ratio, ratio_exact, ratio_plain), faces, filled = compare_grad(
                 fv, valid, size, BLUR, K, persp, clip, cotangents
             )
-            ok = finite and ratio_exact <= max(GRAD_GATE, GRAD_PLAIN_FACTOR * ratio_plain)
+            kernel_share, plain_share = faces
+            ok = (finite and ratio_exact <= max(GRAD_GATE, GRAD_PLAIN_FACTOR * ratio_plain)
+                  and kernel_share >= GRAD_FACE_SHARE)
             worst_err, worst_ratio = max(worst_err, err), max(worst_ratio, ratio_exact)
             log(f"kernel rasterize_grad vs plain [{label}, {cotangents} cotangents] N={fv.shape[0]}"
                 f" F={fv.shape[1]} {IMAGE}^2 K={K} persp={persp} clip={clip}: filled slots {filled},"
                 f" max|diff| {err:.3e} = {ratio:.3e} of max|grad|; vs the float64 plain version:"
-                f" kernel {ratio_exact:.3e}, float32 plain version {ratio_plain:.3e}"
-                f" -> {'ok' if ok else 'FAIL'}")
+                f" kernel {ratio_exact:.3e}, float32 plain version {ratio_plain:.3e} of max|grad|;"
+                f" faces within {GRAD_GATE:g} of their own scale: kernel {kernel_share:.6f},"
+                f" float32 plain version {plain_share:.6f} -> {'ok' if ok else 'FAIL'}")
             if not ok:
                 failed.append(f"{label}/{cotangents}")
     log(f"kernel rasterize_grad: worst ratio to the float64 plain version {worst_ratio:.3e}"
-        f" (gate max({GRAD_GATE:g}, {GRAD_PLAIN_FACTOR:g} x the float32 plain version's))")
+        f" (gate max({GRAD_GATE:g}, {GRAD_PLAIN_FACTOR:g} x the float32 plain version's), and"
+        f" >= {GRAD_FACE_SHARE:g} of the faces within {GRAD_GATE:g} x (the face's largest |g|"
+        f" + the median of that))")
     check(not failed, f"backward kernel disagrees with its plain version: {failed}")
     return worst_err
 

@@ -40,12 +40,14 @@
 // min(min(e01, e02), e12).
 //
 // What bounds it on an H100 (data sheet: 3.35 TB/s, 67 TFLOP/s fp32). Every
-// slot's id and cotangents are read once (24 bytes a slot) and each filled
-// slot costs ~320 fp32 operations (forward recompute and reverse, counted in
-// chip_smoke.py's grad_ops_per_slot) at the 33.5 T operations/s that
-// --fmad=false leaves. At the textured-mesh fit's 8 views of 512^2 with K=16
-// the bytes bind (~0.24 ms for 808 MB, against ~0.13 ms of operations);
-// chip_smoke.py computes both per run.
+// slot's id is read once (4 bytes), the cotangents only at the filled slots
+// (20 bytes a slot when all three are given; empty slots add nothing), and
+// each filled slot costs ~320 fp32 operations (forward recompute and
+// reverse, counted in chip_smoke.py's grad_ops_per_slot) at the 33.5 T
+// operations/s that --fmad=false leaves. At the textured-mesh fit's 8 views
+// of 512^2 with K=16, where 40 % of the slots are filled, the operations
+// bind (~0.13 ms, against ~0.12 ms for ~400 MB); chip_smoke.py computes both
+// per run. This kernel still reads the cotangents of empty slots too.
 #include <cuda_runtime.h>
 
 #include <cstdint>

@@ -10,9 +10,9 @@ the kernel is held against on the card.  Both sum distances directly over
 the coordinates, sum((q - p)^2), as the Pallas kernel does, and break ties
 to the lower database index.
 
-`knn_points` dispatches as the JAX package does (knn.py:96-101): the
-kernel for CUDA tensors wherever it takes the shape (D <= 8, K <= 16), the
-plain version otherwise; the TPU's P1*P2 size gate is not carried over.
+`knn_points` dispatches as the JAX package does (knn.py:96-101): through
+`knn_points_cuda` wherever the kernel takes the shape (D <= 8, K <= 16),
+the plain version otherwise; the TPU's P1*P2 size gate is not carried over.
 Its distances are differentiable through `_KNNDists`, whose backward is
 plain torch: the JAX package has no backward kernel for KNN.
 """
@@ -144,8 +144,8 @@ class _KNNDists(torch.autograd.Function):
     @staticmethod
     def forward(ctx, p1, p2, lengths1, lengths2, K, norm):
         N, P1, D = p1.shape
-        use_kernel = p1.device.type == "cuda" and D <= MAX_D and 1 <= K <= MAX_K
-        select = knn_points_cuda if use_kernel else knn_points_plain
+        # knn_points_cuda itself takes the plain version for CPU tensors.
+        select = knn_points_cuda if D <= MAX_D and 1 <= K <= MAX_K else knn_points_plain
         dists, idx = select(p1.detach().contiguous(), p2.detach().contiguous(), lengths2, K, norm)
         live = torch.isfinite(dists)
         if lengths1 is not None:

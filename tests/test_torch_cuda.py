@@ -8,6 +8,8 @@ import no JAX, so they run on a machine with the card alone:
 """
 
 import importlib
+import importlib.util
+import pathlib
 
 import pytest
 import torch
@@ -42,6 +44,17 @@ def _batch_faces(device, image_size, aspect_ratio=1.0):
 
 
 trm = importlib.import_module("pytorch3d_tpu_torch.renderer.mesh.rasterize_meshes")
+
+
+def _load_chip_smoke():
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+_CHIP_SMOKE = _load_chip_smoke()
 
 _GRID = [
     ((128, 128), 1e-4, 8, True, True, False),
@@ -78,14 +91,25 @@ def _cotangents(like_z, like_bary, seed=0):
     )
 
 
-def _grad_close(got, want):
+def _exact_grad(fv, idx, cots, size, persp, clip):
+    """The plain version in float64 on the same ids and cotangents."""
+    return trm.rasterize_grad_plain(
+        fv.double(), idx, *(None if c is None else c.double() for c in cots), size, persp, clip
+    )
+
+
+def _grad_close(got, want, exact):
     # fp32 atomics (kernel) and index_add_ (plain, atomics on the card too)
-    # sum per-pixel terms in orders that change from run to run: the gate is
-    # relative to the largest gradient, as in chip_smoke.py.
+    # sum per-pixel terms in orders that change from run to run: within 1e-4
+    # of the largest gradient, as in chip_smoke.py.
     assert torch.isfinite(got).all()
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
     assert scale > 0 and err <= 1e-4 * scale, (err, scale)
+    # The largest gradient is heavy-tailed (sliver faces), so per face too,
+    # against the float64 plain version: chip_smoke.py's gate.
+    kernel_share, plain_share = _CHIP_SMOKE.face_agreement(got, want, exact)
+    assert kernel_share >= _CHIP_SMOKE.GRAD_FACE_SHARE, (kernel_share, plain_share)
 
 
 @pytest.mark.parametrize("size,blur,K,persp,clip,cull", _GRID)
@@ -98,11 +122,12 @@ def test_grad_kernel_matches_plain(cuda_device, size, blur, K, persp, clip, cull
     torch.cuda.synchronize()
     assert trc.rasterize_grad_cuda.launches == before + 1
     want = trm.rasterize_grad_plain(fv, idx, gz, gbary, gdists, size, persp, clip)
-    _grad_close(got, want)
+    _grad_close(got, want, _exact_grad(fv, idx, (gz, gbary, gdists), size, persp, clip))
     # A missing cotangent is zero.
     _grad_close(
         trc.rasterize_grad_cuda(fv, idx, None, None, gdists, size, persp, clip),
         trm.rasterize_grad_plain(fv, idx, None, None, gdists, size, persp, clip),
+        _exact_grad(fv, idx, (None, None, gdists), size, persp, clip),
     )
 
 
@@ -112,15 +137,18 @@ def test_backward_through_the_cuda_path_launches_the_grad_kernel(cuda_device):
     def loss(bin_size):  # bench.py:110-119: rasterize_meshes' defaults, no perspective or clip
         verts = fv.clone().requires_grad_(True)
         rasterize = trc.rasterize_fragments_plain if bin_size == 0 else trc.rasterize_fragments_cuda
-        _, zbuf, _, dists = rasterize(verts, valid, (128, 128), 1e-4, 8, False, False, False)
+        idx, zbuf, _, dists = rasterize(verts, valid, (128, 128), 1e-4, 8, False, False, False)
         (torch.sum(torch.sigmoid(-dists / 1e-4)) * 1e-6 + torch.sum(zbuf) * 1e-6).backward()
-        return verts.grad
+        return verts.grad, idx, dists.detach()
 
     fine, grad = trc.rasterize_fragments_cuda.launches, trc.rasterize_grad_cuda.launches
-    got = loss(None)
+    got, idx, dists = loss(None)
     assert trc.rasterize_fragments_cuda.launches == fine + 1
     assert trc.rasterize_grad_cuda.launches == grad + 1
-    _grad_close(got, loss(0))
+    # The loss's cotangents: 1e-6 for zbuf, d/d dists of the sigmoid term.
+    s = torch.sigmoid(-dists / 1e-4)
+    cots = (torch.full_like(dists, 1e-6), None, -(1e-6 / 1e-4) * s * (1.0 - s))
+    _grad_close(got, loss(0)[0], _exact_grad(fv, idx, cots, (128, 128), False, False))
 
 
 @pytest.mark.parametrize("K,norm,lengths", [

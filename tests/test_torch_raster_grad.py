@@ -7,11 +7,16 @@
   mode, whose backward is the TPU kernel `_grad_kernel` (rasterize_pallas.py:809).
 - The CPU wrapper: autograd through the plain forward gives the plain
   backward's gradient, and no kernel launch is counted.
+- chip_smoke.py's per-face gate for the CUDA backward fails a result that
+  is off on ordinary faces, where a gate relative to the largest gradient
+  alone would pass it.
 
-Tolerance rtol 1e-4, atol 1e-6 of the largest gradient: the two frameworks
-add the per-pixel terms of a face in another order, and where a face's
-terms cancel its sum keeps their absolute rounding (random cotangents give
-gradients up to 1e13 at blurred, perspective-corrected, unclipped slots).
+Tolerance rtol 1e-4, atol 1e-6 of the largest gradient capped at 1e-4 of
+the median one: the two frameworks add the per-pixel terms of a face in
+another order, and where a face's terms cancel its sum keeps their absolute
+rounding.  The cap keeps the check per element meaningful where the largest
+gradient is an outlier (random cotangents give gradients up to 1e13 at
+blurred, perspective-corrected, unclipped slots, against a median of ~5).
 Against the TPU kernel rtol is 1e-3, the bound the JAX package holds that
 kernel to against its own XLA VJP (tests/test_pallas_crosscheck.py): the
 kernel multiplies by reciprocals, takes the segment distance's gradient in
@@ -20,7 +25,9 @@ from a seed and handed to both packages; the port runs on the CPU.
 """
 
 import importlib
+import importlib.util
 import itertools
+import pathlib
 
 import jax
 import jax.experimental.pallas as pl
@@ -75,10 +82,14 @@ def _port_grad(fv, idx, cots, persp, clip):
 
 
 def _close(got, want, rtol=1e-4):
-    # Per-pixel terms summed per face in another order: rtol, and atol 1e-6
-    # relative to the largest gradient for sums that cancel.
+    # Per-pixel terms summed per face in another order: rtol, and for sums
+    # that cancel atol 1e-6 of the largest gradient, but never more than
+    # 1e-4 of the median nonzero one: the largest is heavy-tailed, and an
+    # atol set from it alone can exceed ordinary faces' gradients.
     assert np.isfinite(got).all()
-    np.testing.assert_allclose(got, want, rtol=rtol, atol=1e-6 * np.abs(want).max())
+    mag = np.abs(want)
+    atol = min(1e-6 * mag.max(), 1e-4 * np.median(mag[mag > 0]))
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)
 
 
 _GRID = list(itertools.product((1, 4), (0.0, 1e-4), ((False, False), (True, True), (True, False), (False, True))))
@@ -123,6 +134,40 @@ def test_plain_backward_matches_jax_pallas_grad_kernel(interpret_pallas, K, blur
     (want,) = vjp(tuple(jnp.asarray(c) for c in cots))
     # The JAX package's own bound for this kernel against its XLA VJP.
     _close(_port_grad(fv, idx, cots, persp, clip), np.asarray(want), rtol=1e-3)
+
+
+def _chip_smoke():
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("rel", [3e-4, 1e-3])
+def test_chip_smoke_grad_gate_fails_a_kernel_off_on_ordinary_faces(rel):
+    """chip_smoke.py's gate for the backward kernel, fed a stand-in kernel
+    result: the float32 plain version off by `rel` on the 99 % of faces with
+    the smallest gradients.  The largest gradient is ~1e11 times theirs
+    here, so the gate relative to it alone passes; the per-face gate fails."""
+    cs = _chip_smoke()
+    K, blur, persp, clip = 4, 1e-4, True, False
+    fv, valid = _faces(3)
+    idx = jrm.rasterize_topk_xla(
+        jnp.asarray(fv), jnp.asarray(valid), SIZE, blur, K,
+        perspective_correct=persp, clip_barycentric_coords=clip,
+    )
+    cots = [_batch(c) for c in _cotangents(K, seed=1)]
+    fvt, idt = _batch(fv), _batch(idx)
+    want = trm.rasterize_grad_plain(fvt, idt, *cots, SIZE, persp, clip)
+    exact = trm.rasterize_grad_plain(fvt.double(), idt, *(c.double() for c in cots), SIZE, persp, clip)
+    scale = want.abs().reshape(-1, 9).amax(dim=1)
+    ordinary = (scale <= torch.quantile(scale[scale > 0], 0.99)).reshape(1, -1, 1, 1)
+    got = torch.where(ordinary, want * (1.0 + rel), want)
+    assert cs.grad_error(got, want)[1] <= cs.GRAD_GATE  # the global gate alone passes it
+    kernel_share, plain_share = cs.face_agreement(got, want, exact)
+    assert plain_share >= cs.GRAD_FACE_SHARE
+    assert kernel_share < cs.GRAD_FACE_SHARE
 
 
 @pytest.mark.parametrize("K,blur,persp,clip", [(4, 1e-4, True, True), (1, 0.0, False, False)])
