@@ -39,10 +39,24 @@ final result line:
      samples), 50 Adam steps; the loss must fall, nothing may be NaN;
    every path runs with the launch counts set to 0 just before it and
    read just after, and must have launched each kernel it runs;
-6. times, after warm-up, with CUDA events: each kernel, its plain version
-   and its bound; the binning, a serving frame, a training step split into
-   forward and backward; torch.profiler breakdowns of 8 serving frames and
-   of render-fit steps by device kernel, with the device's idle share.
+6. point rendering (examples/render_colored_points.py widened to a served
+   batch): points-serving renders 30 000 torus points for 8 azimuths with
+   FoVOrthographicCameras at 256^2, radius 0.006, K=10, through
+   AlphaCompositor and NormWeightedCompositor (one points-kernel launch per
+   render), checked against a `bin_size=0` render; points-bench
+   (benchmarks/bm_points_knn_nerf.py's 100 000 points at 256^2, K=8)
+   forward and backward; points-fit, Adam steps that fit 30 000 points
+   sampled from ico_sphere(4) to the served scene (image MSE + 0.1
+   chamfer), whose loss must fall and whose step-0 point gradient is
+   checked against `bin_size=0`;
+7. times, after warm-up, with CUDA events: each kernel, its plain version
+   and its bound (the point kernels' launches are short, so their time is
+   the profiler's device time, beside the events'); the binning, a serving
+   frame, a training step split into forward and backward; torch.profiler
+   breakdowns of 8 serving and 8 points-serving frames and of render-fit
+   and points-fit steps by device kernel, with the device's idle share; the
+   points kernel and its binning at 1 M points, 1024^2 (a timing-only row,
+   with no plain check).
 
 The last lines are a `{"kernels": [...]}` JSON line and then
 `{"ok": true, "device": {...}}`.  Without CUDA, or outside a checkout of
@@ -68,7 +82,7 @@ REPO = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_OPS_PER_S = 67e12 / 2
 
-KERNELS = ("rasterize_fine", "rasterize_grad", "knn")
+KERNELS = ("rasterize_fine", "rasterize_grad", "knn", "rasterize_points", "rasterize_points_grad")
 
 # Serving (PR 1's main path).
 IMAGE = 512
@@ -101,6 +115,29 @@ GRAD_FACE_SHARE = 0.997
 KNN_IDS_GATE = 0.9999  # share of queries whose K ids all agree
 KNN_DISTS_RTOL = 1e-6
 
+# Point rendering: examples/render_colored_points.py at its
+# own sizes for a served batch of 8 requests; benchmarks/
+# bm_points_knn_nerf.py:17-39's shape; the points fit.
+PTS_IMAGE = 256
+PTS_RADIUS = 0.006
+PTS_K = 10
+PTS_SAMPLES = 30_000
+PTS_REQUESTS = 8
+PTS_AZIMUTHS = [45.0 * i for i in range(PTS_REQUESTS)]
+BENCH_POINTS = 100_000
+BENCH_RADIUS = 0.01
+BENCH_K = 8
+PFIT_WARMUP = 2
+PFIT_STEPS = 10
+BIG_POINTS, BIG_IMAGE, BIG_RADIUS = 1_000_000, 1024, 0.003  # the timing-only row
+POINT_IDS_GATE = 0.9999  # share of slots whose ids agree (expected: all)
+# The points backward against the float64 plain version, per point: within
+# POINT_GRAD_GATE of (the point's largest |g| + the median of that) on at
+# least POINT_GRAD_SHARE of the touched points, and within POINT_GRAD_GATE
+# of the largest gradient overall.
+POINT_GRAD_GATE = 1e-5
+POINT_GRAD_SHARE = 0.999
+
 
 class PhaseError(RuntimeError):
     pass
@@ -123,11 +160,14 @@ def log(*args) -> None:
 def _counters():
     from pytorch3d_tpu_torch.ops import knn
     from pytorch3d_tpu_torch.renderer.mesh import rasterize_cuda as rc
+    from pytorch3d_tpu_torch.renderer.points import rasterize_points_cuda as rpc
 
     return {
         "rasterize_fine": rc.rasterize_fragments_cuda,
         "rasterize_grad": rc.rasterize_grad_cuda,
         "knn": knn.knn_points_cuda,
+        "rasterize_points": rpc.rasterize_points_cuda,
+        "rasterize_points_grad": rpc.rasterize_points_grad_cuda,
     }
 
 
@@ -260,23 +300,28 @@ def grad_error(got, want):
     return err, (err / scale if scale > 0 else math.inf)
 
 
-def face_agreement(got, want, exact):
-    """Per face against the float64 plain version `exact`: a face agrees
-    where its 9 entries lie within GRAD_GATE * (its largest |exact| + the
-    median of that over the touched faces).  The largest gradient of all is
-    heavy-tailed (sliver faces), so a tolerance set from it alone can
-    exceed ordinary faces' gradients.
+def row_agreement(got, want, exact, width, gate):
+    """Per row (a face's 9 entries, a point's 3) against the float64 plain
+    version `exact`: a row agrees where its entries lie within gate * (its
+    largest |exact| + the median of that over the touched rows).  The
+    largest gradient of all is heavy-tailed (sliver faces), so a tolerance
+    set from it alone can exceed ordinary rows' gradients.
 
-    Returns the shares of the touched faces on which the kernel `got` and
+    Returns the shares of the touched rows on which the kernel `got` and
     the float32 plain version `want` agree."""
-    scale = exact.abs().reshape(-1, 9).amax(dim=1)
+    scale = exact.abs().reshape(-1, width).amax(dim=1)
     touched = scale > 0
-    tol = GRAD_GATE * (scale[touched] + scale[touched].median())
+    tol = gate * (scale[touched] + scale[touched].median())
     shares = []
     for g in (got, want):
-        err = (g.double() - exact).abs().reshape(-1, 9).amax(dim=1)[touched]
+        err = (g.double() - exact).abs().reshape(-1, width).amax(dim=1)[touched]
         shares.append(float((err <= tol).double().mean()))
     return tuple(shares)
+
+
+def face_agreement(got, want, exact):
+    """`row_agreement` per face (9 entries) at GRAD_GATE."""
+    return row_agreement(got, want, exact, 9, GRAD_GATE)
 
 
 def compare_grad(fv, valid, size, blur, k, persp, clip, cotangents):
@@ -355,6 +400,31 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(stop) / iters
 
 
+def device_ms(fn, kernel, iters=20, warmup=3):
+    """Device time per call of the device kernels whose name contains
+    `kernel`, from torch.profiler (CUPTI), or None where the profiler
+    recorded none.  For a launch of a few tens of microseconds, CUDA events
+    around back-to-back wrapper calls measure the host's rate of issuing
+    them (validation, pixel grid, ctypes) rather than the kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(
+        e.self_device_time_total for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and kernel in e.key
+    )
+    return us / 1e3 / iters if us > 0 else None
+
+
 def fine_ops_per_candidate(persp, clip):
     """fp32 operations per (pixel, face) test of the fine kernel, counting
     only the per-pixel work (per-face terms amortize over the tile):
@@ -366,6 +436,20 @@ def fine_ops_per_candidate(persp, clip):
     return 88 + (10 if persp else 0) + (10 if clip else 0)
 
 
+def tile_candidates(tile_start, N, n_ty, n_tx, size):
+    """The (pixel, item) tests that CSR tile lists ask for: each tile's list
+    length times the tile's live pixels, summed."""
+    from pytorch3d_tpu_torch.renderer.mesh.rasterize_cuda import TILE
+
+    H, W = size
+    TH, TW = TILE
+    per_tile = (tile_start[1:] - tile_start[:-1]).cpu().double().reshape(N, n_ty, n_tx)
+    rows = [min(TH, H - TH * t) for t in range(n_ty)]
+    cols = [min(TW, W - TW * t) for t in range(n_tx)]
+    pix = [[r * c for c in cols] for r in rows]  # live pixels of each tile
+    return float((per_tile * per_tile.new_tensor(pix)).sum())
+
+
 def fine_bound(fv, bins, size, k, persp, clip):
     """Least time for this run's work: max(bytes / HBM rate, ops / fp32 rate).
 
@@ -373,17 +457,10 @@ def fine_bound(fv, bins, size, k, persp, clip):
     four outputs (int32 id, z, 3 bary, dist = 24 B per slot) written once.
     Ops: the (pixel, face) tests these bins ask for, times the ops per test.
     """
-    from pytorch3d_tpu_torch.renderer.mesh.rasterize_cuda import TILE
-
     tile_faces, tile_start, n_ty, n_tx = bins
     N, F = fv.shape[:2]
     H, W = size
-    TH, TW = TILE
-    per_tile = (tile_start[1:] - tile_start[:-1]).cpu().double().reshape(N, n_ty, n_tx)
-    rows = [min(TH, H - TH * t) for t in range(n_ty)]
-    cols = [min(TW, W - TW * t) for t in range(n_tx)]
-    pix = [[r * c for c in cols] for r in rows]  # live pixels of each tile
-    candidates = float((per_tile * per_tile.new_tensor(pix)).sum())
+    candidates = tile_candidates(tile_start, N, n_ty, n_tx, size)
     bytes_moved = (
         N * F * 36 + tile_faces.numel() * 4 + tile_start.numel() * 4 + (H + W) * 4
         + N * H * W * k * 24
@@ -455,6 +532,7 @@ def phase_build():
     from pytorch3d_tpu_torch import _build
     from pytorch3d_tpu_torch.ops import knn
     from pytorch3d_tpu_torch.renderer.mesh import rasterize_cuda as rc
+    from pytorch3d_tpu_torch.renderer.points import rasterize_points_cuda as rpc
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source, all at once
@@ -468,6 +546,8 @@ def phase_build():
     rc._library()  # loads it and checks its tile against the binning's
     rc._grad_library()
     knn._library()
+    rpc._library()  # checks its tile too
+    rpc._grad_library()
 
 
 def phase_fine_kernel(device):
@@ -950,7 +1030,505 @@ def profile(label, fn, units):
         log(f"  {ms / units:9.4f} ms/unit  {count / units:7.1f} calls/unit  {key[:90]}")
 
 
-def kernel_rows(launches, errors, fine, grad, knn_t):
+# --------------------------------------------------------------------------- #
+# Point rendering
+# --------------------------------------------------------------------------- #
+
+
+def colored_points_scene(device):
+    """examples/render_colored_points.py:29-38: 30 000 points sampled from
+    torus(0.35, 1.0, 48, 96) with rgb from position, as one Pointclouds, and
+    FoVOrthographicCameras at dist 3, elev 25, znear 0.01 for the 8
+    requests' azimuths."""
+    import torch
+
+    from pytorch3d_tpu_torch.ops import sample_points_from_meshes
+    from pytorch3d_tpu_torch.renderer import FoVOrthographicCameras, look_at_view_transform
+    from pytorch3d_tpu_torch.structures import Pointclouds
+    from pytorch3d_tpu_torch.utils import torus
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    pts = sample_points_from_meshes(torus(0.35, 1.0, 48, 96, device=device), PTS_SAMPLES, generator=gen)[0]
+    rgb = (pts - pts.amin(0)) / (pts.amax(0) - pts.amin(0))
+    cloud = Pointclouds.create(pts[None], features=rgb[None], device=device)
+    azim = torch.tensor(PTS_AZIMUTHS, device=device)
+    R, T = look_at_view_transform(dist=3.0, elev=25.0, azim=azim, device=device)
+    return cloud, FoVOrthographicCameras.create(R=R, T=T, znear=0.01, device=device)
+
+
+def points_renderer(cams, compositor, bin_size=None):
+    from pytorch3d_tpu_torch.renderer import PointsRasterizationSettings, PointsRasterizer, PointsRenderer
+
+    settings = PointsRasterizationSettings(
+        image_size=PTS_IMAGE, radius=PTS_RADIUS, points_per_pixel=PTS_K, bin_size=bin_size
+    )
+    return PointsRenderer(PointsRasterizer(cams, settings), compositor)
+
+
+def bench_points(device, n=BENCH_POINTS):
+    """benchmarks/bm_points_knn_nerf.py:17-39's inputs: xy uniform in
+    [-0.9, 0.9], z in [1, 4], from np.random.RandomState(0); (1, n, 3)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(0)
+    pts = np.concatenate([rng.uniform(-0.9, 0.9, (n, 2)), rng.uniform(1.0, 4.0, (n, 1))], axis=1)
+    return torch.tensor(pts[None], dtype=torch.float32, device=device)
+
+
+def uniform_radius(points, r):
+    """A radius r for every point and an all-true valid mask."""
+    import torch
+
+    shape = points.shape[:2]
+    return torch.full(shape, r, device=points.device), torch.ones(shape, dtype=torch.bool, device=points.device)
+
+
+def served_points_ndc(device):
+    """What PointsRasterizer hands the rasterizer on the points-serving
+    path: the cloud extended to the 8 requests, in NDC xy + view z."""
+    from pytorch3d_tpu_torch.renderer import PointsRasterizer
+
+    cloud, cams = colored_points_scene(device)
+    return PointsRasterizer(cams).transform(cloud.extend(PTS_REQUESTS)).points_padded().contiguous()
+
+
+def hetero_points(device):
+    """Three clouds of 40 000, 25 000 and 5 000 live points (padding past
+    the counts), per-point radius in [0.002, 0.03], some behind the camera."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(2)
+    pts = torch.rand((3, 40_000, 3), generator=gen, device=device) * 2.4 - 1.2
+    pts[..., 2] = pts[..., 2].abs() * 2.0 - 0.2
+    radius = torch.rand((3, 40_000), generator=gen, device=device) * 0.028 + 0.002
+    valid = torch.arange(40_000, device=device)[None] < torch.tensor([40_000, 25_000, 5_000], device=device)[:, None]
+    return pts, radius, valid
+
+
+def compare_points(points, radius, valid, size, k):
+    """The points kernel against its plain version on the same inputs: the
+    share of slots with equal ids, the largest |diff| of zbuf and of dists
+    where they agree, and the filled slots."""
+    import torch
+
+    from pytorch3d_tpu_torch.renderer.points import rasterize_points_cuda as rpc
+    from pytorch3d_tpu_torch.renderer.points.rasterize_points import rasterize_points_plain
+
+    got = rpc.rasterize_points_cuda(points, radius, valid, size, k)
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        want = rasterize_points_plain(points, radius, valid, size, k)
+    same = got[0].long() == want[0]
+    errs = []
+    for g, w in zip(got[1:], want[1:]):
+        d = (g - w).abs()[same]
+        errs.append(float(d.max()) if d.numel() else 0.0)
+    return float(same.float().mean()), errs[0], errs[1], int((want[0] >= 0).sum())
+
+
+def compare_points_grad(points, idx, cots, size):
+    """The points backward kernel against its plain version on the kernel's
+    own ids and the cotangents (gz, gdists): finite, max |g - g_plain|, the
+    kernel's and the float32 plain version's largest error against the
+    float64 plain version over its largest |g|, and `row_agreement`'s two
+    shares per point."""
+    import torch
+
+    from pytorch3d_tpu_torch.renderer.points import rasterize_points_cuda as rpc
+    from pytorch3d_tpu_torch.renderer.points.rasterize_points import rasterize_points_grad_plain
+
+    got = rpc.rasterize_points_grad_cuda(points, idx, *cots, size)
+    torch.cuda.synchronize()
+    want = rasterize_points_grad_plain(points, idx, *cots, size)
+    exact = rasterize_points_grad_plain(points.double(), idx, *(None if c is None else c.double() for c in cots), size)
+    err, _ = grad_error(got, want)
+    _, ratio_exact = grad_error(got.double(), exact)
+    _, ratio_plain = grad_error(want.double(), exact)
+    shares = row_agreement(got, want, exact, 3, POINT_GRAD_GATE)
+    return bool(torch.isfinite(got).all()), err, (ratio_exact, ratio_plain), shares
+
+
+def point_grad_gate(got, ref):
+    """A point gradient against a reference one (the bin_size=0 path): the
+    largest error over the largest |ref|, and the share of touched points
+    within POINT_GRAD_GATE of their own scale."""
+    _, ratio = grad_error(got, ref)
+    share, _ = row_agreement(got, ref, ref.double(), 3, POINT_GRAD_GATE)
+    ok = bool(got.isfinite().all()) and ratio <= POINT_GRAD_GATE and share >= POINT_GRAD_SHARE
+    return ok, ratio, share
+
+
+# fp32 operations of csrc/rasterize_points.cu per (pixel, point) test: two
+# differences, two products, their sum and the compare with r^2; and of
+# csrc/rasterize_points_grad.cu per filled slot: two differences, two
+# products by gd, two by -2 and three atomic adds.
+POINTS_OPS_PER_CANDIDATE = 6
+POINTS_GRAD_OPS_PER_SLOT = 9
+
+
+def points_fine_bound(points, bins, size, k, filled):
+    """Least time for this run's points forward: max(bytes / HBM rate,
+    ops / fp32 rate).  Bytes: each binned (point, tile) pair's 20 B
+    (x, y, z, r, id) read once per tile, the tile offsets and pixel
+    coordinates, and the outputs (int32 id, z, dist = 12 B per slot)
+    written once.  Ops: the (pixel, point) tests these bins ask for, plus K
+    compares per insertion, counting one insertion per filled slot (fewer
+    than the kernel makes: a point pushed out by a nearer one was inserted
+    too)."""
+    tile_points, tile_start, n_ty, n_tx = bins
+    N = points.shape[0]
+    H, W = size
+    candidates = tile_candidates(tile_start, N, n_ty, n_tx, size)
+    bytes_moved = tile_points.numel() * 20 + tile_start.numel() * 4 + (H + W) * 4 + N * H * W * k * 12
+    ops = candidates * POINTS_OPS_PER_CANDIDATE + filled * k
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S, ops / PEAK_FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), candidates, bytes_moved
+
+
+def points_grad_bound(points, idx, cots):
+    """Least time for this run's points backward: every slot's id read once,
+    the cotangents given read once at the filled slots (empty slots add
+    nothing), the points read and the gradient written once; against the
+    operations of the filled slots."""
+    filled = int((idx >= 0).sum())
+    given = sum(1 for c in cots if c is not None)
+    bytes_moved = idx.numel() * 4 + filled * 4 * given + 2 * points.numel() * 4
+    ops = filled * POINTS_GRAD_OPS_PER_SLOT
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S, ops / PEAK_FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), filled, bytes_moved
+
+
+class PointsFit:
+    """The points-fit loop: Adam(1e-2) on a (P, 3) offset and a (P, 3)
+    colour of 30 000 points sampled from ico_sphere(4), scaled to the
+    torus's extent, with rgb features at 0.5, toward the points-serving
+    scene (its 8 AlphaCompositor images and its cloud);
+    loss = image MSE + 0.1 chamfer_distance on Pointclouds."""
+
+    def __init__(self, device):
+        import torch
+
+        from pytorch3d_tpu_torch.ops import sample_points_from_meshes
+        from pytorch3d_tpu_torch.renderer import AlphaCompositor
+        from pytorch3d_tpu_torch.utils import ico_sphere
+
+        self.device = device
+        self.target, self.cams = colored_points_scene(device)
+        with torch.no_grad():
+            self.target_images = points_renderer(self.cams, AlphaCompositor())(self.target.extend(PTS_REQUESTS))
+        gen = torch.Generator(device=device).manual_seed(1)
+        sphere = sample_points_from_meshes(ico_sphere(4, device=device), PTS_SAMPLES, generator=gen)[0]
+        tgt = self.target.points_padded()[0]
+        lo, hi = tgt.amin(0), tgt.amax(0)
+        self.source = sphere * (hi - lo) / 2.0 + (hi + lo) / 2.0
+        self.offset = torch.zeros_like(self.source, requires_grad=True)
+        self.colour = torch.full_like(self.source, 0.5, requires_grad=True)
+        self.optimizer = torch.optim.Adam([self.offset, self.colour], lr=1e-2)
+
+    def cloud(self):
+        from pytorch3d_tpu_torch.structures import Pointclouds
+
+        return Pointclouds.create((self.source + self.offset)[None], features=self.colour[None], device=self.device)
+
+    def forward(self, bin_size=None, keep=None):
+        """The loss; `keep`, a list, receives the rasterizer's fragments."""
+        import torch
+
+        from pytorch3d_tpu_torch.loss import chamfer_distance
+        from pytorch3d_tpu_torch.renderer import AlphaCompositor
+
+        render = points_renderer(self.cams, AlphaCompositor(), bin_size)
+        if keep is not None:
+            render.rasterizer.register_forward_hook(lambda _m, _i, fragments: keep.append(fragments))
+        cloud = self.cloud()
+        images = render(cloud.extend(PTS_REQUESTS))
+        return torch.mean((images - self.target_images) ** 2) + 0.1 * chamfer_distance(cloud, self.target)[0]
+
+    def cotangents(self):
+        """The kernel's inputs and the loss's cotangents at the current
+        parameters: (NDC points, local ids, (gz, gdists)); zbuf is unused."""
+        import torch
+
+        from pytorch3d_tpu_torch.renderer import PointsRasterizer
+
+        keep = []
+        loss = self.forward(keep=keep)
+        (gdists,) = torch.autograd.grad(loss, keep[0].dists)
+        ndc = PointsRasterizer(self.cams).transform(self.cloud().extend(PTS_REQUESTS)).points_padded()
+        P = ndc.shape[1]
+        offsets = (torch.arange(PTS_REQUESTS, device=self.device) * P)[:, None, None, None]
+        idx = torch.where(keep[0].idx >= 0, keep[0].idx - offsets, -1).int().contiguous()
+        return ndc.detach().contiguous(), idx, (None, gdists.contiguous())
+
+
+def phase_points_kernel(device):
+    """The points kernel against its plain version at points-bench, the
+    points-serving batch, a hetero batch with per-point radius and counts,
+    and the K=1 and K=64 corners."""
+    bench, served = bench_points(device), served_points_ndc(device)
+    size = (PTS_IMAGE, PTS_IMAGE)
+    cases = [
+        ("points-bench", bench, *uniform_radius(bench, BENCH_RADIUS), size, BENCH_K),
+        ("points-serving batch", served, *uniform_radius(served, PTS_RADIUS), size, PTS_K),
+        ("hetero batch, per-point radius, counts 40000/25000/5000", *hetero_points(device), (PTS_IMAGE, 192), 16),
+        ("K=1 corner (points-bench)", bench, *uniform_radius(bench, BENCH_RADIUS), size, 1),
+        ("K=64 corner (points-bench, radius 0.05)", bench, *uniform_radius(bench, 0.05), size, 64),
+    ]
+    worst, failed = 0.0, []
+    for label, pts, rad, valid, sz, k in cases:
+        frac, zerr, derr, filled = compare_points(pts, rad, valid, sz, k)
+        ok = frac >= POINT_IDS_GATE and zerr <= DISTS_ATOL and derr <= DISTS_ATOL and filled > 0
+        worst = max(worst, zerr, derr)
+        log(f"kernel rasterize_points vs plain [{label}] N={pts.shape[0]} P={pts.shape[1]} {sz[0]}x{sz[1]} K={k}:"
+            f" slots with equal ids {frac:.6f}, filled slots {filled}, max|diff| zbuf {zerr:.3e} dists {derr:.3e}"
+            f" -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(label)
+    check(not failed, f"points kernel disagrees with its plain version: {failed}")
+    return worst
+
+
+def phase_points_grad_kernel(device, fit):
+    """The points backward kernel against the float64 plain version on the
+    kernel's own ids: seeded random cotangents at points-bench and the
+    points-serving batch, and points-fit's step-0 cotangents."""
+    import torch
+
+    from pytorch3d_tpu_torch.renderer.points import rasterize_points_cuda as rpc
+
+    size = (PTS_IMAGE, PTS_IMAGE)
+    gen = torch.Generator(device=device).manual_seed(3)
+    cases = []
+    for label, pts, r, k in (("points-bench", bench_points(device), BENCH_RADIUS, BENCH_K),
+                             ("points-serving batch", served_points_ndc(device), PTS_RADIUS, PTS_K)):
+        idx, zbuf, _ = rpc.rasterize_points_cuda(pts, *uniform_radius(pts, r), size, k)
+        cots = tuple(torch.randn(zbuf.shape, generator=gen, device=device) for _ in range(2))
+        cases.append((f"{label}, random cotangents", pts, idx, cots))
+    cases.append(("points-fit step 0, its loss's cotangents", *fit.cotangents()))
+    worst, failed = 0.0, []
+    for label, pts, idx, cots in cases:
+        finite, err, (ratio_exact, ratio_plain), (kernel_share, plain_share) = compare_points_grad(pts, idx, cots, size)
+        ok = finite and ratio_exact <= POINT_GRAD_GATE and kernel_share >= POINT_GRAD_SHARE
+        worst = max(worst, err)
+        log(f"kernel rasterize_points_grad vs plain [{label}] N={pts.shape[0]} P={pts.shape[1]}"
+            f" filled slots {int((idx >= 0).sum())}: max|diff| vs float32 plain {err:.3e}; vs the float64 plain"
+            f" version: kernel {ratio_exact:.3e}, float32 plain version {ratio_plain:.3e} of max|grad|; points"
+            f" within {POINT_GRAD_GATE:g} of their own scale: kernel {kernel_share:.6f}, float32 plain version"
+            f" {plain_share:.6f} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(label)
+    check(not failed, f"points backward kernel disagrees with its plain version: {failed}")
+    return worst
+
+
+def phase_points_serving(device):
+    """The 8 requests rendered in one call per compositor, against a
+    bin_size=0 render."""
+    import torch
+
+    from pytorch3d_tpu_torch.renderer import AlphaCompositor, NormWeightedCompositor
+
+    cloud, cams = colored_points_scene(device)
+    clouds = cloud.extend(PTS_REQUESTS)
+    compositors = {"alpha": AlphaCompositor, "norm-weighted": NormWeightedCompositor}
+    renderers = {name: points_renderer(cams, c()) for name, c in compositors.items()}
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        images = {name: r(clouds) for name, r in renderers.items()}
+    torch.cuda.synchronize()
+    first_pass_s = time.perf_counter() - t0
+    counts = read_counts()
+    log(f"points-serving: {PTS_REQUESTS} requests of {PTS_SAMPLES} points at {PTS_IMAGE}^2, radius {PTS_RADIUS},"
+        f" K={PTS_K}, rendered through {len(renderers)} compositors: launches {counts}, first pass"
+        f" {first_pass_s:.3f} s (first calls included)")
+    check(counts["rasterize_points"] == len(renderers) and counts["rasterize_points_grad"] == 0,
+          f"points-serving: launches {counts} for {len(renderers)} renders (1 points kernel each)")
+    for name, img in images.items():
+        check(img.shape == (PTS_REQUESTS, PTS_IMAGE, PTS_IMAGE, 3), f"{name}: image shape {tuple(img.shape)}")
+        check(bool(torch.isfinite(img).all()), f"{name}: non-finite pixels")
+        coverage = (img.sum(-1) > 0.05).float().mean(dim=(1, 2))
+        with torch.no_grad():
+            plain = points_renderer(cams, compositors[name](), bin_size=0)(clouds)
+        diff = (img - plain).abs().amax(dim=-1)
+        frac = float((diff <= 1e-5).float().mean())
+        log(f"  {name}: coverage per request {[round(float(c), 4) for c in coverage]}, |image - bin_size=0 image|"
+            f" <= 1e-5 on {frac:.6f} of pixels (max {float(diff.max()):.3e})")
+        check(bool((coverage > 0.1).all()), f"{name}: coverage {coverage.tolist()} (the example asserts > 0.1)")
+        check(frac >= 0.999, f"{name}: only {frac:.6f} of pixels match the bin_size=0 render")
+    return counts, clouds, renderers["alpha"]
+
+
+def phase_points_bench(device):
+    """benchmarks/bm_points_knn_nerf.py:17-39's shape, forward and the
+    backward of sum(zbuf*m) + sum(dists*m) (m = filled slots), against
+    bin_size=0."""
+    import torch
+
+    from pytorch3d_tpu_torch.renderer import rasterize_points
+    from pytorch3d_tpu_torch.structures import Pointclouds
+
+    pts = bench_points(device)
+
+    def fwd_bwd(bin_size=None):
+        p = pts.clone().requires_grad_(True)
+        idx, zbuf, dists = rasterize_points(
+            Pointclouds.create(p, device=device), PTS_IMAGE, BENCH_RADIUS, BENCH_K, bin_size=bin_size
+        )
+        m = idx >= 0
+        (torch.where(m, zbuf, 0.0).sum() + torch.where(m, dists, 0.0).sum()).backward()
+        return p.grad
+
+    steps = 3
+    reset_counts()
+    for _ in range(steps):
+        grad = fwd_bwd()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    ok, ratio, share = point_grad_gate(grad, fwd_bwd(bin_size=0))
+    log(f"points-bench: {steps} fwd+bwd steps ({BENCH_POINTS} points, {PTS_IMAGE}^2, radius {BENCH_RADIUS},"
+        f" K={BENCH_K}): launches {counts}; point grad vs bin_size=0: max|diff| {ratio:.3e} of max|grad|, points"
+        f" within {POINT_GRAD_GATE:g} of their own scale {share:.6f} -> {'ok' if ok else 'FAIL'}")
+    check(counts["rasterize_points"] == steps and counts["rasterize_points_grad"] == steps,
+          f"points-bench: launches {counts} for {steps} steps (1 forward + 1 backward each)")
+    check(ok, "points-bench: the point gradient is off the bin_size=0 one")
+    ms = cuda_ms(fwd_bwd, iters=20, warmup=2)
+    log(f"times [points-bench] fwd+bwd {ms:.4f} ms, {BENCH_POINTS / ms / 1e3:.2f} Mpts/s")
+    return counts, ms
+
+
+def phase_points_fit(device, fit):
+    import torch
+
+    grads = [torch.autograd.grad(fit.forward(b), fit.offset)[0] for b in (None, 0)]
+    ok, ratio, share = point_grad_gate(*grads)
+    log(f"points-fit: step 0 point grad vs bin_size=0: max|diff| {ratio:.3e} of max|grad|, points within"
+        f" {POINT_GRAD_GATE:g} of their own scale {share:.6f} -> {'ok' if ok else 'FAIL'}")
+    check(ok, "points-fit: the step 0 point gradient is off the bin_size=0 one")
+
+    torch.cuda.synchronize()
+    losses, fwd_ms, bwd_ms = [], [], []
+    reset_counts()
+    for _ in range(PFIT_WARMUP + PFIT_STEPS):
+        t0 = time.perf_counter()
+        fit.optimizer.zero_grad()
+        loss = fit.forward()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        fit.optimizer.step()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        losses.append(loss.item())
+        fwd_ms.append((t1 - t0) * 1e3)
+        bwd_ms.append((t2 - t1) * 1e3)
+    counts = read_counts()
+    steps = PFIT_WARMUP + PFIT_STEPS
+    log(f"points-fit: {steps} Adam steps, {PTS_SAMPLES} points, {PTS_REQUESTS} views at {PTS_IMAGE}^2, K={PTS_K}:"
+        f" losses {[round(v, 6) for v in losses]}; launches {counts}")
+    check(all(math.isfinite(v) for v in losses), "points-fit: non-finite loss")
+    check(losses[-1] < losses[0], f"points-fit: loss did not fall ({losses[0]:.6f} -> {losses[-1]:.6f})")
+    want = {"rasterize_points": steps, "rasterize_points_grad": steps, "knn": 2 * steps}
+    check(all(counts[k] == n for k, n in want.items()), f"points-fit: launches {counts}, expected {want}")
+    check(bool(torch.isfinite(fit.offset).all() and torch.isfinite(fit.colour).all()), "points-fit: NaN parameters")
+    timed_f, timed_b = sorted(fwd_ms[PFIT_WARMUP:]), sorted(bwd_ms[PFIT_WARMUP:])
+    step = sorted(f + b for f, b in zip(fwd_ms[PFIT_WARMUP:], bwd_ms[PFIT_WARMUP:]))
+    mid = PFIT_STEPS // 2
+    log(f"times [points-fit step] median of {PFIT_STEPS}: step {step[mid]:.3f} ms (min {step[0]:.3f}, max"
+        f" {step[-1]:.3f}); forward {timed_f[mid]:.3f} ms; backward + Adam {timed_b[mid]:.3f} ms")
+    return counts
+
+
+def phase_points_times(device, clouds, renderer, fit):
+    """The points kernels' times, their plain versions' and their bounds
+    at the paths' shapes; the binning; the points-serving frame; a
+    profile of points-fit steps; the 1 M-point timing-only row."""
+    import torch
+
+    from pytorch3d_tpu_torch.renderer.points import rasterize_points_cuda as rpc
+    from pytorch3d_tpu_torch.renderer.points.rasterize_points import (
+        rasterize_points_grad_plain, rasterize_points_plain,
+    )
+
+    size = (PTS_IMAGE, PTS_IMAGE)
+    fine = {}
+    bench = bench_points(device)
+    big = bench_points(device, BIG_POINTS)
+    for label, pts, r, sz, k, plain_check in (
+        ("points-serving batch", served_points_ndc(device), PTS_RADIUS, size, PTS_K, True),
+        ("points-bench", bench, BENCH_RADIUS, size, BENCH_K, True),
+        (f"timing only, no plain check: {BIG_POINTS} points", big, BIG_RADIUS, (BIG_IMAGE, BIG_IMAGE), BENCH_K, False),
+    ):
+        rad, valid = uniform_radius(pts, r)
+        bins = rpc.bin_points(pts, rad, valid, sz)
+        events = cuda_ms(lambda: rpc._run_kernel(pts, rad, bins, sz, k), iters=50, warmup=5)
+        on_device = device_ms(lambda: rpc._run_kernel(pts, rad, bins, sz, k), "rasterize_points_kernel")
+        kernel = events if on_device is None else on_device
+        binning = cuda_ms(lambda: rpc.bin_points(pts, rad, valid, sz), iters=20)
+        plain = None
+        if plain_check:
+            with torch.no_grad():
+                plain = cuda_ms(lambda: rasterize_points_plain(pts, rad, valid, sz, k), iters=2, warmup=1)
+        filled = int((rpc._run_kernel(pts, rad, bins, sz, k)[0] >= 0).sum())
+        bound, bound_by, candidates, nbytes = points_fine_bound(pts, bins, sz, k, filled)
+        fine[label] = dict(kernel=kernel, binning=binning, plain=plain, bound=bound, bound_by=bound_by)
+        log(f"times [rasterize_points, {label}] N={pts.shape[0]} P={pts.shape[1]} {sz[0]}^2 K={k} radius {r}:"
+            f" kernel {kernel:.4f} ms ({'not measured by the profiler: CUDA events' if on_device is None else 'device time, profiler'};"
+            f" CUDA events over back-to-back wrapper calls {events:.4f} ms), binning {binning:.4f} ms, plain version"
+            f" {'not run' if plain is None else f'{plain:.2f} ms'}; bound {bound:.5f} ms by {bound_by} (bytes"
+            f" {nbytes / 1e6:.2f} MB = {nbytes / PEAK_BYTES_PER_S * 1e3:.5f} ms, {candidates / 1e6:.2f} M candidate"
+            f" tests, {filled} filled slots = {(candidates * POINTS_OPS_PER_CANDIDATE + filled * k) / PEAK_FP32_OPS_PER_S * 1e3:.5f}"
+            f" ms, {len(bins[0])} tile-point pairs)")
+
+    grads = {}
+    idx_b, _, _ = rpc.rasterize_points_cuda(bench, *uniform_radius(bench, BENCH_RADIUS), size, BENCH_K)
+    filled_b = (idx_b >= 0).float()  # the points-bench loss's cotangents: 1 at filled slots
+    for label, pts, idx, cots in (
+        ("points-fit step", *fit.cotangents()),
+        ("points-bench", bench, idx_b, (filled_b, filled_b)),
+    ):
+        events = cuda_ms(lambda: rpc.rasterize_points_grad_cuda(pts, idx, *cots, size), iters=50, warmup=5)
+        on_device = device_ms(lambda: rpc.rasterize_points_grad_cuda(pts, idx, *cots, size), "rasterize_points_grad_kernel")
+        kernel = events if on_device is None else on_device
+        plain = cuda_ms(lambda: rasterize_points_grad_plain(pts, idx, *cots, size), iters=5, warmup=1)
+        bound, bound_by, filled, nbytes = points_grad_bound(pts, idx, cots)
+        grads[label] = dict(kernel=kernel, plain=plain, bound=bound, bound_by=bound_by)
+        log(f"times [rasterize_points_grad, {label}] N={pts.shape[0]} P={pts.shape[1]} K={idx.shape[3]}: kernel"
+            f" {kernel:.4f} ms ({'not measured by the profiler: CUDA events' if on_device is None else 'device time, profiler'};"
+            f" CUDA events over back-to-back wrapper calls {events:.4f} ms), plain version {plain:.3f} ms; bound {bound:.5f} ms by {bound_by} (bytes"
+            f" {nbytes / 1e6:.2f} MB = {nbytes / PEAK_BYTES_PER_S * 1e3:.5f} ms, {filled / 1e6:.3f} M filled slots ="
+            f" {filled * POINTS_GRAD_OPS_PER_SLOT / PEAK_FP32_OPS_PER_S * 1e3:.5f} ms)")
+
+    with torch.no_grad():
+        frame_ms = []
+        for _ in range(2):  # warm-up
+            renderer(clouds)
+        torch.cuda.synchronize()
+        for _ in range(8):
+            t0 = time.perf_counter()
+            renderer(clouds)
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+    frame_ms.sort()
+    log(f"times [points-serving frame] {PTS_REQUESTS} requests in one render ({PTS_SAMPLES} points, {PTS_IMAGE}^2,"
+        f" K={PTS_K}, AlphaCompositor): median of 8 {frame_ms[4]:.3f} ms, min {frame_ms[0]:.3f} ms, max"
+        f" {frame_ms[-1]:.3f} ms")
+    with torch.no_grad():
+        profile("points-serving frame", lambda: [renderer(clouds) for _ in range(8)], 8)
+
+    def fit_steps():
+        for _ in range(3):
+            fit.optimizer.zero_grad()
+            fit.forward().backward()
+            fit.optimizer.step()
+
+    profile("points-fit step", fit_steps, 3)
+    return fine["points-serving batch"], grads["points-fit step"]
+
+
+def kernel_rows(launches, errors, fine, grad, knn_t, points, points_grad):
     rows = []
     for name, source, replaces, t, library in (
         ("rasterize_fine", "pytorch3d_tpu_torch/csrc/rasterize_fine.cu",
@@ -958,6 +1536,10 @@ def kernel_rows(launches, errors, fine, grad, knn_t):
         ("rasterize_grad", "pytorch3d_tpu_torch/csrc/rasterize_grad.cu",
          "pytorch3d_tpu/renderer/mesh/rasterize_pallas.py:809", grad, None),
         ("knn", "pytorch3d_tpu_torch/csrc/knn.cu", "pytorch3d_tpu/ops/knn_pallas.py:36", knn_t, knn_t["library"]),
+        ("rasterize_points", "pytorch3d_tpu_torch/csrc/rasterize_points.cu",
+         "pytorch3d_tpu/renderer/points/rasterize_points_pallas.py:285", points, None),
+        ("rasterize_points_grad", "pytorch3d_tpu_torch/csrc/rasterize_points_grad.cu",
+         "pytorch3d_tpu/renderer/points/rasterize_points_pallas.py:365", points_grad, None),
     ):
         rows.append({
             "name": name,
@@ -995,10 +1577,13 @@ def main() -> int:
         phase = "build"
         phase_build()
         phase = "kernel against plain"
+        pfit = PointsFit(device)
         errors = {
             "rasterize_fine": phase_fine_kernel(device),
             "rasterize_grad": phase_grad_kernel(device),
             "knn": phase_knn_kernel(device),
+            "rasterize_points": phase_points_kernel(device),
+            "rasterize_points_grad": phase_points_grad_kernel(device, pfit),
         }
         launches = dict.fromkeys(KERNELS, 0)
         phase = "serving"
@@ -1010,6 +1595,12 @@ def main() -> int:
         paths["render-fit"], fit = phase_render_fit(device)
         phase = "training: chamfer-fit"
         paths["chamfer-fit"] = phase_chamfer_fit(device)
+        phase = "points-serving"
+        paths["points-serving"], clouds, points_render = phase_points_serving(device)
+        phase = "points-bench"
+        paths["points-bench"], _ = phase_points_bench(device)
+        phase = "training: points-fit"
+        paths["points-fit"] = phase_points_fit(device, pfit)
         for counts in paths.values():
             for kernel, n in counts.items():
                 launches[kernel] += n
@@ -1018,7 +1609,8 @@ def main() -> int:
         log(f"launches by path: {paths}; summed {launches}")
         phase = "times"
         fine, grad, knn_t = phase_times(device, meshes, renderers, fit)
-        kernels = kernel_rows(launches, errors, fine, grad, knn_t)
+        points_t, points_grad_t = phase_points_times(device, clouds, points_render, pfit)
+        kernels = kernel_rows(launches, errors, fine, grad, knn_t, points_t, points_grad_t)
     except Exception as e:  # report which phase failed, then exit non-zero
         import traceback
 

@@ -2,9 +2,9 @@
 
 The JAX objects are flax dataclasses of arrays; a caller converts their
 fields with `np.asarray` and hands them here, so both packages render the
-same scene from the same state.  Nothing here imports JAX.  The mesh
-rendering path has no learned weights: its state is geometry, vertex
-colors, cameras, lights and materials.
+same scene from the same state.  Nothing here imports JAX.  The mesh and
+point rendering paths have no learned weights: their state is geometry,
+vertex colors or point features, cameras, lights and materials.
 """
 
 from __future__ import annotations
@@ -15,11 +15,11 @@ import numpy as np
 import torch
 
 from .common import DEFAULT_DEVICE
-from .renderer.cameras import FoVPerspectiveCameras
+from .renderer.cameras import FoVOrthographicCameras, FoVPerspectiveCameras
 from .renderer.lighting import PointLights
 from .renderer.materials import Materials
 from .renderer.mesh.textures import TexturesVertex
-from .structures import Meshes
+from .structures import Meshes, Pointclouds
 
 Device = Union[str, torch.device]
 Arrays = Union[np.ndarray, Sequence[np.ndarray]]
@@ -73,6 +73,42 @@ def fov_perspective_cameras_from_numpy(
     return FoVPerspectiveCameras.create(
         znear=_own(znear), zfar=_own(zfar), aspect_ratio=_own(aspect_ratio), fov=_own(fov),
         degrees=degrees, R=_own(R), T=_own(T), device=device,
+    )
+
+
+def pointclouds_from_numpy(
+    points: Arrays,
+    features: Optional[Arrays] = None,
+    normals: Optional[Arrays] = None,
+    num_points_per_cloud: Optional[np.ndarray] = None,
+    device: Device = DEFAULT_DEVICE,
+) -> Pointclouds:
+    """Pointclouds from per-cloud lists, or padded arrays plus counts, with
+    optional features and normals in the same form as the points."""
+    return Pointclouds.create(
+        _own(points), normals=_own(normals), features=_own(features),
+        num_points_per_cloud=_own(num_points_per_cloud), device=device,
+    )
+
+
+def fov_orthographic_cameras_from_numpy(
+    R: np.ndarray,
+    T: np.ndarray,
+    znear: np.ndarray,
+    zfar: np.ndarray,
+    max_y: np.ndarray,
+    min_y: np.ndarray,
+    max_x: np.ndarray,
+    min_x: np.ndarray,
+    scale_xyz: np.ndarray,
+    device: Device = DEFAULT_DEVICE,
+) -> FoVOrthographicCameras:
+    """FoVOrthographicCameras from the JAX camera's R, T, znear, zfar, the
+    view box bounds and scale_xyz."""
+    return FoVOrthographicCameras.create(
+        znear=_own(znear), zfar=_own(zfar), max_y=_own(max_y), min_y=_own(min_y),
+        max_x=_own(max_x), min_x=_own(min_x), scale_xyz=_own(scale_xyz),
+        R=_own(R), T=_own(T), device=device,
     )
 
 

@@ -1,8 +1,7 @@
 """Chamfer distance between point sets, with an optional normals term
 (port of pytorch3d_tpu/loss/chamfer.py), built on `knn_points`.
 
-Inputs are padded (N, P, D) tensors with optional lengths; a `Pointclouds`
-input waits for the port of structures/pointclouds.py and raises TypeError.
+Inputs are `Pointclouds` or padded (N, P, D) tensors with optional lengths.
 """
 
 from __future__ import annotations
@@ -13,15 +12,16 @@ import torch
 
 from ..common.math_utils import safe_normalize
 from ..ops.knn import knn_gather, knn_points
+from ..structures.pointclouds import Pointclouds
 
 
 def _handle_pointcloud_input(points, lengths, normals):
-    """Padded tensor (+ lengths, normals) -> (padded, lengths, normals)."""
+    """Pointclouds or padded tensor (+ lengths, normals) -> (padded,
+    lengths, normals); a Pointclouds brings its own counts and normals."""
+    if isinstance(points, Pointclouds):
+        return points.points_padded(), points.num_points_per_cloud(), points.normals_padded()
     if not isinstance(points, torch.Tensor):
-        raise TypeError(
-            f"chamfer_distance takes padded (N, P, D) tensors; got {type(points).__name__}"
-            " (Pointclouds waits for the port of structures/pointclouds.py)"
-        )
+        raise TypeError(f"chamfer_distance takes Pointclouds or (N, P, D) tensors; got {type(points).__name__}")
     if points.ndim != 3:
         raise ValueError("Expected points to be of shape (N, P, D)")
     if lengths is None:

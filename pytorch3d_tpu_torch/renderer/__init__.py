@@ -1,8 +1,9 @@
-"""Differentiable rendering (port of pytorch3d_tpu/renderer; the mesh
-rendering path so far)."""
+"""Differentiable rendering (port of pytorch3d_tpu/renderer; the mesh and
+point rendering paths so far)."""
 from .blending import BlendParams, hard_rgb_blend, sigmoid_alpha_blend, softmax_rgb_blend
 from .cameras import (
     CamerasBase,
+    FoVOrthographicCameras,
     FoVPerspectiveCameras,
     camera_position_from_spherical_angles,
     get_world_to_view_transform,
@@ -25,5 +26,17 @@ from .mesh import (
     rasterize_meshes,
 )
 from .mesh.shading import gouraud_shading, phong_shading
+from .points import (
+    AlphaCompositor,
+    NormWeightedCompositor,
+    PointFragments,
+    PointsRasterizationSettings,
+    PointsRasterizer,
+    PointsRenderer,
+    alpha_composite,
+    norm_weighted_sum,
+    rasterize_points,
+    weighted_sum,
+)
 
 __all__ = [k for k in dir() if not k.startswith("_")]

@@ -5,7 +5,8 @@ right-handed with +X left, +Y up, +Z into the screen; points are row
 vectors (``x_out = x @ M`` via `Transform3d`).
 
 Ported so far: the base class, `FoVPerspectiveCameras`,
-`look_at_view_transform` and `try_get_projection_transform`.  Cameras are
+`FoVOrthographicCameras`, `look_at_view_transform` and
+`try_get_projection_transform`.  Cameras are
 plain dataclasses holding tensors; `create` builds one on a device (CUDA
 unless the caller names another) and `replace` swaps fields.
 """
@@ -51,6 +52,18 @@ def _broadcast_batch(*tensors):
         else:
             raise ValueError("Incompatible batch sizes in camera args.")
     return out
+
+
+def _extrinsics(R, T, device: Device):
+    """R as (N, 3, 3) and T as (N, 3), the identity pose where None."""
+    R = torch.as_tensor(R, dtype=torch.float32, device=device) if R is not None else torch.eye(3, device=device)[None]
+    T = torch.as_tensor(T, dtype=torch.float32, device=device) if T is not None else torch.zeros((1, 3), device=device)
+    return (R[None] if R.ndim == 2 else R), (T[None] if T.ndim == 1 else T)
+
+
+def _rows_to_matrix(rows) -> torch.Tensor:
+    """(N, 4, 4) from four rows of four (N,) tensors."""
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
 
 
 def get_world_to_view_transform(R: torch.Tensor, T: torch.Tensor) -> Transform3d:
@@ -137,22 +150,8 @@ class FoVPerspectiveCameras(CamerasBase):
         K: Optional[torch.Tensor] = None,
         device: Device = DEFAULT_DEVICE,
     ) -> "FoVPerspectiveCameras":
-        R = (
-            torch.as_tensor(R, dtype=torch.float32, device=device)
-            if R is not None
-            else torch.eye(3, device=device)[None]
-        )
-        if R.ndim == 2:
-            R = R[None]
-        T = (
-            torch.as_tensor(T, dtype=torch.float32, device=device)
-            if T is not None
-            else torch.zeros((1, 3), device=device)
-        )
-        if T.ndim == 1:
-            T = T[None]
         R, T, znear, zfar, fov, aspect_ratio = _broadcast_batch(
-            R, T,
+            *_extrinsics(R, T, device),
             _to_batch(znear, device), _to_batch(zfar, device),
             _to_batch(fov, device), _to_batch(aspect_ratio, device),
         )
@@ -172,13 +171,12 @@ class FoVPerspectiveCameras(CamerasBase):
         max_x = max_y * aspect_ratio
         zero = torch.zeros_like(znear)
         one = torch.ones_like(znear)
-        rows = [
+        return _rows_to_matrix([
             [znear / max_x, zero, zero, zero],
             [zero, znear / max_y, zero, zero],
             [zero, zero, zfar / (zfar - znear), -(zfar * znear) / (zfar - znear)],
             [zero, zero, one, zero],
-        ]
-        return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+        ])
 
     def get_projection_transform(self, **kwargs) -> Transform3d:
         K = kwargs.get("K", self.K)
@@ -194,6 +192,104 @@ class FoVPerspectiveCameras(CamerasBase):
         return Transform3d(K.transpose(-1, -2))
 
     def is_perspective(self) -> bool:
+        return True
+
+
+@dataclasses.dataclass(frozen=True)
+class FoVOrthographicCameras(CamerasBase):
+    """OpenGL-style orthographic camera: the box [min_x, max_x] x
+    [min_y, max_y] x [znear, zfar] of view space maps to NDC x, y in
+    [-1, 1] (times scale_xyz) and z in [0, 1]."""
+
+    R: torch.Tensor
+    T: torch.Tensor
+    znear: torch.Tensor  # (N,)
+    zfar: torch.Tensor  # (N,)
+    max_y: torch.Tensor  # (N,)
+    min_y: torch.Tensor  # (N,)
+    max_x: torch.Tensor  # (N,)
+    min_x: torch.Tensor  # (N,)
+    scale_xyz: torch.Tensor  # (N, 3)
+    K: Optional[torch.Tensor] = None
+
+    @classmethod
+    def create(
+        cls,
+        znear=1.0,
+        zfar=100.0,
+        max_y=1.0,
+        min_y=-1.0,
+        max_x=1.0,
+        min_x=-1.0,
+        scale_xyz=((1.0, 1.0, 1.0),),
+        R: Optional[torch.Tensor] = None,
+        T: Optional[torch.Tensor] = None,
+        K: Optional[torch.Tensor] = None,
+        device: Device = DEFAULT_DEVICE,
+    ) -> "FoVOrthographicCameras":
+        R, T, znear, zfar, max_y, min_y, max_x, min_x, scale_xyz = _broadcast_batch(
+            *_extrinsics(R, T, device),
+            *(_to_batch(a, device) for a in (znear, zfar, max_y, min_y, max_x, min_x)),
+            _to_batch(scale_xyz, device, last_dim=3),
+        )
+        if K is not None:
+            K = torch.as_tensor(K, dtype=torch.float32, device=device)
+        return cls(
+            R=R, T=T, znear=znear, zfar=zfar, max_y=max_y, min_y=min_y,
+            max_x=max_x, min_x=min_x, scale_xyz=scale_xyz, K=K,
+        )
+
+    def compute_projection_matrix(
+        self, znear, zfar, max_x, min_x, max_y, min_y, scale_xyz
+    ) -> torch.Tensor:
+        zero = torch.zeros_like(znear)
+        one = torch.ones_like(znear)
+        return _rows_to_matrix([
+            [(2.0 / (max_x - min_x)) * scale_xyz[:, 0], zero, zero, -(max_x + min_x) / (max_x - min_x)],
+            [zero, (2.0 / (max_y - min_y)) * scale_xyz[:, 1], zero, -(max_y + min_y) / (max_y - min_y)],
+            [zero, zero, (1.0 / (zfar - znear)) * scale_xyz[:, 2], -znear / (zfar - znear)],
+            [zero, zero, zero, one],
+        ])
+
+    def get_projection_transform(self, **kwargs) -> Transform3d:
+        K = kwargs.get("K", self.K)
+        if K is None:
+            K = self.compute_projection_matrix(
+                kwargs.get("znear", self.znear),
+                kwargs.get("zfar", self.zfar),
+                kwargs.get("max_x", self.max_x),
+                kwargs.get("min_x", self.min_x),
+                kwargs.get("max_y", self.max_y),
+                kwargs.get("min_y", self.min_y),
+                kwargs.get("scale_xyz", self.scale_xyz),
+            )
+        return Transform3d(K.transpose(-1, -2))
+
+    def unproject_points(
+        self,
+        xy_depth: torch.Tensor,
+        world_coordinates: bool = True,
+        scaled_depth_input: bool = False,
+        **kwargs,
+    ) -> torch.Tensor:
+        """(N, P, 3) NDC x, y with view depth (or NDC z when
+        `scaled_depth_input`) back to world (or view) coordinates."""
+        if world_coordinates:
+            to_cam = self.get_full_projection_transform(**kwargs)
+        else:
+            to_cam = self.get_projection_transform(**kwargs)
+        if not scaled_depth_input:
+            znear = kwargs.get("znear", self.znear)[:, None, None]
+            zfar = kwargs.get("zfar", self.zfar)[:, None, None]
+            scale_z = kwargs.get("scale_xyz", self.scale_xyz)[:, None, 2:]
+            sdepth = (xy_depth[..., 2:] * scale_z - znear) / (zfar - znear)
+            xy_depth = torch.cat([xy_depth[..., :2], sdepth], dim=-1)
+        return to_cam.inverse().transform_points(xy_depth)
+
+    def is_perspective(self) -> bool:
+        return False
+
+    def in_ndc(self) -> bool:
         return True
 
 

@@ -55,33 +55,27 @@ def _tile_range(lo: torch.Tensor, hi: torch.Tensor, n_pix: int, t: int):
     return first, torch.where(hit, last - first + 1, 0)
 
 
-def bin_faces(
-    face_verts: torch.Tensor,  # (N, F, 3, 3)
-    ok: torch.Tensor,  # (N, F) bool: faces that may cover any pixel
-    image_size: Tuple[int, int],
-    blur_radius: float,
-):
-    """Per-tile face lists as CSR: (tile_faces, tile_start, n_ty, n_tx).
+def half_pixel(H: int, W: int) -> float:
+    """Half the larger NDC pixel side: how far a bounding box is grown so
+    that float rounding at its edge cannot drop a pixel center."""
+    return max(non_square_ndc_range(H, W) / H, non_square_ndc_range(W, H) / W) / 2.0
 
-    Tile `(n * n_ty + ty) * n_tx + tx` of image n owns
-    `tile_faces[tile_start[i]:tile_start[i + 1]]`, the local ids of the ok
-    faces whose bounding box, grown by sqrt(blur_radius) and half a pixel
-    (as `_tile_overlap` at rasterize_pallas.py:148-173), reaches a pixel
-    center of the tile, in ascending id.  The lists are exact: no capacity,
-    nothing dropped.
+
+def bin_boxes(xmin, xmax, ymin, ymax, ok, image_size: Tuple[int, int]):
+    """Per-tile lists of NDC boxes as CSR: (tile_items, tile_start, n_ty, n_tx).
+
+    The boxes are (N, M) tensors of bounds, one batch item of M boxes per
+    image.  Tile `(n * n_ty + ty) * n_tx + tx` of image n owns
+    `tile_items[tile_start[i]:tile_start[i + 1]]`, the local ids of the ok
+    boxes that reach a pixel center of the tile, in ascending id.  The
+    lists are exact: no capacity, nothing dropped.  The face and the point
+    binnings share it.
     """
-    N, F = face_verts.shape[:2]
+    N, M = ok.shape
     H, W = image_size
     TH, TW = TILE
     n_ty, n_tx = -(-H // TH), -(-W // TW)
-    device = face_verts.device
-    grow = (math.sqrt(blur_radius) if blur_radius > 0 else 0.0) + max(
-        non_square_ndc_range(H, W) / H, non_square_ndc_range(W, H) / W
-    ) / 2.0
-
-    x, y = face_verts[..., 0], face_verts[..., 1]  # (N, F, 3)
-    xmin, xmax = x.amin(-1) - grow, x.amax(-1) + grow
-    ymin, ymax = y.amin(-1) - grow, y.amax(-1) + grow
+    device = ok.device
     # Pixel c's center is x = -o + (r * (W - 1 - c) + o) / W (r the NDC span,
     # o = r / 2): x falls as c grows, so the largest x gives the first column.
     rx, ry = non_square_ndc_range(W, H), non_square_ndc_range(H, W)
@@ -92,20 +86,37 @@ def bin_faces(
     tx0, nx = _tile_range(c_lo, c_hi, W, TW)
     ty0, ny = _tile_range(r_lo, r_hi, H, TH)
 
-    counts = torch.where(ok, nx * ny, 0).reshape(-1)  # (N*F,)
+    counts = torch.where(ok, nx * ny, 0).reshape(-1)  # (N*M,)
     P = int(counts.sum())
-    face = torch.repeat_interleave(torch.arange(N * F, device=device), counts, output_size=P)
-    j = torch.arange(P, device=device) - (torch.cumsum(counts, 0) - counts)[face]
-    nx_f = nx.reshape(-1)[face]
-    ty = ty0.reshape(-1)[face] + j // nx_f
-    tx = tx0.reshape(-1)[face] + j % nx_f
-    n = face // F
-    key = ((n * n_ty + ty) * n_tx + tx) * F + face % F
-    key = torch.sort(key).values  # by tile, then ascending face id
+    item = torch.repeat_interleave(torch.arange(N * M, device=device), counts, output_size=P)
+    j = torch.arange(P, device=device) - (torch.cumsum(counts, 0) - counts)[item]
+    nx_f = nx.reshape(-1)[item]
+    ty = ty0.reshape(-1)[item] + j // nx_f
+    tx = tx0.reshape(-1)[item] + j % nx_f
+    n = item // M
+    key = ((n * n_ty + ty) * n_tx + tx) * M + item % M
+    key = torch.sort(key).values  # by tile, then ascending id
     n_tiles = N * n_ty * n_tx
     tile_start = torch.zeros(n_tiles + 1, dtype=torch.int64, device=device)
-    tile_start[1:] = torch.cumsum(torch.bincount(key // F, minlength=n_tiles), 0)
-    return (key % F).to(torch.int32), tile_start.to(torch.int32), n_ty, n_tx
+    tile_start[1:] = torch.cumsum(torch.bincount(key // M, minlength=n_tiles), 0)
+    return (key % M).to(torch.int32), tile_start.to(torch.int32), n_ty, n_tx
+
+
+def bin_faces(
+    face_verts: torch.Tensor,  # (N, F, 3, 3)
+    ok: torch.Tensor,  # (N, F) bool: faces that may cover any pixel
+    image_size: Tuple[int, int],
+    blur_radius: float,
+):
+    """Per-tile face lists as CSR: (tile_faces, tile_start, n_ty, n_tx), from
+    `bin_boxes` on each face's bounding box grown by sqrt(blur_radius) and
+    half a pixel (as `_tile_overlap` at rasterize_pallas.py:148-173)."""
+    H, W = image_size
+    grow = (math.sqrt(blur_radius) if blur_radius > 0 else 0.0) + half_pixel(H, W)
+    x, y = face_verts[..., 0], face_verts[..., 1]  # (N, F, 3)
+    return bin_boxes(
+        x.amin(-1) - grow, x.amax(-1) + grow, y.amin(-1) - grow, y.amax(-1) + grow, ok, image_size
+    )
 
 
 def rasterize_fragments_plain(

@@ -17,7 +17,8 @@ import torch
 from pytorch3d_tpu_torch.ops import knn as tknn
 from pytorch3d_tpu_torch.renderer import FoVPerspectiveCameras, MeshRasterizer, look_at_view_transform
 from pytorch3d_tpu_torch.renderer.mesh import rasterize_cuda as trc
-from pytorch3d_tpu_torch.structures import Meshes
+from pytorch3d_tpu_torch.renderer.points import rasterize_points_cuda as tpc
+from pytorch3d_tpu_torch.structures import Meshes, Pointclouds
 from pytorch3d_tpu_torch.utils import ico_sphere, torus
 
 
@@ -44,6 +45,7 @@ def _batch_faces(device, image_size, aspect_ratio=1.0):
 
 
 trm = importlib.import_module("pytorch3d_tpu_torch.renderer.mesh.rasterize_meshes")
+trp = importlib.import_module("pytorch3d_tpu_torch.renderer.points.rasterize_points")
 
 
 def _load_chip_smoke():
@@ -218,3 +220,123 @@ def test_knn_kernel_refuses_what_it_does_not_take(cuda_device):
     before = tknn.knn_points_cuda.launches
     out = tknn.knn_points(wide, wide, K=tknn.MAX_K + 1)
     assert tknn.knn_points_cuda.launches == before and out.idx.shape == (1, 64, tknn.MAX_K + 1)
+
+
+def _points(device, P=3000, radius=0.02, seed=0):
+    """Two clouds (P and 2P/3 live points, the rest padding) in NDC xy with
+    view z, some behind the camera; (N, P) radius and valid mask."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    pts = torch.rand((2, P, 3), generator=gen, device=device) * 2.4 - 1.2
+    pts[..., 2] = pts[..., 2].abs() * 2.0 - 0.2
+    rad = torch.full((2, P), float(radius), device=device)
+    valid = torch.arange(P, device=device)[None] < torch.tensor([P, 2 * P // 3], device=device)[:, None]
+    return pts, rad, valid
+
+
+_POINTS_GRID = [
+    ((128, 128), 0.02, 8),
+    ((128, 128), 0.0, 1),
+    ((128, 128), 0.3, 50),
+    ((96, 128), 0.02, 1),
+    ((128, 80), 0.3, 8),
+    ((96, 128), 0.0, 50),
+]
+
+
+@pytest.mark.parametrize("size,radius,K", _POINTS_GRID)
+def test_points_kernel_matches_plain(cuda_device, size, radius, K):
+    pts, rad, valid = _points(cuda_device, radius=radius)
+    rad[:, ::3] *= 0.5  # a per-point radius
+    before = tpc.rasterize_points_cuda.launches
+    got = tpc.rasterize_points_cuda(pts, rad, valid, size, K)
+    torch.cuda.synchronize()
+    assert tpc.rasterize_points_cuda.launches == before + 1
+    want = trp.rasterize_points_plain(pts, rad, valid, size, K)
+    # The plain version's arithmetic in its order, the same tie rule: ids
+    # equal, zbuf and dists equal to rounding (both without FMA contraction).
+    assert torch.equal(got[0].long(), want[0])
+    assert (got[1] - want[1]).abs().max() <= 1e-6
+    assert (got[2] - want[2]).abs().max() <= 1e-6
+    if radius == 0.0:
+        assert (got[0] == -1).all()
+
+
+def _point_grad_close(got, want, exact):
+    # fp32 atomics (kernel) and index_add_ (plain) sum per-pixel terms in
+    # orders that change from run to run: per point within 1e-5 of its own
+    # scale, against the float64 plain version (chip_smoke.py's gate).
+    assert torch.isfinite(got).all()
+    err = float((got.double() - exact).abs().max())
+    assert err <= _CHIP_SMOKE.POINT_GRAD_GATE * float(exact.abs().max()), err
+    kernel_share, plain_share = _CHIP_SMOKE.row_agreement(got, want, exact, 3, _CHIP_SMOKE.POINT_GRAD_GATE)
+    assert kernel_share >= _CHIP_SMOKE.POINT_GRAD_SHARE, (kernel_share, plain_share)
+
+
+@pytest.mark.parametrize("size,radius,K", _POINTS_GRID[:3] + _POINTS_GRID[4:5])
+def test_points_grad_kernel_matches_plain(cuda_device, size, radius, K):
+    pts, rad, valid = _points(cuda_device, radius=radius or 0.05)
+    idx, zbuf, _ = tpc.rasterize_points_cuda(pts, rad, valid, size, K)
+    gen = torch.Generator(device=cuda_device).manual_seed(K)
+    gz, gd = (torch.randn(zbuf.shape, generator=gen, device=cuda_device) for _ in range(2))
+    for cots in ((gz, gd), (None, gd), (gz, None)):
+        before = tpc.rasterize_points_grad_cuda.launches
+        got = tpc.rasterize_points_grad_cuda(pts, idx, *cots, size)
+        torch.cuda.synchronize()
+        assert tpc.rasterize_points_grad_cuda.launches == before + 1
+        want = trp.rasterize_points_grad_plain(pts, idx, *cots, size)
+        exact = trp.rasterize_points_grad_plain(pts.double(), idx, *(None if c is None else c.double() for c in cots), size)
+        _point_grad_close(got, want, exact)
+
+
+def test_backward_through_the_points_path_launches_the_grad_kernel(cuda_device):
+    pts, rad, valid = _points(cuda_device, radius=0.05)
+    counts = torch.tensor([3000, 2000], device=cuda_device)
+
+    def grad(bin_size):
+        p = pts.clone().requires_grad_(True)
+        clouds = Pointclouds.create(p, num_points_per_cloud=counts, device=cuda_device)
+        idx, zbuf, dists = trp.rasterize_points(clouds, (128, 96), rad, 8, bin_size=bin_size)
+        m = idx >= 0
+        (torch.where(m, zbuf, 0.0).sum() + torch.where(m, dists, 0.0).sum()).backward()
+        return p.grad
+
+    fwd, bwd = tpc.rasterize_points_cuda.launches, tpc.rasterize_points_grad_cuda.launches
+    got = grad(None)
+    assert (tpc.rasterize_points_cuda.launches, tpc.rasterize_points_grad_cuda.launches) == (fwd + 1, bwd + 1)
+    want = grad(0)
+    ok, ratio, share = _CHIP_SMOKE.point_grad_gate(got, want)
+    assert ok, (ratio, share)
+
+
+def test_each_points_call_counts_its_launch(cuda_device):
+    pts, rad, valid = _points(cuda_device, P=500)
+    counters = (tpc.rasterize_points_cuda, tpc.rasterize_points_grad_cuda)
+    before = [c.launches for c in counters]
+    idx, zbuf, dists = tpc.rasterize_points_cuda(pts, rad, valid, (32, 32), 4)
+    tpc.rasterize_points_grad_cuda(pts, idx, zbuf, dists, (32, 32))
+    assert [c.launches for c in counters] == [b + 1 for b in before]
+
+
+def test_points_kernels_refuse_what_they_do_not_take(cuda_device):
+    pts, rad, valid = _points(cuda_device, P=500)
+    with pytest.raises(ValueError):
+        tpc.rasterize_points_cuda(pts, rad, valid, (32, 32), tpc.MAX_POINTS_PER_PIXEL + 1)
+    with pytest.raises(TypeError):
+        tpc.rasterize_points_cuda(pts.double(), rad, valid, (32, 32), 4)
+    with pytest.raises(ValueError):
+        tpc.rasterize_points_cuda(pts.transpose(0, 1).contiguous().transpose(0, 1), rad, valid, (32, 32), 4)
+    with pytest.raises(ValueError):
+        tpc.rasterize_points_cuda(pts, rad.double(), valid, (32, 32), 4)
+
+    idx, zbuf, dists = tpc.rasterize_points_cuda(pts, rad, valid, (32, 32), 4)
+    with pytest.raises(TypeError):
+        tpc.rasterize_points_grad_cuda(pts.double(), idx, zbuf, dists, (32, 32))
+    with pytest.raises(TypeError):
+        tpc.rasterize_points_grad_cuda(pts, idx.long(), zbuf, dists, (32, 32))
+    with pytest.raises(ValueError):
+        tpc.rasterize_points_grad_cuda(pts, idx, zbuf.transpose(1, 2), dists, (32, 32))  # not contiguous
+    with pytest.raises(ValueError):
+        tpc.rasterize_points_grad_cuda(pts, idx.transpose(1, 2), zbuf, dists, (32, 32))  # not contiguous
+    wide = idx.new_full((2, 32, 32, tpc.MAX_POINTS_PER_PIXEL + 1), -1)
+    with pytest.raises(ValueError):
+        tpc.rasterize_points_grad_cuda(pts, wide, None, wide.float(), (32, 32))

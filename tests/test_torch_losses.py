@@ -251,6 +251,8 @@ def test_chamfer_and_gradients_match_jax(point_reduction, batch_reduction, norma
 
 
 def test_chamfer_refuses_pointclouds():
+    # A list of clouds is neither a Pointclouds nor a padded tensor
+    # (Pointclouds inputs are held against JAX in test_torch_points.py).
     with pytest.raises(TypeError):
         chamfer_distance([torch.zeros(4, 3)], torch.zeros(1, 4, 3))
 
