@@ -1167,33 +1167,61 @@ POINTS_OPS_PER_CANDIDATE = 6
 POINTS_GRAD_OPS_PER_SLOT = 9
 
 
-def points_fine_bound(points, bins, size, k, filled):
+def points_box_tests(points, radius, valid, size):
+    """The (pixel, point) tests the points forward needs: for each live
+    point (valid, z >= 0), the pixel centres inside its box, centre +- |r|
+    on each axis (the disc's test decides only there)."""
+    import torch
+
+    from pytorch3d_tpu_torch.renderer.mesh.rasterize_meshes import pixel_grid_ndc
+
+    ys, xs = pixel_grid_ndc(*size, points.device)
+    ys, xs = ys.flip(0).contiguous(), xs.flip(0).contiguous()  # ascending
+    live = valid & (points[..., 2] >= 0)
+    r = radius.abs()[live]
+    x, y = points[..., 0][live], points[..., 1][live]
+
+    def inside(centres, c):
+        hi = torch.searchsorted(centres, (c + r).contiguous(), right=True)
+        return hi - torch.searchsorted(centres, (c - r).contiguous(), right=False)
+
+    return float((inside(xs, x) * inside(ys, y)).double().sum())
+
+
+def points_fine_bound(points, radius, valid, size, k, filled):
     """Least time for this run's points forward: max(bytes / HBM rate,
-    ops / fp32 rate).  Bytes: each binned (point, tile) pair's 20 B
-    (x, y, z, r, id) read once per tile, the tile offsets and pixel
-    coordinates, and the outputs (int32 id, z, dist = 12 B per slot)
-    written once.  Ops: the (pixel, point) tests these bins ask for, plus K
-    compares per insertion, counting one insertion per filled slot (fewer
-    than the kernel makes: a point pushed out by a nearer one was inserted
-    too)."""
-    tile_points, tile_start, n_ty, n_tx = bins
-    N = points.shape[0]
+    ops / fp32 rate).  Bytes: the inputs read once (x, y, z, r and the
+    valid flag, 17 B per point) and the outputs (int32 id, z, dist = 12 B
+    per slot) written once.  Ops: `points_box_tests`' tests, plus K compares
+    per insertion, counting one insertion per filled slot (fewer than the
+    kernel makes: a point pushed out by a nearer one was inserted too)."""
+    N, P = points.shape[:2]
     H, W = size
-    candidates = tile_candidates(tile_start, N, n_ty, n_tx, size)
-    bytes_moved = tile_points.numel() * 20 + tile_start.numel() * 4 + (H + W) * 4 + N * H * W * k * 12
-    ops = candidates * POINTS_OPS_PER_CANDIDATE + filled * k
+    tests = points_box_tests(points, radius, valid, size)
+    bytes_moved = N * P * 17 + N * H * W * k * 12
+    ops = tests * POINTS_OPS_PER_CANDIDATE + filled * k
     t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S, ops / PEAK_FP32_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), candidates, bytes_moved
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), tests, bytes_moved
 
 
 def points_grad_bound(points, idx, cots):
     """Least time for this run's points backward: every slot's id read once,
     the cotangents given read once at the filled slots (empty slots add
-    nothing), the points read and the gradient written once; against the
-    operations of the filled slots."""
+    nothing), x and y (8 B) read once for each point that a filled slot
+    holds with a nonzero dists cotangent (z is never read) and the gradient
+    written once; against the operations of the filled slots."""
+    import torch
+
+    N, P = points.shape[:2]
     filled = int((idx >= 0).sum())
     given = sum(1 for c in cots if c is not None)
-    bytes_moved = idx.numel() * 4 + filled * 4 * given + 2 * points.numel() * 4
+    gd = cots[1]
+    touched = 0
+    if gd is not None:
+        held = (idx >= 0) & (gd != 0)
+        flat = idx.long() + (torch.arange(N, device=idx.device) * P)[:, None, None, None]
+        touched = int(torch.unique(flat[held]).numel())
+    bytes_moved = idx.numel() * 4 + filled * 4 * given + touched * 8 + points.numel() * 4
     ops = filled * POINTS_GRAD_OPS_PER_SLOT
     t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S, ops / PEAK_FP32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), filled, bytes_moved
@@ -1472,15 +1500,16 @@ def phase_points_times(device, clouds, renderer, fit):
             with torch.no_grad():
                 plain = cuda_ms(lambda: rasterize_points_plain(pts, rad, valid, sz, k), iters=2, warmup=1)
         filled = int((rpc._run_kernel(pts, rad, bins, sz, k)[0] >= 0).sum())
-        bound, bound_by, candidates, nbytes = points_fine_bound(pts, bins, sz, k, filled)
+        bound, bound_by, tests, nbytes = points_fine_bound(pts, rad, valid, sz, k, filled)
         fine[label] = dict(kernel=kernel, binning=binning, plain=plain, bound=bound, bound_by=bound_by)
         log(f"times [rasterize_points, {label}] N={pts.shape[0]} P={pts.shape[1]} {sz[0]}^2 K={k} radius {r}:"
             f" kernel {kernel:.4f} ms ({'not measured by the profiler: CUDA events' if on_device is None else 'device time, profiler'};"
             f" CUDA events over back-to-back wrapper calls {events:.4f} ms), binning {binning:.4f} ms, plain version"
             f" {'not run' if plain is None else f'{plain:.2f} ms'}; bound {bound:.5f} ms by {bound_by} (bytes"
-            f" {nbytes / 1e6:.2f} MB = {nbytes / PEAK_BYTES_PER_S * 1e3:.5f} ms, {candidates / 1e6:.2f} M candidate"
-            f" tests, {filled} filled slots = {(candidates * POINTS_OPS_PER_CANDIDATE + filled * k) / PEAK_FP32_OPS_PER_S * 1e3:.5f}"
-            f" ms, {len(bins[0])} tile-point pairs)")
+            f" {nbytes / 1e6:.2f} MB = {nbytes / PEAK_BYTES_PER_S * 1e3:.5f} ms, {tests / 1e6:.3f} M tests in the"
+            f" points' boxes, {filled} filled slots = {(tests * POINTS_OPS_PER_CANDIDATE + filled * k) / PEAK_FP32_OPS_PER_S * 1e3:.5f}"
+            f" ms; the kernel tests {tile_candidates(bins[1], pts.shape[0], bins[2], bins[3], sz) / 1e6:.2f} M"
+            f" (pixel, point) pairs of {len(bins[0])} tile-point pairs)")
 
     grads = {}
     idx_b, _, _ = rpc.rasterize_points_cuda(bench, *uniform_radius(bench, BENCH_RADIUS), size, BENCH_K)

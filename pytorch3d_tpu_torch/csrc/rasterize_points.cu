@@ -26,20 +26,21 @@
 // stable sorts do (and the TPU body's strict `<`, :339).  K is a template
 // bucket (1..64); the runtime K masks the live prefix.
 //
-// What bounds it on an H100 (data sheet: 3.35 TB/s, 67 TFLOP/s fp32).  A
-// (pixel, point) test is 6 operations (two differences, two products, their
-// sum and the compare with r^2, which is per point); built without FMA
-// contraction each issues on its own, at half the data sheet's rate.  At
-// the points-serving batch (8 clouds of 30 000 points, 256^2, r = 0.006,
-// K = 10) the 68 MB of fragments written bind (0.020 ms) ahead of ~65 M
-// candidate tests (0.012 ms); at points-bench (100 000 points, r = 0.01,
-// K = 8) the ~43 M tests and the insertions bind (0.008 ms, against 0.003 ms
-// of bytes).  chip_smoke.py computes both terms per run; on an "NVIDIA H100
-// 80GB HBM3, 700.00 W" the profiler put this kernel's device time at 0.229
-// and 0.080 ms there, 11x and 10x the bound, and the torch binning ahead of
-// it took 1.5-2.6 ms.  The
-// lists are read once per block, and each thread writes its K slots of each
-// output as one contiguous run.  The distance is computed as the plain
+// What bounds it on an H100 (data sheet: 3.35 TB/s, 67 TFLOP/s fp32).  The
+// function needs, for each live point, a test of every pixel center inside
+// its box, 6 operations each (two differences, two products, their sum and
+// the compare with r^2; built without FMA contraction each issues on its
+// own, at half the data sheet's rate), and it reads 17 B per point and
+// writes 12 B per slot.  The bytes bind at every shape chip_smoke.py runs:
+// at the points-serving batch (8 clouds of 30 000 points, 256^2,
+// r = 0.006, K = 10) the 67 MB of fragments (0.020 ms); at points-bench
+// (100 000 points, r = 0.01, K = 8) 8.0 MB (0.0024 ms), against 0.66 M box
+// tests.  The kernel tests more than that: every pixel of a tile against
+// every point of its list (65 M and 43 M pairs there).  On an "NVIDIA H100
+// 80GB HBM3, 700.00 W" the profiler put its device time at 0.231 and
+// 0.082 ms there, 11.5x and 34x the bound, and the torch binning ahead of it
+// took ~2.7 ms.  The lists are read once per block, and each thread writes
+// its K slots of each output as one contiguous run.  The distance is computed as the plain
 // version writes it, (px-x)*(px-x) + (py-y)*(py-y) against r*r with a strict
 // `<`, from the same pixel centers, and --fmad=false keeps every product
 // rounded on its own: coverage, d2 and with them the ids match the plain

@@ -27,15 +27,15 @@
 //
 // What bounds it on an H100 (data sheet: 3.35 TB/s, 67 TFLOP/s fp32).  It
 // does 9 operations per filled slot (three of them atomic adds) and reads
-// 4 bytes of id per slot plus the given cotangents (4 bytes each) at the
-// filled slots: the bytes bind, at 0.008 ms for the points-fit step
-// (8 x 256^2, K = 10, 6 % of the slots filled) by chip_smoke.py's count.
-// On an "NVIDIA H100 80GB HBM3, 700.00 W" the profiler put its device time
-// at 0.032 ms there, 4x the bound; what the rest is made of (launch, atomics,
-// the divisions of the slot index) is not measured apart yet.  Threads of a
-// warp take 32
-// consecutive (pixel, slot) entries, so the id and cotangent reads are
-// contiguous.
+// 4 bytes of id per slot, the given cotangents (4 bytes each) at the
+// filled slots and x and y of each point a slot holds with gd != 0, and
+// writes the (N*P, 3) gradient: the bytes bind, at 0.0079 ms for the
+// points-fit step (8 x 256^2, K = 10, 6 % of the slots filled) by
+// chip_smoke.py's count.  On an "NVIDIA H100 80GB HBM3, 700.00 W" the
+// profiler put its device time at 0.032 ms there, 4x the bound; what the
+// rest is made of (launch, atomics, the divisions of the slot index) is not
+// measured apart yet.  Threads of a warp take 32 consecutive (pixel, slot)
+// entries, so the id and cotangent reads are contiguous.
 #include <cuda_runtime.h>
 
 #include <cstdint>

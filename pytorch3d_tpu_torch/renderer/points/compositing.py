@@ -11,21 +11,14 @@ from __future__ import annotations
 
 import torch
 
+from ...common.gather import gather_rows
+
 
 def _gather_feats(features: torch.Tensor, pointsidx: torch.Tensor) -> torch.Tensor:
-    """features (C, P), idx (N, K, H, W) -> (N, C, K, H, W), 0 where idx < 0.
-
-    Gathers point-major rows ((P, C) layout) with `index_select`, whose
-    backward is an `index_add_`.  Empty slots gather rows spread over the
-    table rather than all row 0, so that backward adds their zeros without
-    piling atomics onto one row.
-    """
-    live = pointsidx >= 0
-    spread = torch.arange(pointsidx.numel(), device=pointsidx.device).reshape(pointsidx.shape)
-    sel = torch.where(live, pointsidx, spread % max(features.shape[1], 1))
-    g = features.t().index_select(0, sel.reshape(-1)).reshape(*pointsidx.shape, -1)  # (N, K, H, W, C)
-    g = g.movedim(-1, 1)  # (N, C, K, H, W)
-    return torch.where(live[:, None], g, 0.0)
+    """features (C, P), idx (N, K, H, W) -> (N, C, K, H, W), 0 where idx < 0;
+    gathered point-major ((P, C) rows)."""
+    g = gather_rows(features.t(), pointsidx).movedim(-1, 1)
+    return torch.where((pointsidx >= 0)[:, None], g, 0.0)
 
 
 def _masked_alphas(alphas: torch.Tensor, pointsidx: torch.Tensor) -> torch.Tensor:

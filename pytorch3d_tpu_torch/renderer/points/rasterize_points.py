@@ -23,6 +23,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from ...common.gather import gather_rows
 from ..mesh.rasterize_meshes import pixel_centers_ndc
 from ..utils import parse_image_size
 
@@ -100,19 +101,12 @@ def recompute_point_fragments(
     image_size: Tuple[int, int],
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Differentiable (zbuf, dists) (N, H, W, K) at fixed selected ids;
-    empty slots hold -1.
-
-    Empty slots gather rows spread over the table, not all row 0: their
-    values are masked, and the gather's backward (`index_add_`) then adds
-    their zeros without millions of atomics on one row.
-    """
+    empty slots hold -1."""
     N, P = points.shape[:2]
     ids = idx.long()
     live = ids >= 0
-    flat = ids + (torch.arange(N, device=ids.device) * P)[:, None, None, None]
-    spread = torch.arange(flat.numel(), device=ids.device).reshape(flat.shape) % max(N * P, 1)
-    p = points.reshape(N * P, 3).index_select(0, torch.where(live, flat, spread).reshape(-1))
-    p = p.reshape(*ids.shape, 3)
+    flat = torch.where(live, ids + (torch.arange(N, device=ids.device) * P)[:, None, None, None], -1)
+    p = gather_rows(points.reshape(N * P, 3), flat)  # masked below
     pxy = pixel_centers_ndc(*image_size, points.device, points.dtype)[:, :, None, :]
     zbuf = torch.where(live, p[..., 2], -1.0)
     dists = torch.where(live, point_distances2(pxy, p[..., :2]), -1.0)

@@ -10,12 +10,16 @@
 - Gradients with respect to the points against `jax.grad`.
 - `FoVOrthographicCameras`, the compositing functions, both compositors,
   `PointsRenderer` and `chamfer_distance` on `Pointclouds`.
+- `gather_rows`, and the work that chip_smoke.py's bounds of the points
+  kernels count.
 
 Inputs are made with numpy from a seed and handed to both packages; the
 port runs on the CPU, through its plain versions.
 """
 
 import importlib
+import importlib.util
+import pathlib
 
 import jax
 import jax.experimental.pallas as pl
@@ -37,6 +41,7 @@ from pytorch3d_tpu.renderer import (
 )
 from pytorch3d_tpu.renderer.points import compositing as jcomp
 from pytorch3d_tpu.structures import Pointclouds as JPointclouds
+from pytorch3d_tpu_torch.common.gather import gather_rows
 from pytorch3d_tpu_torch.convert import fov_orthographic_cameras_from_numpy, pointclouds_from_numpy
 from pytorch3d_tpu_torch.loss import chamfer_distance
 from pytorch3d_tpu_torch.renderer import (
@@ -47,6 +52,7 @@ from pytorch3d_tpu_torch.renderer import (
     PointsRenderer,
 )
 from pytorch3d_tpu_torch.renderer.mesh.rasterize_cuda import TILE
+from pytorch3d_tpu_torch.renderer.mesh.rasterize_meshes import pixel_centers_ndc
 from pytorch3d_tpu_torch.renderer.points import compositing as tcomp
 from pytorch3d_tpu_torch.renderer.points import rasterize_points_cuda as trc
 
@@ -92,8 +98,8 @@ def _assert_fragments(got, want, atol=1e-6):
 # test_render_points.py:209-215's regimes (points, radius range, image size),
 # each at one K of {1, 4, 8, 50}.
 _REGIMES = [
-    (2000, 0.005, 0.02, (256, 256), 4),
-    (1500, 0.01, 0.3, (128, 256), 50),  # big discs, many tiles
+    (2000, 0.005, 0.02, (128, 128), 4),
+    (1000, 0.01, 0.3, (96, 192), 50),  # big discs, many tiles
     (300, 0.0, 0.0, (64, 64), 1),  # zero radius: nothing covers
     (1000, 0.05, 0.05, (100, 200), 8),  # ragged tiles
 ]
@@ -135,7 +141,9 @@ def interpret_pallas(monkeypatch):
 
 def test_plain_matches_jax_pallas_interpret(interpret_pallas):
     pts, rad, valid = _crosscheck_cloud(0, 500, 0.05)
-    want = rpp.rasterize_points_fragments_pallas(jnp.asarray(pts), jnp.asarray(rad), jnp.asarray(valid), (64, 64), 4)
+    want = jax.jit(rpp.rasterize_points_fragments_pallas, static_argnums=(3, 4))(
+        jnp.asarray(pts), jnp.asarray(rad), jnp.asarray(valid), (64, 64), 4
+    )
     _assert_fragments(_plain(pts, rad, valid, (64, 64), 4), want)
 
 
@@ -160,7 +168,7 @@ def test_gradients_match_jax_pallas_interpret(interpret_pallas):
         m = idx >= 0
         return jnp.sum(jnp.where(m, zb, 0.0)) + jnp.sum(jnp.where(m, dd, 0.0))
 
-    want = jax.grad(loss)(jnp.asarray(pts))
+    want = jax.jit(jax.grad(loss))(jnp.asarray(pts))
     got = _masked_loss_grad_port(pts, rad, valid, (32, 32), 4)
     # Per-point sums in another order: rtol 1e-4, atol 1e-6.
     np.testing.assert_allclose(got, np.asarray(want), rtol=1e-4, atol=1e-6)
@@ -441,7 +449,7 @@ def test_chamfer_on_pointclouds_matches_jax():
         loss, loss_n = j_chamfer(cx, cy)
         return loss + loss_n
 
-    want, (gx, gy) = jax.value_and_grad(loss_j, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(y))
+    want, (gx, gy) = jax.jit(jax.value_and_grad(loss_j, argnums=(0, 1)))(jnp.asarray(x), jnp.asarray(y))
     a, b = torch.from_numpy(x).requires_grad_(True), torch.from_numpy(y).requires_grad_(True)
     cx = pointclouds_from_numpy(x, normals=xn, num_points_per_cloud=counts_x, device=CPU).update_padded(a)
     cy = pointclouds_from_numpy(y, normals=yn, num_points_per_cloud=counts_y, device=CPU).update_padded(b)
@@ -450,3 +458,65 @@ def test_chamfer_on_pointclouds_matches_jax():
     np.testing.assert_allclose((loss + loss_n).item(), float(want), rtol=1e-5)
     np.testing.assert_allclose(a.grad.numpy(), np.asarray(gx), rtol=1e-4, atol=1e-6)
     np.testing.assert_allclose(b.grad.numpy(), np.asarray(gy), rtol=1e-4, atol=1e-6)
+
+
+def test_gather_rows_reads_live_ids_and_spreads_empty_ones():
+    rng = np.random.default_rng(11)
+    table = torch.from_numpy(rng.standard_normal((7, 2, 3)).astype(np.float32)).requires_grad_(True)
+    ids = torch.from_numpy(rng.integers(-1, 7, (4, 5, 6)))
+    live = ids >= 0
+    got = gather_rows(table, ids)
+    assert got.shape == (4, 5, 6, 2, 3)
+    torch.testing.assert_close(got[live], table[ids[live]], rtol=0, atol=0)
+    # Empty ids read rows of the table, spread over it (not all row 0).
+    rows = {tuple(r.flatten().tolist()) for r in got[~live].detach()}
+    assert len(rows) > 1 and rows <= {tuple(r.flatten().tolist()) for r in table.detach()}
+    # Masked by the caller, empty slots add nothing to the gradient.
+    g = torch.from_numpy(rng.standard_normal(got.shape).astype(np.float32))
+    (torch.where(live[..., None, None], got, 0.0) * g).sum().backward()
+    expect = torch.zeros_like(table).index_add_(0, ids[live], g[live])
+    torch.testing.assert_close(table.grad, expect)
+
+
+def _chip_smoke():
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_chip_smoke_points_bounds_count_the_functions_work():
+    """chip_smoke.py's bounds of the points kernels count the work of the
+    function, not of the kernel: the pixel centres inside each live point's
+    box (brute force here), and for the backward x and y of the points held
+    by filled slots with a nonzero dists cotangent."""
+    cs = _chip_smoke()
+    rng = np.random.default_rng(12)
+    N, P, size = 2, 60, (20, 30)
+    pts = torch.from_numpy(rng.uniform(-1.2, 1.2, (N, P, 3)).astype(np.float32))
+    rad = torch.from_numpy(rng.uniform(-0.1, 0.3, (N, P)).astype(np.float32))
+    rad[0, :5] = 0.0
+    valid = torch.from_numpy(np.arange(N * P).reshape(N, P) % 5 != 0)
+    pxy = pixel_centers_ndc(*size, CPU)  # (H, W, 2)
+    live = valid & (pts[..., 2] >= 0)
+    inside = ((pxy[None, None, :, :, 0] - pts[..., 0, None, None]).abs() <= rad.abs()[..., None, None]) & (
+        (pxy[None, None, :, :, 1] - pts[..., 1, None, None]).abs() <= rad.abs()[..., None, None]
+    )
+    want = float((inside & live[..., None, None]).sum())
+    assert want > 0
+    assert cs.points_box_tests(pts, rad, valid, size) == want
+    K = 3
+    idx, _, _ = trp.rasterize_points_plain(pts, rad, valid, size, K)
+    filled = int((idx >= 0).sum())
+    bound, by, tests, nbytes = cs.points_fine_bound(pts, rad, valid, size, K, filled)
+    assert tests == want and nbytes == N * P * 17 + N * size[0] * size[1] * K * 12
+    assert bound == pytest.approx(1e3 * max(nbytes / cs.PEAK_BYTES_PER_S,
+                                            (want * cs.POINTS_OPS_PER_CANDIDATE + filled * K) / cs.PEAK_FP32_OPS_PER_S))
+    gd = torch.from_numpy(rng.standard_normal(idx.shape).astype(np.float32))
+    gd[..., 0] = 0.0
+    held = (idx >= 0) & (gd != 0)
+    touched = len({(n, int(p)) for n in range(N) for p in idx[n][held[n]]})
+    _, _, got_filled, grad_bytes = cs.points_grad_bound(pts, idx, (None, gd))
+    assert got_filled == filled
+    assert grad_bytes == idx.numel() * 4 + filled * 4 + touched * 8 + N * P * 3 * 4
