@@ -13,7 +13,9 @@ final result line:
 2. build: every CUDA kernel of the port from `pytorch3d_tpu_torch/csrc/`,
    one nvcc per source, all started together;
 3. kernel against plain: each kernel's wrapper on card tensors at the
-   paths' shapes, against its plain PyTorch version on the same inputs:
+   paths' shapes, against its plain PyTorch version on the same inputs
+   (the fused MLP kernels #10-#13 as `compare_fused` says, at the
+   nerf-trunk rows and at a training step's two field launches):
    the fine rasterizer within bench.py:_row_ok's tolerances (dists within
    1e-6, tighter than there); its backward against the plain version in
    float64, within 1e-4 of the largest gradient or no further off than
@@ -49,14 +51,23 @@ final result line:
    sampled from ico_sphere(4) to the served scene (image MSE + 0.1
    chamfer), whose loss must fall and whose step-0 point gradient is
    checked against `bin_size=0`;
-7. times, after warm-up, with CUDA events: each kernel, its plain version
+7. NeRF (the RadianceFieldRenderer defaults on tests/data/train_parity/
+   cow.npz): nerf-trunk runs MLPWithInputSkips without a head forward and
+   backward over one serving chunk's coarse points (#10, #11);
+   nerf-serving renders the 8 test views as 128^2 frames in chunks of 4096
+   rays (#12), one checked against `use_fused_kernel=False`; nerf-train
+   checks step 0's gradients against `use_fused_kernel=False` and takes 22
+   Adam steps of 1024 rays (#12, #13), whose loss must fall;
+8. times, after warm-up, with CUDA events: each kernel, its plain version
    and its bound (the point kernels' launches are short, so their time is
    the profiler's device time, beside the events'); the binning, a serving
    frame, a training step split into forward and backward; torch.profiler
    breakdowns of 8 serving and 8 points-serving frames and of render-fit
    and points-fit steps by device kernel, with the device's idle share; the
    points kernel and its binning at 1 M points, 1024^2 (a timing-only row,
-   with no plain check).
+   with no plain check); the fused MLP kernels' device times beside their
+   plain versions, the torch.addmm chain and their bounds, and profiles of
+   a NeRF frame and training steps.
 
 The last lines are a `{"kernels": [...]}` JSON line and then
 `{"ok": true, "device": {...}}`.  Without CUDA, or outside a checkout of
@@ -81,8 +92,12 @@ REPO = Path(__file__).resolve().parent
 # instruction of its own and issues at half that rate.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_OPS_PER_S = 67e12 / 2
+# The fused MLP builds with FMA: 67 TFLOP/s, an FMA counted as two.
+PEAK_FP32_FMA_OPS_PER_S = 67e12
 
-KERNELS = ("rasterize_fine", "rasterize_grad", "knn", "rasterize_points", "rasterize_points_grad")
+KERNELS = ("rasterize_fine", "rasterize_grad", "knn", "rasterize_points", "rasterize_points_grad",
+           "fused_mlp", "fused_mlp_grad", "nerf_field", "nerf_field_grad")
+SOURCES = ("rasterize_fine", "rasterize_grad", "knn", "rasterize_points", "rasterize_points_grad", "fused_mlp")
 
 # Serving (PR 1's main path).
 IMAGE = 512
@@ -138,6 +153,31 @@ POINT_IDS_GATE = 0.9999  # share of slots whose ids agree (expected: all)
 POINT_GRAD_GATE = 1e-5
 POINT_GRAD_SHARE = 0.999
 
+# NeRF: the RadianceFieldRenderer defaults (8 trunk layers of 256, the skip
+# at layer 5, colour head 128, 6 and 4 harmonics, 64 + 64 points per ray) on
+# tests/data/train_parity/cow.npz (48 views at 64^2, fov 60, depths
+# 1.0-4.5, white background; 8 test views).  Serving renders each test
+# view as a whole 128^2 frame in chunks of 4096 rays; training takes 1024
+# rays of one training view per step (projects/nerf/configs/lego.yaml),
+# Adam(5e-4).
+NERF_DATA = REPO / "tests" / "data" / "train_parity" / "cow.npz"
+NERF_FRAME = 128
+NERF_CHUNK = 4096
+NERF_RAYS = 1024
+NERF_LR = 5e-4
+NERF_WARMUP = 2
+NERF_STEPS = 20  # after the warm-up
+NERF_TIMED = 10  # steps of the forward / backward split
+# A served frame against use_fused_kernel=False: rgb_fine within
+# NERF_FRAME_TOL on >= NERF_FRAME_SHARE of the pixels (a last-bit change of
+# the coarse weights can move an importance sample).
+NERF_FRAME_TOL = 1e-4
+NERF_FRAME_SHARE = 0.999
+# The fine field's step-0 gradients end to end against use_fused_kernel=False
+# (see phase_nerf_step0): 10x the largest gap read on an H100 at 700 W
+# (1.08e-4).
+NERF_FINE_GATE = 1e-3
+
 
 class PhaseError(RuntimeError):
     pass
@@ -158,6 +198,7 @@ def log(*args) -> None:
 
 
 def _counters():
+    from pytorch3d_tpu_torch.ops import fused_mlp_cuda as fm
     from pytorch3d_tpu_torch.ops import knn
     from pytorch3d_tpu_torch.renderer.mesh import rasterize_cuda as rc
     from pytorch3d_tpu_torch.renderer.points import rasterize_points_cuda as rpc
@@ -168,6 +209,10 @@ def _counters():
         "knn": knn.knn_points_cuda,
         "rasterize_points": rpc.rasterize_points_cuda,
         "rasterize_points_grad": rpc.rasterize_points_grad_cuda,
+        "fused_mlp": fm.fused_mlp_cuda,
+        "fused_mlp_grad": fm.fused_mlp_grad_cuda,
+        "nerf_field": fm.nerf_field_cuda,
+        "nerf_field_grad": fm.nerf_field_grad_cuda,
     }
 
 
@@ -380,6 +425,95 @@ def compare_knn(p1, p2, lengths2, k, norm=2):
     return frac, (float(diff.max()) if diff.numel() else 0.0), (float(rel.max()) if rel.numel() else 0.0), both_empty
 
 
+# The fused MLP kernels (#10-#13) against their plain versions.  Forward:
+# within FUSED_FWD_GATE of the float32 plain version's largest |output|.
+# Backward: every weight, bias and head gradient within FUSED_GRAD_GATE of
+# its tensor's largest |value| against the float64 plain backward taken on
+# the float32 forward's ReLU masks (the kernel sums in another order), and
+# dx and d d_embed within that on >= FUSED_ROW_SHARE of the rows.  Against
+# the float64 backward on its own masks, a pre-activation within float32
+# noise of 0 flips a mask of every float32 evaluation alike (at the trunk
+# path's 262 144 rows the float32 plain version is 2.4e-3 of the largest
+# gradient off it on an H100), so there the kernel must be no further off
+# than FUSED_PLAIN_FACTOR times the float32 plain version (or
+# FUSED_GRAD_GATE).
+FUSED_FWD_GATE = 1e-5
+FUSED_GRAD_GATE = 1e-4
+FUSED_ROW_SHARE = 0.999
+FUSED_PLAIN_FACTOR = 1.5
+FUSED_GRAD_NAMES = ("wd", "bd", "wi", "bi", "wc1a", "wc1b", "bc1", "wc2", "bc2")
+
+
+def compare_fused(x, d_embed, weights, biases, head, skips, g):
+    """Kernels #10/#11 (head None) or #12/#13 against the plain versions on
+    the same inputs and output gradient g.
+
+    Returns a dict: "fwd" (max |diff| over the plain version's largest
+    |output|), "fwd_diff" (max |diff|), "grads" {name: (kernel vs float64 on
+    the float32 masks, kernel vs float64, float32 plain vs float64), each a
+    max error over the reference's largest |value|}, "rows" {"dx"/"dde":
+    share of rows within FUSED_GRAD_GATE of the float64 reference on the
+    float32 masks}, "worst" (the largest |diff| of any gradient there)."""
+    import torch
+
+    from pytorch3d_tpu_torch.ops import fused_mlp_cuda as fm
+
+    f64 = lambda ts: [t.double() for t in ts]
+    x64, ws64, bs64, g64 = x.double(), f64(weights), f64(biases), g.double()
+    if head is None:
+        got = fm.fused_mlp_cuda(x, weights, biases, skips)
+        dx, dws, dbs = fm.fused_mlp_grad_cuda(x, weights, biases, skips, g)
+        torch.cuda.synchronize()
+        kernel = [dx, *dws, *dbs]
+        want = fm.fused_mlp_plain(x, weights, biases, skips)
+        masks = fm.relu_masks(x, weights, biases, skips)
+        evals = [fm.fused_mlp_grad_plain(x, weights, biases, skips, g),
+                 fm.fused_mlp_grad_plain(x64, ws64, bs64, skips, g64, masks),
+                 fm.fused_mlp_grad_plain(x64, ws64, bs64, skips, g64)]
+        plain32, masked, exact = ([e[0], *e[1], *e[2]] for e in evals)
+        rows_names = ("dx",)
+    else:
+        got = fm.nerf_field_cuda(x, d_embed, weights, biases, head, skips)
+        dx, dde, dws, dbs, dhead = fm.nerf_field_grad_cuda(x, d_embed, weights, biases, head, skips, g)
+        torch.cuda.synchronize()
+        kernel = [dx, dde, *dws, *dbs, *dhead]
+        want = fm.fused_nerf_field_plain(x, d_embed, weights, biases, head, skips)
+        masks = fm.relu_masks(x, weights, biases, skips, d_embed, head)
+        de64, head64 = d_embed.double(), f64(head)
+        evals = [fm.fused_nerf_field_grad_plain(x, d_embed, weights, biases, head, skips, g),
+                 fm.fused_nerf_field_grad_plain(x64, de64, ws64, bs64, head64, skips, g64, masks),
+                 fm.fused_nerf_field_grad_plain(x64, de64, ws64, bs64, head64, skips, g64)]
+        plain32, masked, exact = ([e[0], e[1], *e[2], *e[3], *e[4]] for e in evals)
+        rows_names = ("dx", "dde")
+    fwd_diff = float((got - want).abs().max())
+    L = len(weights)
+    names = [*rows_names, *(f"W{i}" for i in range(L)), *(f"b{i}" for i in range(L)),
+             *(FUSED_GRAD_NAMES if head is not None else ())]
+
+    def ratio(a, ref):
+        return float((a.double() - ref).abs().max()) / max(float(ref.abs().max()), 1e-300)
+
+    out = {"fwd": fwd_diff / max(float(want.abs().max()), 1e-30), "fwd_diff": fwd_diff, "grads": {}, "rows": {},
+           "worst": 0.0}
+    for name, k, m, e, p in zip(names, kernel, masked, exact, plain32):
+        if name in rows_names:
+            tol = FUSED_GRAD_GATE * float(m.abs().max())
+            out["rows"][name] = float(((k.double() - m).abs().amax(dim=1) <= tol).double().mean())
+        else:
+            out["grads"][name] = (ratio(k, m), ratio(k, e), ratio(p, e))
+            out["worst"] = max(out["worst"], float((k.double() - m).abs().max()))
+    return out
+
+
+def fused_ok(result):
+    grads_ok = all(
+        masked <= FUSED_GRAD_GATE and exact <= max(FUSED_GRAD_GATE, FUSED_PLAIN_FACTOR * plain)
+        for masked, exact, plain in result["grads"].values()
+    )
+    return (result["fwd"] <= FUSED_FWD_GATE and grads_ok
+            and all(s >= FUSED_ROW_SHARE for s in result["rows"].values()))
+
+
 # --------------------------------------------------------------------------- #
 # Timing and bounds
 # --------------------------------------------------------------------------- #
@@ -402,10 +536,11 @@ def cuda_ms(fn, iters, warmup=2):
 
 def device_ms(fn, kernel, iters=20, warmup=3):
     """Device time per call of the device kernels whose name contains
-    `kernel`, from torch.profiler (CUPTI), or None where the profiler
-    recorded none.  For a launch of a few tens of microseconds, CUDA events
-    around back-to-back wrapper calls measure the host's rate of issuing
-    them (validation, pixel grid, ctypes) rather than the kernel."""
+    `kernel` (or any of a tuple of names), from torch.profiler (CUPTI), or
+    None where the profiler recorded none.  For a launch of a few tens of
+    microseconds, CUDA events around back-to-back wrapper calls measure the
+    host's rate of issuing them (validation, pixel grid, ctypes) rather than
+    the kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -418,9 +553,10 @@ def device_ms(fn, kernel, iters=20, warmup=3):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+    names = (kernel,) if isinstance(kernel, str) else kernel
     us = sum(
         e.self_device_time_total for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA and kernel in e.key
+        if e.device_type == DeviceType.CUDA and any(k in e.key for k in names)
     )
     return us / 1e3 / iters if us > 0 else None
 
@@ -534,10 +670,12 @@ def phase_build():
     from pytorch3d_tpu_torch.renderer.mesh import rasterize_cuda as rc
     from pytorch3d_tpu_torch.renderer.points import rasterize_points_cuda as rpc
 
+    from pytorch3d_tpu_torch.ops import fused_mlp_cuda as fm
+
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source, all at once
-        built = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
-    log(f"build: {len(KERNELS)} kernels in {time.perf_counter() - t0:.2f} s wall")
+    with ThreadPoolExecutor(len(SOURCES)) as pool:  # one nvcc per source, all at once
+        built = dict(zip(SOURCES, pool.map(_build.build, SOURCES)))
+    log(f"build: {len(SOURCES)} sources in {time.perf_counter() - t0:.2f} s wall")
     for name, (seconds, text) in built.items():
         log(f"build: {name} {seconds:.2f} s")
         for line in text.splitlines():
@@ -548,6 +686,7 @@ def phase_build():
     knn._library()
     rpc._library()  # checks its tile too
     rpc._grad_library()
+    fm._library()
 
 
 def phase_fine_kernel(device):
@@ -1557,8 +1696,442 @@ def phase_points_times(device, clouds, renderer, fit):
     return fine["points-serving batch"], grads["points-fit step"]
 
 
-def kernel_rows(launches, errors, fine, grad, knn_t, points, points_grad):
+# --------------------------------------------------------------------------- #
+# NeRF
+# --------------------------------------------------------------------------- #
+
+
+class NeRFScene:
+    """The full-width RadianceFieldRenderer with seeded xavier weights (zero
+    biases, as flax initialises them) and the cow.npz views."""
+
+    def __init__(self, device):
+        import numpy as np
+        import torch
+
+        from pytorch3d_tpu_torch.models import RadianceFieldRenderer
+        from pytorch3d_tpu_torch.parallel import make_nerf_train_step
+
+        data = np.load(NERF_DATA)
+        self.device = device
+        self.images = torch.tensor(data["images"].astype(np.float32), device=device)
+        self.R = torch.tensor(data["R"], device=device)
+        self.T = torch.tensor(data["T"], device=device)
+        self.fov, self.znear, self.zfar = float(data["fov"]), float(data["znear"]), float(data["zfar"])
+        self.test_idx = [int(i) for i in data["test_idx"]]
+        self.train_idx = [i for i in range(len(self.images)) if i not in self.test_idx]
+        self.model = RadianceFieldRenderer(
+            image_width=NERF_FRAME, image_height=NERF_FRAME, n_pts_per_ray=64, n_pts_per_ray_fine=64,
+            n_rays_per_image=NERF_RAYS, min_depth=self.znear, max_depth=self.zfar, bg_color=(1.0, 1.0, 1.0),
+            device=device, generator=torch.Generator(device=device).manual_seed(0),
+        )
+        self.optimizer = torch.optim.Adam(self.model.parameters(), lr=NERF_LR)
+        self.step = make_nerf_train_step(self.model, self.optimizer)
+        self.generator = torch.Generator(device=device).manual_seed(1)
+
+    def camera(self, i):
+        from pytorch3d_tpu_torch.renderer import FoVPerspectiveCameras
+
+        return FoVPerspectiveCameras.create(
+            R=self.R[i : i + 1], T=self.T[i : i + 1], fov=self.fov, znear=self.znear, zfar=self.zfar,
+            device=self.device,
+        )
+
+    def frame(self, i):
+        """One served request: test view i rendered whole, chunk by chunk;
+        (NERF_FRAME, NERF_FRAME, 3) rgb_fine."""
+        import torch
+
+        cams = self.camera(i)
+        chunks = self.model._raysampler.get_n_chunks(NERF_CHUNK, 1)
+        with torch.no_grad():
+            rgb = [self.model(cams, training=False, chunksize=NERF_CHUNK, chunk_idx=c)[0]["rgb_fine"]
+                   for c in range(chunks)]
+        return torch.cat(rgb, dim=1).reshape(NERF_FRAME, NERF_FRAME, 3)
+
+    def loss(self, view, draws):
+        _, m = self.model(self.camera(view), image=self.images[view : view + 1], training=True, draws=draws)
+        return m["mse_coarse"] + m["mse_fine"]
+
+    def field_launches(self, view):
+        """The coarse and fine field launches of one training step: for
+        each, its inputs (x, d_embed), the field's weights and its output's
+        gradient from the step's loss; no optimizer step is taken."""
+        import torch
+
+        captured, handles = [], []
+        for field in (self.model._renderer_coarse_field, self.model._renderer_fine_field):
+            def hook(module, args, kwargs, output, field=field):
+                d_embed, _ = kwargs["head"]
+                rec = {"x": args[0].detach().reshape(-1, args[0].shape[-1]).contiguous(),
+                       "de": d_embed.detach().reshape(-1, d_embed.shape[-1]).contiguous(), "field": field}
+                output.register_hook(lambda g: rec.__setitem__("g", g.reshape(-1, 4).contiguous()))
+                captured.append(rec)
+
+            handles.append(field.mlp_xyz.register_forward_hook(hook, with_kwargs=True))
+        draws = self.model.make_draws(1, True, self.generator)
+        self.loss(view, draws).backward()
+        for h in handles:
+            h.remove()
+        self.optimizer.zero_grad(set_to_none=True)
+        out = []
+        for rec in captured:
+            ws, bs = rec["field"].mlp_xyz.weights()
+            out.append((rec["x"], rec["de"], [w.detach() for w in ws], [b.detach() for b in bs],
+                        tuple(t.detach() for t in rec["field"].head_params()), rec["field"].mlp_xyz.input_skips,
+                        rec["g"]))
+        return out
+
+    def trunk_inputs(self):
+        """What Implicitron's NeRF hands MLPWithInputSkips without a head:
+        the embedded points of the first serving chunk of test view 0
+        (4096 rays x 64 coarse points = 262 144 rows x 39)."""
+        import torch
+
+        from pytorch3d_tpu_torch.renderer.implicit import ray_bundle_to_ray_points
+
+        field = self.model._renderer_coarse_field
+        with torch.no_grad():
+            bundle = self.model._raysampler(self.camera(self.test_idx[0]), chunksize=NERF_CHUNK, chunk_idx=0,
+                                            training=False)
+            x = field.harmonic_embedding_xyz(ray_bundle_to_ray_points(bundle))
+        return x.reshape(-1, x.shape[-1]).contiguous(), field.mlp_xyz
+
+
+def mlp_macs_per_row(D, H, L, skips, Ddir=0, Hh=0):
+    """Multiply-adds per row of the trunk (and, with Hh, the NeRF head):
+    each layer's input width times its output width."""
+    macs = sum(((D if li == 0 else H) + (D if li in skips else 0)) * H for li in range(L))
+    if Hh:
+        macs += H * 1 + H * H + (H + Ddir) * Hh + Hh * 3
+    return macs
+
+
+def mlp_bound(N, D, H, L, skips, Ddir=0, Hh=0, backward=False):
+    """Least time of the function's work at fp32 FMA peak and HBM rate.
+
+    Forward: 2 FLOP per multiply-add; bytes: the inputs (x, d_embed) and
+    the weights read once, the output written once.  Backward: the input
+    gradient and the weight gradients, 2 multiply-adds per forward one
+    (the kernel's recompute of the forward is not the function's work);
+    bytes: the inputs, the output gradient and the weights read once, dx,
+    d d_embed and the weight gradients written once."""
+    macs = mlp_macs_per_row(D, H, L, skips, Ddir, Hh)
+    n_weights = macs + L * H + ((H + 1 + Hh + 3) if Hh else 0)
+    out = 4 if Hh else H
+    ops = 2.0 * N * macs * (2 if backward else 1)
+    words = N * (D + Ddir) + n_weights + N * out
+    if backward:
+        words += N * (D + Ddir) + n_weights
+    t_bytes, t_ops = 4.0 * words / PEAK_BYTES_PER_S, ops / PEAK_FP32_FMA_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), ops
+
+
+def addmm_chain(x, weights, biases, skips, d_embed=None, head=None):
+    """The library yardstick of #10/#12: the layers as torch.addmm calls
+    (cuBLAS, one per layer, bias fused) and in-place ReLUs; the port calls
+    none of them."""
+    import torch
+
+    y = x
+    for li, (w, b) in enumerate(zip(weights, biases)):
+        if li in skips:
+            y = torch.cat([y, x], dim=-1)
+        y = torch.addmm(b, y, w).relu_()
+    if head is None:
+        return y
+    wd, bd, wi, bi, wc1a, wc1b, bc1, wc2, bc2 = head
+    il = torch.addmm(bi, y, wi)
+    h = torch.addmm(bc1, torch.cat([il, d_embed], dim=-1), torch.cat([wc1a, wc1b], dim=0)).relu_()
+    return torch.cat([torch.addmm(bd, y, wd), torch.addmm(bc2, h, wc2)], dim=-1)
+
+
+def fused_report(label, result):
+    grads = result["grads"]
+    worst = max(grads, key=lambda n: grads[n][0])
+    worst_exact = max(grads, key=lambda n: grads[n][1])
+    ok = fused_ok(result)
+    log(f"kernel vs plain [{label}]: forward max|diff| {result['fwd_diff']:.3e} = {result['fwd']:.3e} of max|out|;"
+        f" backward vs the float64 plain version on the float32 ReLU masks: worst {worst}"
+        f" {grads[worst][0]:.3e} of its max|grad|, rows {{{', '.join(f'{k}: {v:.6f}' for k, v in result['rows'].items())}}};"
+        f" vs the float64 plain version on its own masks: worst {worst_exact} kernel {grads[worst_exact][1]:.3e},"
+        f" float32 plain version {grads[worst_exact][2]:.3e} -> {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def phase_fused_kernels(device, scene):
+    """#10/#11 at the trunk path's rows (one serving chunk's coarse points);
+    #12/#13 at a training step's coarse and fine field launches, on the
+    step's own inputs and its loss's output gradients."""
+    import torch
+
+    x, mlp = scene.trunk_inputs()
+    ws, bs = (list(t.detach() for t in ts) for ts in mlp.weights())
+    g = torch.randn((x.shape[0], mlp.hidden_dim), generator=torch.Generator(device=device).manual_seed(5),
+                    device=device)
+    failed, errors = [], {}
+    result = compare_fused(x, None, ws, bs, None, mlp.input_skips, g)
+    if not fused_report(f"fused_mlp + grad, trunk path N={x.shape[0]} D={x.shape[1]} H={mlp.hidden_dim}"
+                        f" L={mlp.n_layers}", result):
+        failed.append("trunk")
+    errors["fused_mlp"], errors["fused_mlp_grad"] = result["fwd_diff"], result["worst"]
+    errors["nerf_field"] = errors["nerf_field_grad"] = 0.0
+    for name, (x, de, ws, bs, head, skips, g) in zip(("coarse", "fine"), scene.field_launches(scene.train_idx[0])):
+        result = compare_fused(x, de, ws, bs, head, skips, g)
+        if not fused_report(f"nerf_field + grad, training step's {name} launch N={x.shape[0]}", result):
+            failed.append(name)
+        errors["nerf_field"] = max(errors["nerf_field"], result["fwd_diff"])
+        errors["nerf_field_grad"] = max(errors["nerf_field_grad"], result["worst"])
+    del x, de, g
+    torch.cuda.empty_cache()
+    check(not failed, f"fused MLP kernels disagree with their plain versions: {failed}")
+    return errors
+
+
+def phase_nerf_trunk(device, scene):
+    """The trunk path: MLPWithInputSkips without a head, as Implicitron's NeRF
+    runs its xyz encoder, forward and backward over one serving chunk's
+    coarse points (kernels #10 and #11)."""
+    import torch
+
+    x, mlp = scene.trunk_inputs()
+    w = torch.randn((x.shape[0], mlp.hidden_dim), generator=torch.Generator(device=device).manual_seed(6),
+                    device=device)
+    reset_counts()
+    feats = mlp(x, x)
+    (feats * w).sum().backward()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    mlp.zero_grad(set_to_none=True)
+    log(f"nerf-trunk: MLPWithInputSkips (no head) forward and backward at N={x.shape[0]}: launches {counts}")
+    check(counts["fused_mlp"] == 1 and counts["fused_mlp_grad"] == 1, f"nerf-trunk: launches {counts}")
+    check(bool(torch.isfinite(feats).all()), "nerf-trunk: non-finite features")
+    return counts
+
+
+def phase_nerf_serving(device, scene):
+    """The 8 test views of cow.npz, each a whole 128^2 frame in 4 chunks
+    (2 #12 launches each); one frame against use_fused_kernel=False."""
+    import torch
+
+    torch.cuda.synchronize()
+    reset_counts()
+    frames, frame_ms = [], []
+    for i in scene.test_idx:
+        t0 = time.perf_counter()
+        frames.append(scene.frame(i))
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = read_counts()
+    chunks = scene.model._raysampler.get_n_chunks(NERF_CHUNK, 1)
+    want = 2 * chunks * len(scene.test_idx)
+    log(f"nerf-serving: {len(frames)} requests of {NERF_FRAME}^2 in {chunks} chunks of {NERF_CHUNK} rays: launches"
+        f" {counts}; frame ms {[round(v, 3) for v in frame_ms]}")
+    check(counts["nerf_field"] == want and counts["nerf_field_grad"] == 0,
+          f"nerf-serving: launches {counts}, expected {want} nerf_field")
+    for i, img in zip(scene.test_idx, frames):
+        check(img.shape == (NERF_FRAME, NERF_FRAME, 3), f"view {i}: frame shape {tuple(img.shape)}")
+        check(bool(torch.isfinite(img).all()), f"view {i}: non-finite pixels")
+    scene.model.use_fused_kernel = False
+    try:
+        plain = scene.frame(scene.test_idx[0])
+    finally:
+        scene.model.use_fused_kernel = True
+    diff = (frames[0] - plain).abs().amax(dim=-1)
+    share = float((diff <= NERF_FRAME_TOL).double().mean())
+    log(f"  view {scene.test_idx[0]} vs use_fused_kernel=False: |rgb_fine diff| <= {NERF_FRAME_TOL:g} on {share:.6f}"
+        f" of pixels (max {float(diff.max()):.3e}); rgb range [{float(frames[0].min()):.4f},"
+        f" {float(frames[0].max()):.4f}]")
+    check(share >= NERF_FRAME_SHARE, f"nerf-serving: only {share:.6f} of pixels match the plain render")
+    timed = sorted(frame_ms)
+    log(f"times [nerf-serving frame] median of the {len(timed)} requests: {timed[len(timed) // 2]:.3f} ms"
+        f" (min {timed[0]:.3f}, max {timed[-1]:.3f})")
+    return counts
+
+
+def grad_ratios(a, b):
+    """{name: max |a - b| over max |b|} of two gradient dicts."""
+    return {n: float((a[n] - b[n]).abs().max() / b[n].abs().max().clamp(min=1e-30)) for n in a}
+
+
+def phase_nerf_step0(device, scene):
+    """Step 0's gradients of every parameter, the fused path against
+    use_fused_kernel=False on the same draws.  The coarse field sees the same
+    rays on both paths: within GRAD_GATE end to end.  The fine field sees
+    depths that sample_pdf draws from the coarse weights, amplifying their
+    last-bit differences by 1 / pdf (up to ~1e4 in near-empty bins): so its
+    gradients are held within GRAD_GATE on one fine bundle shared by both
+    paths (the fused path's), and within NERF_FINE_GATE end to end."""
+    import torch
+
+    from pytorch3d_tpu_torch.models.nerf.utils import calc_mse, sample_images_at_mc_locs
+
+    model = scene.model
+    view = scene.train_idx[0]
+    draws = model.make_draws(1, True, torch.Generator(device=device).manual_seed(7))
+    fine = model._renderer_fine_field
+    grads, shared, kept = [], [], []
+    handle = fine.register_forward_hook(lambda module, args, out: kept.append(args[0]))
+    try:
+        for fused in (True, False):
+            model.use_fused_kernel = fused
+            model.zero_grad(set_to_none=True)
+            scene.loss(view, draws).backward()
+            grads.append({n: p.grad.clone() for n, p in model.named_parameters()})
+    finally:
+        handle.remove()
+    bundle = kept[0]
+    gt = sample_images_at_mc_locs(scene.images[view : view + 1], bundle.xys)
+    for fused in (True, False):
+        model.use_fused_kernel = fused
+        fine.zero_grad(set_to_none=True)
+        rgb, w = model._raymarcher(*fine(bundle))
+        calc_mse(rgb + (1.0 - w.sum(dim=-1, keepdim=True)) * model.bg_color, gt).backward()
+        shared.append({n: p.grad.clone() for n, p in fine.named_parameters()})
+    model.use_fused_kernel = True
+    model.zero_grad(set_to_none=True)
+    end_to_end, on_shared = grad_ratios(*grads), grad_ratios(*shared)
+    coarse = {n: v for n, v in end_to_end.items() if "coarse" in n}
+    fine_e2e = {n: v for n, v in end_to_end.items() if "fine" in n}
+    worst = {k: max(d, key=d.get) for k, d in (("coarse", coarse), ("shared", on_shared), ("fine", fine_e2e))}
+    log(f"nerf-train: step 0 gradients vs use_fused_kernel=False, worst of each tensor's max|grad|: coarse field"
+        f" end to end {worst['coarse']} {coarse[worst['coarse']]:.3e}; fine field on one shared fine bundle"
+        f" {worst['shared']} {on_shared[worst['shared']]:.3e}; fine field end to end {worst['fine']}"
+        f" {fine_e2e[worst['fine']]:.3e}")
+    check(all(math.isfinite(v) for v in [*end_to_end.values(), *on_shared.values()]),
+          "nerf-train: non-finite step 0 gradients")
+    check(coarse[worst["coarse"]] <= GRAD_GATE and on_shared[worst["shared"]] <= GRAD_GATE
+          and fine_e2e[worst["fine"]] <= NERF_FINE_GATE, "nerf-train: step 0 gradients off the plain path's")
+
+
+def phase_nerf_train(device, scene):
+    """Adam steps through make_nerf_train_step on one training view each."""
+    import numpy as np
+    import torch
+
+    model = scene.model
+
+    order = np.random.RandomState(0).permutation(scene.train_idx)
+    steps = NERF_WARMUP + NERF_STEPS
+    views = [int(order[i % len(order)]) for i in range(steps + NERF_TIMED)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, step_ms = [], []
+    for v in views[:steps]:
+        t0 = time.perf_counter()
+        metrics = scene.step(scene.camera(v), scene.images[v : v + 1], generator=scene.generator)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"nerf-train: {steps} Adam steps of {NERF_RAYS} rays (64 + 64 points) on one of {len(scene.train_idx)}"
+        f" views each: losses {[round(v, 6) for v in losses]}; launches {counts}; peak memory {peak_gb:.2f} GB")
+    check(all(math.isfinite(v) for v in losses), "nerf-train: non-finite loss")
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    check(last < first, f"nerf-train: the mean of the last 5 losses {last:.6f} is not below the first 5's {first:.6f}")
+    check(counts["nerf_field"] == 2 * steps and counts["nerf_field_grad"] == 2 * steps,
+          f"nerf-train: launches {counts} for {steps} steps (2 field forwards and 2 backwards each)")
+    check(all(bool(torch.isfinite(p).all()) for p in model.parameters()), "nerf-train: non-finite weights")
+    timed = sorted(step_ms[-NERF_TIMED:])
+    fwd_ms, bwd_ms = [], []
+    for v in views[steps:]:
+        t0 = time.perf_counter()
+        scene.optimizer.zero_grad(set_to_none=True)
+        loss = scene.loss(v, model.make_draws(1, True, scene.generator))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        scene.optimizer.step()
+        torch.cuda.synchronize()
+        fwd_ms.append((t1 - t0) * 1e3)
+        bwd_ms.append((time.perf_counter() - t1) * 1e3)
+    fwd_ms.sort()
+    bwd_ms.sort()
+    mid = NERF_TIMED // 2
+    log(f"times [nerf-train step] median of the last {NERF_TIMED} steps: {timed[mid]:.3f} ms (min {timed[0]:.3f},"
+        f" max {timed[-1]:.3f}); split over {NERF_TIMED} more steps: forward {fwd_ms[mid]:.3f} ms, backward + Adam"
+        f" {bwd_ms[mid]:.3f} ms; mean loss first 5 {first:.6f}, last 5 {last:.6f}")
+    return counts
+
+
+def phase_nerf_times(device, scene):
+    """#10-#13: device time (profiler), plain and library times and bounds
+    at the paths' shapes; profiles of a served frame and a training step."""
+    import torch
+
+    from pytorch3d_tpu_torch.ops import fused_mlp_cuda as fm
+
+    fwd_names = {False: "fused_mlp_fwd_kernel<false>", True: "fused_mlp_fwd_kernel<true>"}
+    bwd_names = {h: (f"fused_mlp_bwd_rows_kernel<{'true' if h else 'false'}>", "fused_mlp_bwd_weights_kernel",
+                     "fused_mlp_bwd_reduce_kernel") for h in (False, True)}
+    x, mlp = scene.trunk_inputs()
+    ws, bs = (list(t.detach() for t in ts) for ts in mlp.weights())
+    skips = mlp.input_skips
+    g = torch.randn((x.shape[0], mlp.hidden_dim), device=device)
+    cases = [("trunk path", x, None, ws, bs, None, skips, g)]
+    for name, launch in zip(("coarse", "fine"), scene.field_launches(scene.train_idx[1])):
+        cases.append((f"training step's {name} launch", *launch))
+    rows = {}
+    for label, x, de, ws, bs, head, skips, g in cases:
+        h = head is not None
+        N, D = x.shape
+        H, L = ws[0].shape[1], len(ws)
+        Ddir, Hh = (de.shape[1], head[4].shape[1]) if h else (0, 0)
+        fwd = (lambda: fm.nerf_field_cuda(x, de, ws, bs, head, skips)) if h else (lambda: fm.fused_mlp_cuda(x, ws, bs, skips))
+        bwd = ((lambda: fm.nerf_field_grad_cuda(x, de, ws, bs, head, skips, g)) if h
+               else (lambda: fm.fused_mlp_grad_cuda(x, ws, bs, skips, g)))
+        plain_f = ((lambda: fm.fused_nerf_field_plain(x, de, ws, bs, head, skips)) if h
+                   else (lambda: fm.fused_mlp_plain(x, ws, bs, skips)))
+        plain_b = ((lambda: fm.fused_nerf_field_grad_plain(x, de, ws, bs, head, skips, g)) if h
+                   else (lambda: fm.fused_mlp_grad_plain(x, ws, bs, skips, g)))
+        events_f, events_b = cuda_ms(fwd, 10, 2), cuda_ms(bwd, 5, 1)
+        dev_f, dev_b = device_ms(fwd, fwd_names[h], iters=5, warmup=1), device_ms(bwd, bwd_names[h], iters=3, warmup=1)
+        with torch.no_grad():
+            p_f = cuda_ms(plain_f, 5, 1)
+            lib_f = cuda_ms(lambda: addmm_chain(x, ws, bs, skips, de, head), 5, 1)
+        p_b = cuda_ms(plain_b, 3, 1)
+        params = [t.detach().requires_grad_(True) for t in (*ws, *bs, *(head or ()))]
+        pw, pb, ph = params[:L], params[L : 2 * L], params[2 * L :] or None
+        xr = x.detach().requires_grad_(True)
+        out = addmm_chain(xr, pw, pb, skips, de, ph)
+        lib_b = cuda_ms(lambda: torch.autograd.grad(out, [xr, *params], g, retain_graph=True), 3, 1)
+        del out
+        bound_f, by_f, ops_f = mlp_bound(N, D, H, L, skips, Ddir, Hh)
+        bound_b, by_b, ops_b = mlp_bound(N, D, H, L, skips, Ddir, Hh, backward=True)
+        kernel_f = events_f if dev_f is None else dev_f
+        kernel_b = events_b if dev_b is None else dev_b
+        log(f"times [{'nerf_field' if h else 'fused_mlp'}, {label}] N={N} D={D} H={H} L={L} Ddir={Ddir} Hh={Hh}:"
+            f" forward {kernel_f:.4f} ms ({'device time, profiler' if dev_f is not None else 'CUDA events'};"
+            f" events {events_f:.4f}), plain {p_f:.4f} ms, library (torch.addmm chain, {L + (5 if h else 0)} calls)"
+            f" {lib_f:.4f} ms, bound {bound_f:.4f} ms by {by_f} ({ops_f / 1e9:.2f} GFLOP = "
+            f"{ops_f / kernel_f / 1e9:.2f} TFLOP/s achieved); backward {kernel_b:.4f} ms"
+            f" ({'device time, profiler' if dev_b is not None else 'CUDA events'}; events {events_b:.4f}), plain"
+            f" {p_b:.4f} ms, library (autograd of the addmm chain) {lib_b:.4f} ms, bound {bound_b:.4f} ms by {by_b}"
+            f" ({ops_b / 1e9:.2f} GFLOP = {ops_b / kernel_b / 1e9:.2f} TFLOP/s achieved)")
+        rows[label] = (
+            dict(kernel=kernel_f, plain=p_f, library=lib_f, bound=bound_f, bound_by=by_f),
+            dict(kernel=kernel_b, plain=p_b, library=lib_b, bound=bound_b, bound_by=by_b),
+        )
+        del x, de, g, params, xr
+        torch.cuda.empty_cache()
+
+    profile("nerf-serving frame", lambda: scene.frame(scene.test_idx[1]), 1)
+
+    def train_steps():
+        for v in scene.train_idx[2:5]:
+            scene.step(scene.camera(v), scene.images[v : v + 1], generator=scene.generator)
+
+    profile("nerf-train step", train_steps, 3)
+    trunk = rows["trunk path"]
+    fine = rows["training step's fine launch"]
+    return trunk[0], trunk[1], fine[0], fine[1]
+
+
+def kernel_rows(launches, errors, fine, grad, knn_t, points, points_grad, mlp, mlp_grad, field, field_grad):
     rows = []
+    fused = "pytorch3d_tpu_torch/csrc/fused_mlp.cu"
     for name, source, replaces, t, library in (
         ("rasterize_fine", "pytorch3d_tpu_torch/csrc/rasterize_fine.cu",
          "pytorch3d_tpu/renderer/mesh/rasterize_pallas.py:324", fine, None),
@@ -1569,6 +2142,10 @@ def kernel_rows(launches, errors, fine, grad, knn_t, points, points_grad):
          "pytorch3d_tpu/renderer/points/rasterize_points_pallas.py:285", points, None),
         ("rasterize_points_grad", "pytorch3d_tpu_torch/csrc/rasterize_points_grad.cu",
          "pytorch3d_tpu/renderer/points/rasterize_points_pallas.py:365", points_grad, None),
+        ("fused_mlp", fused, "pytorch3d_tpu/ops/fused_mlp_pallas.py:70", mlp, mlp["library"]),
+        ("fused_mlp_grad", fused, "pytorch3d_tpu/ops/fused_mlp_pallas.py:79", mlp_grad, mlp_grad["library"]),
+        ("nerf_field", fused, "pytorch3d_tpu/ops/fused_mlp_pallas.py:328", field, field["library"]),
+        ("nerf_field_grad", fused, "pytorch3d_tpu/ops/fused_mlp_pallas.py:341", field_grad, field_grad["library"]),
     ):
         rows.append({
             "name": name,
@@ -1607,12 +2184,14 @@ def main() -> int:
         phase_build()
         phase = "kernel against plain"
         pfit = PointsFit(device)
+        nerf = NeRFScene(device)
         errors = {
             "rasterize_fine": phase_fine_kernel(device),
             "rasterize_grad": phase_grad_kernel(device),
             "knn": phase_knn_kernel(device),
             "rasterize_points": phase_points_kernel(device),
             "rasterize_points_grad": phase_points_grad_kernel(device, pfit),
+            **phase_fused_kernels(device, nerf),
         }
         launches = dict.fromkeys(KERNELS, 0)
         phase = "serving"
@@ -1630,6 +2209,13 @@ def main() -> int:
         paths["points-bench"], _ = phase_points_bench(device)
         phase = "training: points-fit"
         paths["points-fit"] = phase_points_fit(device, pfit)
+        phase = "nerf-trunk"
+        paths["nerf-trunk"] = phase_nerf_trunk(device, nerf)
+        phase = "nerf-serving"
+        paths["nerf-serving"] = phase_nerf_serving(device, nerf)
+        phase = "training: nerf-train"
+        phase_nerf_step0(device, nerf)
+        paths["nerf-train"] = phase_nerf_train(device, nerf)
         for counts in paths.values():
             for kernel, n in counts.items():
                 launches[kernel] += n
@@ -1639,7 +2225,8 @@ def main() -> int:
         phase = "times"
         fine, grad, knn_t = phase_times(device, meshes, renderers, fit)
         points_t, points_grad_t = phase_points_times(device, clouds, points_render, pfit)
-        kernels = kernel_rows(launches, errors, fine, grad, knn_t, points_t, points_grad_t)
+        nerf_t = phase_nerf_times(device, nerf)
+        kernels = kernel_rows(launches, errors, fine, grad, knn_t, points_t, points_grad_t, *nerf_t)
     except Exception as e:  # report which phase failed, then exit non-zero
         import traceback
 

@@ -23,14 +23,23 @@ PACKAGE_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 
-# --fmad=false keeps every a*b+c as a rounded multiply and a rounded add, as
-# the plain PyTorch version computes it, so coverage at pixels on an edge
-# and z ties break the same way on both.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "--fmad=false", "-Xptxas=-v",
+    "-std=c++17", "-O3", "-Xptxas=-v",
     "-shared", "-Xcompiler", "-fPIC",
 )
+
+# Per source, whether nvcc may fuse a*b+c into one FMA.  The rasterizers and
+# KNN build with --fmad=false: every a*b+c stays a rounded multiply and a
+# rounded add, as the plain PyTorch version computes it, so coverage at
+# pixels on an edge, z ties and neighbour ranks break the same way on both.
+# The fused MLP selects nothing: its sums run in another order than the
+# plain version's anyway, so it builds with FMA, which doubles its fp32 peak.
+FMAD = {"fused_mlp": True}
+
+
+def nvcc_flags(name: str) -> Tuple[str, ...]:
+    return NVCC_FLAGS + ("--fmad=true" if FMAD.get(name, False) else "--fmad=false",)
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -51,7 +60,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     source = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha1(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha1(source.read_bytes() + " ".join(nvcc_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -70,7 +79,7 @@ def build(name: str) -> Tuple[float, str]:
     os.close(fd)
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")],
+        [_nvcc(), *nvcc_flags(name), "-o", tmp, str(CSRC_DIR / f"{name}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )
     seconds = time.perf_counter() - t0

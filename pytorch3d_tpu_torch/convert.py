@@ -4,12 +4,14 @@ The JAX objects are flax dataclasses of arrays; a caller converts their
 fields with `np.asarray` and hands them here, so both packages render the
 same scene from the same state.  Nothing here imports JAX.  The mesh and
 point rendering paths have no learned weights: their state is geometry,
-vertex colors or point features, cameras, lights and materials.
+vertex colors or point features, cameras, lights and materials.  The NeRF
+model's weights convert between a flax `RadianceFieldRenderer` param tree
+(as nested dicts of numpy arrays) and the port's `state_dict`.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+from typing import Dict, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -136,3 +138,45 @@ def materials_from_numpy(
         ambient_color=_own(ambient_color), diffuse_color=_own(diffuse_color),
         specular_color=_own(specular_color), shininess=_own(shininess), device=device,
     )
+
+
+# The NeRF field's dense layers, by the flax names the port keeps.
+_NERF_FIELDS = ("_renderer_coarse_field", "_renderer_fine_field")
+_NERF_HEAD = ("intermediate_linear", "density_layer", "color_layer_hidden", "color_layer_out")
+
+
+def nerf_state_dict_from_flax(params: Mapping, device: Device = DEFAULT_DEVICE) -> Dict[str, torch.Tensor]:
+    """A `RadianceFieldRenderer` state_dict from the flax param tree
+    (`{"params": ...}` or its inside) as numpy:
+    `{_renderer_coarse_field, _renderer_fine_field}/{mlp_xyz/layer{i},
+    intermediate_linear, density_layer, color_layer_hidden,
+    color_layer_out}/{kernel, bias}`.  Flax kernels are (in, out), as the
+    port keeps them, so each tensor is copied as it is; the colour layer's
+    kernel splits at H into wc1a / wc1b in
+    `NeuralRadianceField.head_params`, as the JAX module splits it."""
+    tree = params.get("params", params)
+    state = {}
+    for field in _NERF_FIELDS:
+        mlp = tree[field]["mlp_xyz"]
+        layers = [f"mlp_xyz.layer{i}" for i in range(len(mlp))]
+        for name in layers + list(_NERF_HEAD):
+            node = tree[field]
+            for part in name.split("."):
+                node = node[part]
+            for leaf in ("kernel", "bias"):
+                state[f"{field}.{name}.{leaf}"] = torch.as_tensor(np.array(node[leaf]), dtype=torch.float32, device=device)
+    return state
+
+
+def nerf_state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """The flax param tree (`{"params": ...}`, numpy leaves) of a
+    `RadianceFieldRenderer` state_dict: the inverse of
+    `nerf_state_dict_from_flax`."""
+    tree: Dict = {}
+    for key, value in state_dict.items():
+        node = tree
+        *path, leaf = key.split(".")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = value.detach().cpu().numpy()
+    return {"params": tree}

@@ -4,9 +4,9 @@ Conventions are the JAX package's: world, view and NDC spaces are
 right-handed with +X left, +Y up, +Z into the screen; points are row
 vectors (``x_out = x @ M`` via `Transform3d`).
 
-Ported so far: the base class, `FoVPerspectiveCameras`,
-`FoVOrthographicCameras`, `look_at_view_transform` and
-`try_get_projection_transform`.  Cameras are
+Ported so far: the base class, `FoVPerspectiveCameras` (with
+`unproject_points`), `FoVOrthographicCameras`, `look_at_view_transform`
+and `try_get_projection_transform`.  Cameras are
 plain dataclasses holding tensors; `create` builds one on a device (CUDA
 unless the caller names another) and `replace` swaps fields.
 """
@@ -191,7 +191,32 @@ class FoVPerspectiveCameras(CamerasBase):
         # Row-vector convention: transpose the column-convention K.
         return Transform3d(K.transpose(-1, -2))
 
+    def unproject_points(
+        self,
+        xy_depth: torch.Tensor,
+        world_coordinates: bool = True,
+        scaled_depth_input: bool = False,
+        **kwargs,
+    ) -> torch.Tensor:
+        """(N, P, 3) NDC x, y with view depth (or NDC z when
+        `scaled_depth_input`) back to world (or view) coordinates; view depth
+        z maps to NDC z = f/(f-n) - f*n/((f-n)*z)."""
+        if world_coordinates:
+            to_cam = self.get_full_projection_transform(**kwargs)
+        else:
+            to_cam = self.get_projection_transform(**kwargs)
+        if not scaled_depth_input:
+            znear = kwargs.get("znear", self.znear)[:, None, None]
+            zfar = kwargs.get("zfar", self.zfar)[:, None, None]
+            z = xy_depth[..., 2:]
+            sdepth = (zfar / (zfar - znear)) - (zfar * znear) / ((zfar - znear) * z)
+            xy_depth = torch.cat([xy_depth[..., :2], sdepth], dim=-1)
+        return to_cam.inverse().transform_points(xy_depth)
+
     def is_perspective(self) -> bool:
+        return True
+
+    def in_ndc(self) -> bool:
         return True
 
 

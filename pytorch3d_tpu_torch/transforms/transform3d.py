@@ -85,7 +85,9 @@ class Transform3d:
         return Transform3d(m)
 
     def inverse(self) -> "Transform3d":
-        return Transform3d(torch.linalg.inv(self.matrix))
+        # inv_ex: as jnp.linalg.inv, a singular matrix gives non-finite
+        # entries rather than an error, so a CUDA call needs no host sync.
+        return Transform3d(torch.linalg.inv_ex(self.matrix).inverse)
 
     def transform_points(
         self, points: torch.Tensor, eps: Optional[float] = None
@@ -117,7 +119,7 @@ class Transform3d:
             raise ValueError(
                 f"Expected normals of shape (P, 3) or (N, P, 3); got {tuple(normals.shape)}."
             )
-        mat = torch.linalg.inv(self.matrix[:, :3, :3]).transpose(1, 2)
+        mat = torch.linalg.inv_ex(self.matrix[:, :3, :3]).inverse.transpose(1, 2)
         normals_batch = normals[None] if normals.ndim == 2 else normals
         normals_out = _broadcast_bmm(normals_batch, mat)
         if normals.ndim == 2 and normals_out.shape[0] == 1:

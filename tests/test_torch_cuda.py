@@ -340,3 +340,91 @@ def test_points_kernels_refuse_what_they_do_not_take(cuda_device):
     wide = idx.new_full((2, 32, 32, tpc.MAX_POINTS_PER_PIXEL + 1), -1)
     with pytest.raises(ValueError):
         tpc.rasterize_points_grad_cuda(pts, wide, None, wide.float(), (32, 32))
+
+
+# --------------------------------------------------------------------------- #
+# The fused MLP and NeRF field kernels (#10-#13)
+# --------------------------------------------------------------------------- #
+
+tfm = importlib.import_module("pytorch3d_tpu_torch.ops.fused_mlp_cuda")
+
+
+def _mlp_inputs(device, N, D, H, L, skips, Ddir=0, Hh=0, seed=0):
+    """Seeded xavier-scaled weights, small random biases and inputs in the
+    range of harmonic embeddings; with Ddir, the 9 head tensors too."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def dense(i, o, bias=True):
+        lim = (6.0 / (i + o)) ** 0.5
+        w = (torch.rand((i, o), generator=gen, device=device) * 2 - 1) * lim
+        b = torch.randn((o,), generator=gen, device=device) * 0.05
+        return w, b
+
+    x = torch.rand((N, D), generator=gen, device=device) * 2 - 1
+    ws, bs = zip(*[dense((D if li == 0 else H) + (D if li in skips else 0), H) for li in range(L)])
+    if not Ddir:
+        return x, None, list(ws), list(bs), None
+    de = torch.rand((N, Ddir), generator=gen, device=device) * 2 - 1
+    wd, bd = dense(H, 1)
+    wi, bi = dense(H, H)
+    wc1, bc1 = dense(H + Ddir, Hh)
+    wc2, bc2 = dense(Hh, 3)
+    head = (wd, bd, wi, bi, wc1[:H].contiguous(), wc1[H:].contiguous(), bc1, wc2, bc2)
+    return x, de, list(ws), list(bs), head
+
+
+_MLP_GRID = [
+    # N, D, H, L, skips, Ddir, Hh
+    (1000, 39, 32, 2, (1,), 0, 0),
+    (4096 + 13, 39, 256, 8, (5,), 0, 0),
+    (65536, 39, 256, 8, (5,), 27, 128),
+    (777, 63, 128, 6, (3,), 0, 0),
+    (1000, 39, 32, 2, (1,), 27, 16),
+    (4096 + 13, 39, 256, 8, (5,), 27, 128),
+    (333, 39, 200, 3, (1, 2), 15, 100),
+]
+
+
+@pytest.mark.parametrize("N,D,H,L,skips,Ddir,Hh", _MLP_GRID)
+def test_fused_kernels_match_plain(cuda_device, N, D, H, L, skips, Ddir, Hh):
+    # The plain versions' matrix products must run in float32, not TF32.
+    assert not torch.backends.cuda.matmul.allow_tf32
+    x, de, ws, bs, head = _mlp_inputs(cuda_device, N, D, H, L, skips, Ddir, Hh)
+    g = torch.randn((N, 4 if head else H), generator=torch.Generator(device=cuda_device).manual_seed(1),
+                    device=cuda_device)
+    fwd, bwd = (tfm.nerf_field_cuda, tfm.nerf_field_grad_cuda) if head else (tfm.fused_mlp_cuda, tfm.fused_mlp_grad_cuda)
+    before = (fwd.launches, bwd.launches)
+    result = _CHIP_SMOKE.compare_fused(x, de, ws, bs, head, skips, g)
+    assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert _CHIP_SMOKE.fused_ok(result), result
+
+
+def test_fused_backward_through_autograd_launches_the_kernels(cuda_device):
+    x, de, ws, bs, head = _mlp_inputs(cuda_device, 600, 39, 64, 3, (2,), 27, 32)
+    params = [*ws, *bs, *head]
+    for p in params:
+        p.requires_grad_(True)
+    before = (tfm.nerf_field_cuda.launches, tfm.nerf_field_grad_cuda.launches)
+    out = tfm.fused_nerf_field(x, de, ws, bs, head, (2,))
+    got = torch.autograd.grad((out ** 2).sum(), params)
+    assert (tfm.nerf_field_cuda.launches, tfm.nerf_field_grad_cuda.launches) == (before[0] + 1, before[1] + 1)
+    want = torch.autograd.grad((tfm.fused_nerf_field_plain(x, de, ws, bs, head, (2,)) ** 2).sum(), params)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+def test_fused_kernels_refuse_what_they_do_not_take(cuda_device):
+    x, de, ws, bs, head = _mlp_inputs(cuda_device, 100, 39, 32, 2, (1,), 27, 16)
+    with pytest.raises(TypeError):
+        tfm.fused_mlp_cuda(x.double(), [w.double() for w in ws], [b.double() for b in bs], (1,))
+    with pytest.raises(ValueError):
+        tfm.fused_mlp_cuda(x.t().contiguous().t(), ws, bs, (1,))  # not contiguous
+    with pytest.raises(ValueError):
+        tfm.fused_mlp_cuda(x, ws, bs, (0,))  # layer 0 has no hidden input to concatenate to
+    wide = _mlp_inputs(cuda_device, 100, 39, tfm.MAX_WIDTH + 1, 2, (1,))
+    with pytest.raises(ValueError):
+        tfm.fused_mlp_cuda(wide[0], wide[2], wide[3], (1,))
+    with pytest.raises(ValueError):
+        tfm.nerf_field_cuda(x, de[:50], ws, bs, head, (1,))
+    with pytest.raises(ValueError):
+        tfm.nerf_field_grad_cuda(x, de, ws, bs, head, (1,), torch.zeros((100, 3), device=cuda_device))
