@@ -15,7 +15,10 @@ final result line:
 3. kernel against plain: each kernel's wrapper on card tensors at the
    paths' shapes, against its plain PyTorch version on the same inputs
    (the fused MLP kernels #10-#13 as `compare_fused` says, at the
-   nerf-trunk rows and at a training step's two field launches):
+   nerf-trunk rows and at a training step's two field launches; #2, #3,
+   #6 and #8 as `phase_topk_kernel`, `phase_hard_kernel`,
+   `phase_select_kernel` and `compare_pulsar_grad` say, at the serving
+   batch, pulsar-serving's request 0 and pulsar-fit's step 0):
    the fine rasterizer within bench.py:_row_ok's tolerances (dists within
    1e-6, tighter than there); its backward against the plain version in
    float64, within 1e-4 of the largest gradient or no further off than
@@ -58,7 +61,17 @@ final result line:
    rays (#12), one checked against `use_fused_kernel=False`; nerf-train
    checks step 0's gradients against `use_fused_kernel=False` and takes 22
    Adam steps of 1024 rays (#12, #13), whose loss must fall;
-8. times, after warm-up, with CUDA events: each kernel, its plain version
+8. slice 5: serving-topk drives `rasterize_topk_cuda` (#2) on the
+   serving batch; pulsar-serving renders benchmarks/exp_pulsar.py's
+   100 000 spheres at 1024² for 8 yaws (#6), request 0 against the plain
+   path, then one request of 1 000 000 spheres; pulsar-fit takes 22 Adam
+   steps toward the yaw-0 render (#6, #8), whose loss must fall;
+   pulsar-points renders the points-serving scene through
+   `PulsarPointsRenderer` (#6) against the plain path; mesh-gl-serving
+   renders the serving batch through `MeshRasterizerOpenGL` and
+   `HardPhongShader` (#3) for the 8 azimuths against the same renderer
+   with `rasterize_hard_plain` patched in for the kernel;
+9. times, after warm-up, with CUDA events: each kernel, its plain version
    and its bound (the point kernels' launches are short, so their time is
    the profiler's device time, beside the events'); the binning, a serving
    frame, a training step split into forward and backward; torch.profiler
@@ -67,7 +80,10 @@ final result line:
    points kernel and its binning at 1 M points, 1024^2 (a timing-only row,
    with no plain check); the fused MLP kernels' device times beside their
    plain versions, the torch.addmm chain and their bounds, and profiles of
-   a NeRF frame and training steps.
+   a NeRF frame and training steps; #2, #3, #6 and #8 by the profiler's
+   device time beside their plain versions and bounds (#8 also beside
+   autograd of the plain blend), the pulsar request, the mesh-gl frame
+   and profiles of both and of pulsar-fit steps.
 
 The last lines are a `{"kernels": [...]}` JSON line and then
 `{"ok": true, "device": {...}}`.  Without CUDA, or outside a checkout of
@@ -96,8 +112,10 @@ PEAK_FP32_OPS_PER_S = 67e12 / 2
 PEAK_FP32_FMA_OPS_PER_S = 67e12
 
 KERNELS = ("rasterize_fine", "rasterize_grad", "knn", "rasterize_points", "rasterize_points_grad",
-           "fused_mlp", "fused_mlp_grad", "nerf_field", "nerf_field_grad")
-SOURCES = ("rasterize_fine", "rasterize_grad", "knn", "rasterize_points", "rasterize_points_grad", "fused_mlp")
+           "fused_mlp", "fused_mlp_grad", "nerf_field", "nerf_field_grad",
+           "rasterize_topk", "rasterize_hard", "select_points", "pulsar_grad")
+SOURCES = ("rasterize_fine", "rasterize_grad", "knn", "rasterize_points", "rasterize_points_grad", "fused_mlp",
+           "rasterize_hard", "pulsar_grad")
 
 # Serving (PR 1's main path).
 IMAGE = 512
@@ -178,6 +196,44 @@ NERF_FRAME_SHARE = 0.999
 # (1.08e-4).
 NERF_FINE_GATE = 1e-3
 
+# Pulsar: benchmarks/exp_pulsar.py:33-64's scene (100 000 spheres uniform in
+# [-10, 10]^2 x [20, 40], radius 0.1, camera [0,0,0, 0,0,0, 5, 2]) at
+# 1024^2, n_track 5, gamma 0.1, depths 1-45, served for 8 yaws evenly in
+# [-0.2, 0.2] rad; one request at 1 000 000 spheres (the reference's
+# regime); pulsar-fit takes 22 Adam steps toward the yaw-0 render.
+PULSAR_SPHERES, PULSAR_BIG = 100_000, 1_000_000
+PULSAR_IMAGE = 1024
+PULSAR_TRACK = 5
+PULSAR_GAMMA = 0.1
+PULSAR_DEPTH = (1.0, 45.0)  # (min_depth, max_depth)
+PULSAR_REQUESTS = 8
+PULSAR_YAWS = [-0.2 + 0.4 * i / (PULSAR_REQUESTS - 1) for i in range(PULSAR_REQUESTS)]
+PULSAR_FIT_STEPS = 22
+PULSAR_FIT_TIMED = 10  # the last steps, whose median is the step time
+PULSAR_FIT_LR = 1e-2
+PULSAR_IMAGE_TOL, PULSAR_IMAGE_SHARE = 1e-5, 0.999  # images against the plain path
+PULSAR_IDS_GATE = 0.9999  # #6: share of slots whose ids agree (expected: all)
+# #8 against the float64 plain version: each field within PULSAR_GRAD_GATE
+# of its largest entry, or no further off than PULSAR_GRAD_PLAIN_FACTOR x the
+# float32 plain version.  The float32 blend gradient is ill-conditioned:
+# dL/dw = ct . (col - I) / denom cancels where the front sphere's colour
+# makes the image, so the float32 plain version itself sits further than
+# PULSAR_GRAD_GATE off float64 (4.5e-5 of a field's largest entry at
+# pulsar-serving on an H100); the kernel sums the same terms in another
+# order.
+# Per sphere, the share within PULSAR_GRAD_GATE of its own scale may fall
+# PULSAR_GRAD_SHARE_MARGIN below the float32 plain version's: runs on an
+# H100 read kernel 0.99760 / plain 0.99763 (serving), 0.99912 / 0.99907
+# (fit step 0) and 0.62366 / 0.62361 (pulsar-points at gamma 1e-4), gaps
+# of at most 7e-5.
+PULSAR_GRAD_GATE = 1e-5
+PULSAR_GRAD_PLAIN_FACTOR = 2.0
+PULSAR_GRAD_SHARE_MARGIN = 1e-3
+HARD_IDS_GATE = 0.999  # #3: share of pixels whose ids agree
+# PulsarPointsRenderer's defaults, at which pulsar-points renders:
+# gamma 1e-4, (znear, zfar) = (0.1, 100).
+PULSAR_POINTS_GAMMA, PULSAR_POINTS_DEPTH = 1e-4, (0.1, 100.0)
+
 
 class PhaseError(RuntimeError):
     pass
@@ -204,6 +260,10 @@ def _counters():
     from pytorch3d_tpu_torch.renderer.points import rasterize_points_cuda as rpc
 
     return {
+        "rasterize_topk": rc.rasterize_topk_cuda,
+        "rasterize_hard": rc.rasterize_hard_cuda,
+        "select_points": rpc.select_points_cuda,
+        "pulsar_grad": rpc.pulsar_blend_grads_cuda,
         "rasterize_fine": rc.rasterize_fragments_cuda,
         "rasterize_grad": rc.rasterize_grad_cuda,
         "knn": knn.knn_points_cuda,
@@ -536,8 +596,9 @@ def cuda_ms(fn, iters, warmup=2):
 
 def device_ms(fn, kernel, iters=20, warmup=3):
     """Device time per call of the device kernels whose name contains
-    `kernel` (or any of a tuple of names), from torch.profiler (CUPTI), or
-    None where the profiler recorded none.  For a launch of a few tens of
+    `kernel` (or any of a tuple of names), from torch.profiler (CUPTI).
+    Raises where the profiler recorded none of them, so that a kernel's
+    row never turns into another measure unnoticed.  For a launch of a few tens of
     microseconds, CUDA events around back-to-back wrapper calls measure the
     host's rate of issuing them (validation, pixel grid, ctypes) rather than
     the kernel."""
@@ -558,7 +619,8 @@ def device_ms(fn, kernel, iters=20, warmup=3):
         e.self_device_time_total for e in prof.key_averages()
         if e.device_type == DeviceType.CUDA and any(k in e.key for k in names)
     )
-    return us / 1e3 / iters if us > 0 else None
+    check(us > 0, f"the profiler recorded no device kernel named {names}")
+    return us / 1e3 / iters
 
 
 def fine_ops_per_candidate(persp, clip):
@@ -586,24 +648,26 @@ def tile_candidates(tile_start, N, n_ty, n_tx, size):
     return float((per_tile * per_tile.new_tensor(pix)).sum())
 
 
-def fine_bound(fv, bins, size, k, persp, clip):
+def fine_bound(fv, valid, bins, size, blur, k, persp, clip):
     """Least time for this run's work: max(bytes / HBM rate, ops / fp32 rate).
 
     Bytes: face verts, the tile lists and pixel coordinates read once; the
     four outputs (int32 id, z, 3 bary, dist = 24 B per slot) written once.
-    Ops: the (pixel, face) tests these bins ask for, times the ops per test.
+    Ops: the (pixel, face) tests the function needs, `face_box_tests` (the
+    pixel centres inside each face's blur-grown box), times the ops per
+    test; the kernel makes `tile_candidates` tests, more than that.
     """
     tile_faces, tile_start, n_ty, n_tx = bins
     N, F = fv.shape[:2]
     H, W = size
-    candidates = tile_candidates(tile_start, N, n_ty, n_tx, size)
+    tests = face_box_tests(fv, valid, size, blur)
     bytes_moved = (
         N * F * 36 + tile_faces.numel() * 4 + tile_start.numel() * 4 + (H + W) * 4
         + N * H * W * k * 24
     )
-    ops = candidates * fine_ops_per_candidate(persp, clip)
+    ops = tests * fine_ops_per_candidate(persp, clip)
     t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S, ops / PEAK_FP32_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), candidates, bytes_moved
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), tests, bytes_moved
 
 
 def grad_ops_per_slot(persp, clip):
@@ -687,6 +751,8 @@ def phase_build():
     rpc._library()  # checks its tile too
     rpc._grad_library()
     fm._library()
+    rc._hard_library()
+    rpc._pulsar_grad_library()
 
 
 def phase_fine_kernel(device):
@@ -1056,13 +1122,14 @@ def phase_times(device, meshes, renderers, fit):
                 lambda: rc.rasterize_fragments_plain(fv, valid, size, BLUR, K, True, True, False),
                 iters=3, warmup=1,
             )
-        bound, bound_by, candidates, nbytes = fine_bound(fv, bins, size, K, True, True)
+        bound, bound_by, tests, nbytes = fine_bound(fv, valid, bins, size, BLUR, K, True, True)
         out[label] = dict(kernel=kernel, binning=binning, plain=plain, bound=bound, bound_by=bound_by)
         log(f"times [rasterize_fine, {label}] N={fv.shape[0]} F={fv.shape[1]} {IMAGE}^2 K={K}: kernel {kernel:.4f} ms,"
             f" binning {binning:.4f} ms, plain version {plain:.2f} ms; bound {bound:.4f} ms by {bound_by}"
             f" (bytes {nbytes / 1e6:.1f} MB = {nbytes / PEAK_BYTES_PER_S * 1e3:.4f} ms,"
-            f" {candidates / 1e6:.2f} M candidate tests ="
-            f" {candidates * fine_ops_per_candidate(True, True) / PEAK_FP32_OPS_PER_S * 1e3:.4f} ms,"
+            f" {tests / 1e6:.3f} M box tests ="
+            f" {tests * fine_ops_per_candidate(True, True) / PEAK_FP32_OPS_PER_S * 1e3:.4f} ms; the kernel tests"
+            f" {tile_candidates(bins[1], fv.shape[0], bins[2], bins[3], size) / 1e6:.2f} M (pixel, face) pairs of"
             f" {len(bins[0])} tile-face pairs)")
 
     # The backward kernel on the render-fit step's own ids and cotangents,
@@ -1631,8 +1698,7 @@ def phase_points_times(device, clouds, renderer, fit):
         rad, valid = uniform_radius(pts, r)
         bins = rpc.bin_points(pts, rad, valid, sz)
         events = cuda_ms(lambda: rpc._run_kernel(pts, rad, bins, sz, k), iters=50, warmup=5)
-        on_device = device_ms(lambda: rpc._run_kernel(pts, rad, bins, sz, k), "rasterize_points_kernel")
-        kernel = events if on_device is None else on_device
+        kernel = device_ms(lambda: rpc._run_kernel(pts, rad, bins, sz, k), "rasterize_points_kernel")
         binning = cuda_ms(lambda: rpc.bin_points(pts, rad, valid, sz), iters=20)
         plain = None
         if plain_check:
@@ -1642,7 +1708,7 @@ def phase_points_times(device, clouds, renderer, fit):
         bound, bound_by, tests, nbytes = points_fine_bound(pts, rad, valid, sz, k, filled)
         fine[label] = dict(kernel=kernel, binning=binning, plain=plain, bound=bound, bound_by=bound_by)
         log(f"times [rasterize_points, {label}] N={pts.shape[0]} P={pts.shape[1]} {sz[0]}^2 K={k} radius {r}:"
-            f" kernel {kernel:.4f} ms ({'not measured by the profiler: CUDA events' if on_device is None else 'device time, profiler'};"
+            f" kernel {kernel:.4f} ms (device time, profiler;"
             f" CUDA events over back-to-back wrapper calls {events:.4f} ms), binning {binning:.4f} ms, plain version"
             f" {'not run' if plain is None else f'{plain:.2f} ms'}; bound {bound:.5f} ms by {bound_by} (bytes"
             f" {nbytes / 1e6:.2f} MB = {nbytes / PEAK_BYTES_PER_S * 1e3:.5f} ms, {tests / 1e6:.3f} M tests in the"
@@ -1658,13 +1724,12 @@ def phase_points_times(device, clouds, renderer, fit):
         ("points-bench", bench, idx_b, (filled_b, filled_b)),
     ):
         events = cuda_ms(lambda: rpc.rasterize_points_grad_cuda(pts, idx, *cots, size), iters=50, warmup=5)
-        on_device = device_ms(lambda: rpc.rasterize_points_grad_cuda(pts, idx, *cots, size), "rasterize_points_grad_kernel")
-        kernel = events if on_device is None else on_device
+        kernel = device_ms(lambda: rpc.rasterize_points_grad_cuda(pts, idx, *cots, size), "rasterize_points_grad_kernel")
         plain = cuda_ms(lambda: rasterize_points_grad_plain(pts, idx, *cots, size), iters=5, warmup=1)
         bound, bound_by, filled, nbytes = points_grad_bound(pts, idx, cots)
         grads[label] = dict(kernel=kernel, plain=plain, bound=bound, bound_by=bound_by)
         log(f"times [rasterize_points_grad, {label}] N={pts.shape[0]} P={pts.shape[1]} K={idx.shape[3]}: kernel"
-            f" {kernel:.4f} ms ({'not measured by the profiler: CUDA events' if on_device is None else 'device time, profiler'};"
+            f" {kernel:.4f} ms (device time, profiler;"
             f" CUDA events over back-to-back wrapper calls {events:.4f} ms), plain version {plain:.3f} ms; bound {bound:.5f} ms by {bound_by} (bytes"
             f" {nbytes / 1e6:.2f} MB = {nbytes / PEAK_BYTES_PER_S * 1e3:.5f} ms, {filled / 1e6:.3f} M filled slots ="
             f" {filled * POINTS_GRAD_OPS_PER_SLOT / PEAK_FP32_OPS_PER_S * 1e3:.5f} ms)")
@@ -2087,7 +2152,7 @@ def phase_nerf_times(device, scene):
         plain_b = ((lambda: fm.fused_nerf_field_grad_plain(x, de, ws, bs, head, skips, g)) if h
                    else (lambda: fm.fused_mlp_grad_plain(x, ws, bs, skips, g)))
         events_f, events_b = cuda_ms(fwd, 10, 2), cuda_ms(bwd, 5, 1)
-        dev_f, dev_b = device_ms(fwd, fwd_names[h], iters=5, warmup=1), device_ms(bwd, bwd_names[h], iters=3, warmup=1)
+        kernel_f, kernel_b = device_ms(fwd, fwd_names[h], iters=5, warmup=1), device_ms(bwd, bwd_names[h], iters=3, warmup=1)
         with torch.no_grad():
             p_f = cuda_ms(plain_f, 5, 1)
             lib_f = cuda_ms(lambda: addmm_chain(x, ws, bs, skips, de, head), 5, 1)
@@ -2100,14 +2165,12 @@ def phase_nerf_times(device, scene):
         del out
         bound_f, by_f, ops_f = mlp_bound(N, D, H, L, skips, Ddir, Hh)
         bound_b, by_b, ops_b = mlp_bound(N, D, H, L, skips, Ddir, Hh, backward=True)
-        kernel_f = events_f if dev_f is None else dev_f
-        kernel_b = events_b if dev_b is None else dev_b
         log(f"times [{'nerf_field' if h else 'fused_mlp'}, {label}] N={N} D={D} H={H} L={L} Ddir={Ddir} Hh={Hh}:"
-            f" forward {kernel_f:.4f} ms ({'device time, profiler' if dev_f is not None else 'CUDA events'};"
+            f" forward {kernel_f:.4f} ms (device time, profiler;"
             f" events {events_f:.4f}), plain {p_f:.4f} ms, library (torch.addmm chain, {L + (5 if h else 0)} calls)"
             f" {lib_f:.4f} ms, bound {bound_f:.4f} ms by {by_f} ({ops_f / 1e9:.2f} GFLOP = "
             f"{ops_f / kernel_f / 1e9:.2f} TFLOP/s achieved); backward {kernel_b:.4f} ms"
-            f" ({'device time, profiler' if dev_b is not None else 'CUDA events'}; events {events_b:.4f}), plain"
+            f" (device time, profiler; events {events_b:.4f}), plain"
             f" {p_b:.4f} ms, library (autograd of the addmm chain) {lib_b:.4f} ms, bound {bound_b:.4f} ms by {by_b}"
             f" ({ops_b / 1e9:.2f} GFLOP = {ops_b / kernel_b / 1e9:.2f} TFLOP/s achieved)")
         rows[label] = (
@@ -2128,8 +2191,736 @@ def phase_nerf_times(device, scene):
     fine = rows["training step's fine launch"]
     return trunk[0], trunk[1], fine[0], fine[1]
 
+# --------------------------------------------------------------------------- #
+# Pulsar and the hard rasterizer (#2, #3, #6, #8)
+# --------------------------------------------------------------------------- #
 
-def kernel_rows(launches, errors, fine, grad, knn_t, points, points_grad, mlp, mlp_grad, field, field_grad):
+
+def pulsar_scene(device, n):
+    """benchmarks/exp_pulsar.py:33-47: n spheres uniform in [-10, 10]^2 x
+    [20, 40], colours from the same RandomState(42), radius 0.1."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(42)
+    pos = np.stack([rng.uniform(-10, 10, n), rng.uniform(-10, 10, n), rng.uniform(20, 40, n)], axis=-1)
+    col = rng.rand(n, 3)
+    return (torch.tensor(pos, dtype=torch.float32, device=device),
+            torch.tensor(col, dtype=torch.float32, device=device),
+            torch.full((n,), 0.1, dtype=torch.float32, device=device))
+
+
+def pulsar_cam(yaw, device):
+    """exp_pulsar.py:52's camera [0,0,0, 0,0,0, focal 5, sensor 2], turned
+    by `yaw` radians about y (its ry)."""
+    import torch
+
+    return torch.tensor([0.0, 0.0, 0.0, 0.0, float(yaw), 0.0, 5.0, 2.0], device=device)
+
+
+def pulsar_renderer(n):
+    from pytorch3d_tpu_torch.renderer.points.pulsar import Renderer
+
+    return Renderer(PULSAR_IMAGE, PULSAR_IMAGE, n, n_track=PULSAR_TRACK)
+
+
+def pulsar_render(ren, scene, yaw, device, opacity=None):
+    pos, col, rad = scene
+    return ren(pos, col, rad, pulsar_cam(yaw, device), PULSAR_GAMMA, PULSAR_DEPTH[1],
+               min_depth=PULSAR_DEPTH[0], opacity=opacity)
+
+
+def plain_pulsar(renderer, ids=None):
+    """The plain path of a pulsar `Renderer`: a copy of it whose select is
+    the plain version (`rasterize_points_topk`) on the card, or returns ids
+    that version gave already."""
+    import copy
+
+    from pytorch3d_tpu_torch.renderer.points.rasterize_points import rasterize_points_topk
+
+    def select(pts_ndc, r_ndc, valid):
+        if ids is not None:
+            return ids, None
+        size = (renderer._height, renderer._width)
+        return rasterize_points_topk(pts_ndc.detach(), r_ndc.detach(), valid, size, renderer._n_track), None
+
+    plain = copy.copy(renderer)
+    plain._select = select
+    return plain
+
+
+def image_agreement(got, want, tol):
+    """Share of pixels whose channels all lie within tol, and the largest
+    difference."""
+    diff = (got - want).abs().amax(dim=-1)
+    return float((diff <= tol).float().mean()), float(diff.max())
+
+
+def timed_ms(fn):
+    """One call's wall time on the host clock, ending in a synchronize."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def box_pixel_tests(xmin, xmax, ymin, ymax, live, size):
+    """The pixel centres inside each live NDC box, summed: the tests a
+    selection over those boxes needs."""
+    import torch
+
+    from pytorch3d_tpu_torch.renderer.mesh.rasterize_meshes import pixel_grid_ndc
+
+    ys, xs = pixel_grid_ndc(*size, xmin.device)
+    ys, xs = ys.flip(0).contiguous(), xs.flip(0).contiguous()  # ascending
+
+    def inside(centres, lo, hi):
+        return (torch.searchsorted(centres, hi[live].contiguous(), right=True)
+                - torch.searchsorted(centres, lo[live].contiguous(), right=False)).clamp(min=0)
+
+    return float((inside(xs, xmin, xmax) * inside(ys, ymin, ymax)).double().sum())
+
+
+def face_box_tests(fv, valid, size, blur):
+    """The (pixel, face) tests a mesh selection needs: for each face the
+    culls keep, the pixel centres inside its box grown by sqrt(blur)."""
+    from pytorch3d_tpu_torch.renderer.mesh.rasterize_meshes import _face_culls
+
+    grow = math.sqrt(blur) if blur > 0 else 0.0
+    x, y = fv[..., 0], fv[..., 1]
+    return box_pixel_tests(x.amin(-1) - grow, x.amax(-1) + grow, y.amin(-1) - grow, y.amax(-1) + grow,
+                           _face_culls(fv, valid, False), size)
+
+
+# fp32 operations per (pixel, face) test of csrc/rasterize_hard.cu, the
+# per-face terms amortised over the tile: 3 edge functions (5 each), 3
+# divisions, the inside test (3), pz (5), pz >= 0 and the compare (2),
+# the zero-area test (1) = 29.
+HARD_OPS_PER_CANDIDATE = 29
+
+
+def bound_of(bytes_moved, ops):
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES_PER_S, ops / PEAK_FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def topk_bound(fv, valid, size, blur, k):
+    """#2's least time: the face verts read once and the ids (4 B per slot)
+    written once, against `face_box_tests` x the fine kernel's operations
+    per test (perspective-corrected and clipped, as the serving batch)."""
+    N, F = fv.shape[:2]
+    tests = face_box_tests(fv, valid, size, blur)
+    return (*bound_of(N * F * 36 + N * size[0] * size[1] * k * 4, tests * fine_ops_per_candidate(True, True)), tests)
+
+
+def hard_bound(fv, valid, size):
+    """#3's least time: the face verts read once and id, z and 3 bary
+    (20 B per pixel) written once, against `face_box_tests` at blur 0 x
+    HARD_OPS_PER_CANDIDATE."""
+    N, F = fv.shape[:2]
+    tests = face_box_tests(fv, valid, size, 0.0)
+    return (*bound_of(N * F * 36 + N * size[0] * size[1] * 20, tests * HARD_OPS_PER_CANDIDATE), tests)
+
+
+def select_bound(pts, rad, valid, size, k, filled):
+    """#6's least time: x, y, z, r and the valid flag (17 B per sphere) read
+    once and the ids (4 B per slot) written once, against the pixel centres
+    in the spheres' boxes x POINTS_OPS_PER_CANDIDATE plus K compares per
+    filled slot (as #5's bound)."""
+    tests = points_box_tests(pts[None], rad[None], valid[None], size)
+    P = pts.shape[0]
+    ops = tests * POINTS_OPS_PER_CANDIDATE + filled * k
+    return (*bound_of(P * 17 + size[0] * size[1] * k * 4, ops), tests)
+
+
+def pulsar_grad_bound(table, idx):
+    """#8's least time: the ids, the cotangent, denom, logit_max, the
+    background colour and the table read once, d(table) written once,
+    against the function's fp32 operations on this run's hits: per filled
+    hit zn 5, the logit less lm 3, exp 1, dx dy d2 5, u 3, clos, w0 and w
+    4, dL/dw's background term and product 4 C and its scale 1, the band
+    and its product 3, the x, y, r and S products 4, the colour products
+    2 C and the 4 + C sums (33 + 7 C); per ordered pair of filled hits on
+    one pixel, dL/dw's pairwise term 3 C; per pixel w_bg, 1 / denom and
+    ct / denom (3 + C)."""
+    H, W, K = idx.shape
+    P, F = table.shape
+    C = F - 5
+    n = (idx >= 0).sum(-1).double()
+    hits, pairs = int(n.sum()), int((n * (n - 1)).sum())
+    bytes_moved = H * W * (4 * K + 4 * C + 8) + 4 * C + 2 * P * F * 4
+    ops = hits * (33 + 7 * C) + pairs * 3 * C + H * W * (3 + C)
+    return (*bound_of(bytes_moved, ops), hits)
+
+
+def compare_pulsar_grad(table, idx, bins, ct, label, gamma=PULSAR_GAMMA, depth=PULSAR_DEPTH):
+    """#8 against the plain version evaluated in float64 on the kernel's
+    ids (the blend's environment recomputed in float64), at `gamma` and
+    `depth` (min_depth, max_depth).  Each field of d(table) must lie within
+    PULSAR_GRAD_GATE of its largest |entry| or no further off than
+    PULSAR_GRAD_PLAIN_FACTOR x the float32 plain version, and the share of
+    spheres within PULSAR_GRAD_GATE of their own scale (`row_agreement`)
+    must be no lower than the float32 plain version's less
+    PULSAR_GRAD_SHARE_MARGIN.  Returns (ok, worst ratio, the float32 plain
+    version's worst ratio, max |diff| against the float32 plain version)."""
+    import torch
+
+    from pytorch3d_tpu_torch.renderer.points import rasterize_points_cuda as rpc
+    from pytorch3d_tpu_torch.renderer.points.pulsar.renderer import _blend_core
+
+    size = idx.shape[:2]
+    bg = torch.ones(table.shape[1] - 5, device=table.device)
+    args = (gamma, depth[0], depth[1])
+    _, denom, lm, _, _ = _blend_core(table, idx, bg, *args, 0.0, *size)
+    got = rpc.pulsar_blend_grads_cuda(table, idx, ct, denom, lm, bg, size, *args, 0.0, bins)
+    torch.cuda.synchronize()
+    plain = rpc.pulsar_blend_grads_plain(table, idx, ct, denom, lm, bg, size, *args, 0.0)
+    t64, bg64 = table.double(), bg.double()
+    _, denom64, lm64, _, _ = _blend_core(t64, idx, bg64, *args, 0.0, *size)
+    exact = rpc.pulsar_blend_grads_plain(t64, idx, ct.double(), denom64, lm64, bg64, size, *args, 0.0)
+    scale = exact.abs().amax(dim=0).clamp(min=1e-300)
+    ratio = (got.double() - exact).abs().amax(dim=0) / scale
+    ratio_plain = (plain.double() - exact).abs().amax(dim=0) / scale
+    fields_ok = bool((ratio <= torch.clamp(PULSAR_GRAD_PLAIN_FACTOR * ratio_plain, min=PULSAR_GRAD_GATE)).all())
+    kernel_share, plain_share = row_agreement(got, plain, exact, table.shape[1], PULSAR_GRAD_GATE)
+    err = float((got - plain).abs().max())
+    ok = bool(torch.isfinite(got).all()) and fields_ok and kernel_share >= plain_share - PULSAR_GRAD_SHARE_MARGIN
+    log(f"kernel pulsar_grad vs plain [{label}] P={table.shape[0]} {size[0]}^2 K={idx.shape[2]} gamma {gamma:g} hits"
+        f" {int((idx >= 0).sum())} pairs {bins[0].numel()}: per field (x y z r o col) vs the float64 plain"
+        f" version, of the field's max|grad|: kernel {[float(f'{r:.3e}') for r in ratio]}, float32 plain version"
+        f" {[float(f'{r:.3e}') for r in ratio_plain]}; spheres within {PULSAR_GRAD_GATE:g} of their own scale:"
+        f" kernel {kernel_share:.6f}, float32 plain version {plain_share:.6f}; max|diff| vs float32 plain"
+        f" {err:.3e} -> {'ok' if ok else 'FAIL'}")
+    return ok, float(ratio.max()), float(ratio_plain.max()), err
+
+
+class PulsarServing:
+    """The pulsar-serving scene: 100 000 spheres, 1024^2, n_track 5, gamma
+    0.1, depths 1-45, eight yaws; the plain selection of request 0, made
+    once (the plain select takes seconds at this size)."""
+
+    def __init__(self, device):
+        self.device = device
+        self.scene = pulsar_scene(device, PULSAR_SPHERES)
+        self.renderer = pulsar_renderer(PULSAR_SPHERES)
+        self.plain_ids = None
+        self.plain_select_ms = None
+
+    def inputs(self, yaw):
+        """(table, idx, bins) of one request, as the renderer's forward
+        makes them."""
+        pos, col, rad = self.scene
+        return self.renderer._prepare(pos, col, rad, pulsar_cam(yaw, self.device), *PULSAR_DEPTH)
+
+
+class PulsarFit:
+    """pulsar-fit: the pulsar-serving scene's render at yaw 0 is the
+    target; start from positions jittered by a seeded normal (sigma 0.05),
+    colours 0.5, radii x 0.8 and opacity 1; Adam(PULSAR_FIT_LR) on all four
+    for image MSE."""
+
+    def __init__(self, device):
+        import numpy as np
+        import torch
+
+        self.device = device
+        pos, col, rad = pulsar_scene(device, PULSAR_SPHERES)
+        self.renderer = pulsar_renderer(PULSAR_SPHERES)
+        with torch.no_grad():
+            self.target = pulsar_render(self.renderer, (pos, col, rad), 0.0, device)
+        jitter = np.random.RandomState(7).normal(0.0, 0.05, tuple(pos.shape))
+        self.pos = (pos + torch.tensor(jitter, dtype=torch.float32, device=device)).requires_grad_(True)
+        self.col = torch.full_like(col, 0.5).requires_grad_(True)
+        self.rad = (rad * 0.8).requires_grad_(True)
+        self.opa = torch.ones_like(rad).requires_grad_(True)
+        self.optimizer = torch.optim.Adam([self.pos, self.col, self.rad, self.opa], lr=PULSAR_FIT_LR)
+
+    def forward(self):
+        import torch
+
+        image = pulsar_render(self.renderer, (self.pos, self.col, self.rad), 0.0, self.device, opacity=self.opa)
+        return torch.mean((image - self.target) ** 2)
+
+    def blend_inputs(self):
+        """#8's inputs at the current parameters: (table, idx, bins, the
+        loss's cotangent of the image)."""
+        import torch
+
+        from pytorch3d_tpu_torch.renderer.points.pulsar.renderer import _blend_core
+
+        with torch.no_grad():
+            table, idx, bins = self.renderer._prepare(
+                self.pos, self.col, self.rad, pulsar_cam(0.0, self.device), PULSAR_DEPTH[0], PULSAR_DEPTH[1], self.opa
+            )
+            image = _blend_core(table, idx, torch.ones(3, device=self.device), PULSAR_GAMMA, *PULSAR_DEPTH, 0.0,
+                                PULSAR_IMAGE, PULSAR_IMAGE)[0]
+            ct = 2.0 * (image - self.target) / image.numel()
+        return table.contiguous(), idx, bins, ct.contiguous()
+
+
+def phase_topk_kernel(device):
+    """#2 at the serving batch: its ids against #1's pix_to_face (bit for
+    bit) and against the plain version (`row_ok`'s share).  Returns the
+    share of slots off the plain version and the plain version's ms."""
+    import torch
+
+    from pytorch3d_tpu_torch.renderer.mesh import rasterize_cuda as rc
+    from pytorch3d_tpu_torch.renderer.mesh.rasterize_meshes import rasterize_topk
+
+    size = (IMAGE, IMAGE)
+    fv, valid = face_inputs(main_path_meshes(device), camera(30.0, device), size)
+    fine = rc.rasterize_fragments_cuda(fv, valid, size, BLUR, K, True, True)[0]
+    got = torch.stack([rc.rasterize_topk_cuda(fv[n], valid[n], size, BLUR, K, True, True) for n in range(len(fv))])
+    want, plain_ms = timed_ms(lambda: torch.stack([
+        rasterize_topk(fv[n], valid[n], size, BLUR, K, True, True) for n in range(len(fv))
+    ]))
+    bit_equal = bool(torch.equal(got, fine))
+    frac = float((got.long() == want).float().mean())
+    ok = bit_equal and frac > 0.999 and bool((got >= 0).any())
+    log(f"kernel rasterize_topk vs plain [serving batch] N={fv.shape[0]} F={fv.shape[1]} {IMAGE}^2 K={K}"
+        f" blur={BLUR}: ids bit-equal to rasterize_fine's {bit_equal}; slots equal to the plain version's"
+        f" {frac:.6f} -> {'ok' if ok else 'FAIL'}")
+    check(ok, "rasterize_topk kernel disagrees with rasterize_fine or its plain version")
+    return 1.0 - frac, plain_ms
+
+
+def phase_hard_kernel(device):
+    """#3 at the serving batch for the 8 azimuths against
+    `rasterize_hard_plain`: ids on >= HARD_IDS_GATE of pixels, zbuf within
+    1e-5 and bary within 1e-4 where they agree, -1 in every empty pixel.
+    Returns the largest zbuf/bary difference and the plain version's ms
+    (azimuth 30)."""
+    import torch
+
+    from pytorch3d_tpu_torch.renderer.mesh import rasterize_cuda as rc
+
+    size = (IMAGE, IMAGE)
+    meshes = main_path_meshes(device)
+    worst, failed, plain_ms = 0.0, [], None
+    for azim in AZIMUTHS:
+        fv, valid = face_inputs(meshes, camera(azim, device), size)
+        got = rc.rasterize_hard_cuda(fv, valid, size)
+        (want, ms) = timed_ms(lambda: rc.rasterize_hard_plain(fv, valid, size))
+        plain_ms = plain_ms or ms
+        same = got[0].long() == want[0]
+        frac = float(same.float().mean())
+        zerr = float((got[1] - want[1]).abs()[same].max())
+        berr = float((got[2] - want[2]).abs()[same[..., None].expand_as(got[2])].max())
+        empty = got[0] < 0
+        fills = bool((got[1][empty] == -1).all() and (got[2][empty[..., None].expand_as(got[2])] == -1).all())
+        ok = frac >= HARD_IDS_GATE and zerr <= 1e-5 and berr <= 1e-4 and fills and bool((~empty).any())
+        worst = max(worst, zerr, berr)
+        log(f"kernel rasterize_hard vs plain [serving batch, azim {azim:.0f}] N={fv.shape[0]} F={fv.shape[1]}"
+            f" {IMAGE}^2: ids equal {frac:.6f}, covered px {int((~empty).sum())}, max|diff| zbuf {zerr:.3e}"
+            f" bary {berr:.3e}, empty fills -1 {fills} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(azim)
+    check(not failed, f"rasterize_hard kernel disagrees with its plain version at azimuths {failed}")
+    return worst, plain_ms
+
+
+def phase_select_kernel(device, serving):
+    """#6 on request 0 of pulsar-serving against the plain selection
+    (>= PULSAR_IDS_GATE of slots; expected: all) and against #5 on the
+    same binning (equal), and on an NDC scene with spheres on both sides
+    of both depth bounds and of z = 0.  Keeps request 0's plain ids for
+    the pulsar-serving path.  Returns the share of slots off the plain
+    version."""
+    import torch
+
+    from pytorch3d_tpu_torch.renderer.points import rasterize_points_cuda as rpc
+    from pytorch3d_tpu_torch.renderer.points.rasterize_points import rasterize_points_topk
+
+    size = (PULSAR_IMAGE, PULSAR_IMAGE)
+    ren = serving.renderer
+    pos, col, rad = serving.scene
+    pts, r, valid = ren._project_ndc(pos, rad, pulsar_cam(PULSAR_YAWS[0], device), *PULSAR_DEPTH)
+    pts, r = pts.contiguous(), r.contiguous()
+    gen = torch.Generator(device=device).manual_seed(5)
+    mixed = torch.cat([torch.rand((20_000, 2), generator=gen, device=device) * 2.2 - 1.1,
+                       torch.rand((20_000, 1), generator=gen, device=device) * 4.5 - 0.5], -1)
+    mixed_r = torch.rand(20_000, generator=gen, device=device) * 0.02 + 0.002
+    mixed_valid = (mixed[:, 2] > 0.5) & (mixed[:, 2] < 3.5)
+    worst, failed = 0.0, []
+    for label, p, rr, v, sz in (
+        (f"pulsar-serving request 0, P={PULSAR_SPHERES}", pts, r, valid, size),
+        ("20 000 spheres across z = 0 and the depth bounds 0.5 / 3.5, 512^2", mixed, mixed_r, mixed_valid,
+         (512, 512)),
+    ):
+        bins = rpc.bin_points_for_pulsar(p, rr, v, sz)
+        got = rpc.select_points_cuda(p, rr, v, sz, PULSAR_TRACK, bins)
+        five = rpc._run_kernel(p[None], rr[None], bins[:4], sz, PULSAR_TRACK)[0][0]
+        want, ms = timed_ms(lambda: rasterize_points_topk(p, rr, v, sz, PULSAR_TRACK))
+        if serving.plain_ids is None:
+            serving.plain_ids, serving.plain_select_ms = want.int(), ms
+        frac = float((got.long() == want).float().mean())
+        same5 = bool(torch.equal(got, five))
+        ok = frac >= PULSAR_IDS_GATE and same5 and bool((got >= 0).any())
+        worst = max(worst, 1.0 - frac)
+        log(f"kernel select_points vs plain [{label}] K={PULSAR_TRACK}: slots equal {frac:.6f}, filled"
+            f" {int((got >= 0).sum())}, equal to rasterize_points' ids on the same binning {same5}; plain"
+            f" {ms:.1f} ms -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(label)
+    check(not failed, f"select_points kernel disagrees: {failed}")
+    return worst
+
+
+def pulsar_points_inputs(device):
+    """#8's inputs for cloud 0 of the pulsar-points scene as
+    PulsarPointsRenderer makes them at its defaults (PULSAR_POINTS_GAMMA
+    and PULSAR_POINTS_DEPTH, where the TPU body's split exp overflows):
+    (table, idx, bins, a seeded random cotangent)."""
+    import torch
+
+    from pytorch3d_tpu_torch.renderer import PointsRasterizationSettings, PointsRasterizer, PulsarPointsRenderer
+
+    cloud, cams = colored_points_scene(device)
+    settings = PointsRasterizationSettings(image_size=PTS_IMAGE, radius=PTS_RADIUS, points_per_pixel=PTS_K)
+    pp = PulsarPointsRenderer(PointsRasterizer(cams, settings))
+    depth = PULSAR_POINTS_DEPTH
+    pts, col = cloud.points_padded()[0], cloud.features_padded()[0]
+    rad = torch.full((pts.shape[0],), PTS_RADIUS, device=device)
+    with torch.no_grad():
+        table, idx, bins = pp.renderer._prepare(pts, col, rad, pp._cam_params(cams, 0, depth[0]), *depth)
+    gen = torch.Generator(device=device).manual_seed(9)
+    ct = torch.randn((PTS_IMAGE, PTS_IMAGE, 3), generator=gen, device=device)
+    return table.contiguous(), idx, bins, ct
+
+
+def phase_pulsar_grad_kernel(device, serving, fit):
+    """#8 on request 0 of pulsar-serving with a seeded random cotangent, on
+    step 0 of pulsar-fit with its loss's cotangent, and on cloud 0 of
+    pulsar-points at PulsarPointsRenderer's gamma (1e-4)."""
+    import torch
+
+    table, idx, bins = serving.inputs(PULSAR_YAWS[0])
+    gen = torch.Generator(device=device).manual_seed(6)
+    ct = torch.randn((PULSAR_IMAGE, PULSAR_IMAGE, 3), generator=gen, device=device)
+    results = [
+        compare_pulsar_grad(table.contiguous(), idx, bins, ct, "pulsar-serving request 0, random cotangent"),
+        compare_pulsar_grad(*fit.blend_inputs(), "pulsar-fit step 0, its loss's cotangent"),
+        compare_pulsar_grad(*pulsar_points_inputs(device), "pulsar-points cloud 0, random cotangent",
+                            PULSAR_POINTS_GAMMA, PULSAR_POINTS_DEPTH),
+    ]
+    check(all(r[0] for r in results), "pulsar_grad kernel disagrees with the float64 plain version")
+    return max(r[3] for r in results)
+
+
+def phase_pulsar_serving(device, serving):
+    """The 8 requests, one #6 launch each; request 0 against the plain path
+    (the plain selection's ids from the kernel phase); then one request at
+    1 000 000 spheres, checked finite with its coverage logged (its plain
+    selection, ~10x request 0's, does not fit the run)."""
+    import torch
+
+    ren = serving.renderer
+    torch.cuda.synchronize()
+    reset_counts()
+    with torch.no_grad():
+        images = [pulsar_render(ren, serving.scene, yaw, device) for yaw in PULSAR_YAWS]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts["select_points"] == PULSAR_REQUESTS and counts["pulsar_grad"] == 0,
+          f"pulsar-serving: launches {counts} for {PULSAR_REQUESTS} requests (1 select each)")
+    coverage = [float((img.sum(-1) < 2.9).float().mean()) for img in images]
+    for i, img in enumerate(images):
+        check(img.shape == (PULSAR_IMAGE, PULSAR_IMAGE, 3), f"request {i}: image shape {tuple(img.shape)}")
+        check(bool(torch.isfinite(img).all()), f"request {i}: non-finite pixels")
+    check(min(coverage) > 0.1, f"pulsar-serving: coverage {coverage}")
+    with torch.no_grad():
+        plain = pulsar_render(plain_pulsar(ren, serving.plain_ids), serving.scene, PULSAR_YAWS[0], device)
+    frac, worst = image_agreement(images[0], plain, PULSAR_IMAGE_TOL)
+    log(f"pulsar-serving: {PULSAR_REQUESTS} requests of {PULSAR_SPHERES} spheres at {PULSAR_IMAGE}^2,"
+        f" n_track {PULSAR_TRACK}, gamma {PULSAR_GAMMA}, yaws {[round(y, 4) for y in PULSAR_YAWS]}: launches"
+        f" {counts}; coverage {[round(c, 4) for c in coverage]}; request 0 against the plain path: |diff| <="
+        f" {PULSAR_IMAGE_TOL:g} on {frac:.6f} of pixels (max {worst:.3e})")
+    check(frac >= PULSAR_IMAGE_SHARE, f"pulsar-serving: only {frac:.6f} of pixels match the plain path")
+
+    big = pulsar_scene(device, PULSAR_BIG)
+    big_ren = pulsar_renderer(PULSAR_BIG)
+    reset_counts()
+    with torch.no_grad():
+        img, ms = timed_ms(lambda: pulsar_render(big_ren, big, 0.0, device))
+    big_counts = read_counts()
+    cov = float((img.sum(-1) < 2.9).float().mean())
+    log(f"pulsar-serving at {PULSAR_BIG} spheres, {PULSAR_IMAGE}^2: launches {big_counts}, first request"
+        f" {ms:.1f} ms, coverage {cov:.4f}; finite {bool(torch.isfinite(img).all())}; not compared with the"
+        f" plain path (its selection would take ~10x request 0's {serving.plain_select_ms:.0f} ms)")
+    check(bool(torch.isfinite(img).all()) and cov > 0.1, "pulsar-serving at 1 M spheres: non-finite or empty")
+    counts["select_points"] += big_counts["select_points"]
+    return counts, big, big_ren
+
+
+def phase_pulsar_fit(device, fit):
+    """PULSAR_FIT_STEPS Adam steps; the loss must fall and stay finite;
+    one #6 and one #8 per step; the step's time split."""
+    import torch
+
+    losses, fwd_ms, bwd_ms = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    for _ in range(PULSAR_FIT_STEPS):
+        t0 = time.perf_counter()
+        fit.optimizer.zero_grad()
+        loss = fit.forward()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        fit.optimizer.step()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        losses.append(loss.item())
+        fwd_ms.append((t1 - t0) * 1e3)
+        bwd_ms.append((t2 - t1) * 1e3)
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"pulsar-fit: {PULSAR_FIT_STEPS} Adam({PULSAR_FIT_LR:g}) steps, {PULSAR_SPHERES} spheres at {PULSAR_IMAGE}^2:"
+        f" losses {[round(v, 8) for v in losses]}; launches {counts}")
+    check(all(math.isfinite(v) for v in losses), "pulsar-fit: non-finite loss")
+    check(losses[-1] < losses[0], f"pulsar-fit: loss did not fall ({losses[0]:.8f} -> {losses[-1]:.8f})")
+    want = {"select_points": PULSAR_FIT_STEPS, "pulsar_grad": PULSAR_FIT_STEPS}
+    check(all(counts[k] == n for k, n in want.items()), f"pulsar-fit: launches {counts}, expected {want}")
+    check(all(bool(torch.isfinite(t).all()) for t in (fit.pos, fit.col, fit.rad, fit.opa)), "pulsar-fit: NaN parameters")
+    last = slice(PULSAR_FIT_STEPS - PULSAR_FIT_TIMED, None)
+    step = sorted(f + b for f, b in zip(fwd_ms[last], bwd_ms[last]))
+    mid = PULSAR_FIT_TIMED // 2
+    log(f"times [pulsar-fit step] median of the last {PULSAR_FIT_TIMED}: step {step[mid]:.3f} ms (min {step[0]:.3f},"
+        f" max {step[-1]:.3f}); forward {sorted(fwd_ms[last])[mid]:.3f} ms; backward + Adam"
+        f" {sorted(bwd_ms[last])[mid]:.3f} ms; peak memory {peak_gb:.2f} GB")
+    return counts
+
+
+def phase_pulsar_points(device):
+    """PulsarPointsRenderer on the points-serving scene (30 000 points,
+    256^2, radius 0.006) with its 8 FoVOrthographicCameras, one #6 launch
+    per cloud, against the same renderer on the plain path."""
+    import torch
+
+    from pytorch3d_tpu_torch.renderer import PointsRasterizationSettings, PointsRasterizer, PulsarPointsRenderer
+
+    cloud, cams = colored_points_scene(device)
+    clouds = cloud.extend(PTS_REQUESTS)
+    settings = PointsRasterizationSettings(image_size=PTS_IMAGE, radius=PTS_RADIUS, points_per_pixel=PTS_K)
+    pulsar = PulsarPointsRenderer(PointsRasterizer(cams, settings))
+    torch.cuda.synchronize()
+    reset_counts()
+    with torch.no_grad():
+        images, ms = timed_ms(lambda: pulsar(clouds))
+    counts = read_counts()
+    check(counts["select_points"] == PTS_REQUESTS, f"pulsar-points: launches {counts} for {PTS_REQUESTS} clouds")
+    check(images.shape == (PTS_REQUESTS, PTS_IMAGE, PTS_IMAGE, 3) and bool(torch.isfinite(images).all()),
+          f"pulsar-points: image shape {tuple(images.shape)} or non-finite pixels")
+    coverage = (images.sum(-1) < 2.9).float().mean(dim=(1, 2))
+    plain_renderer = PulsarPointsRenderer(PointsRasterizer(cams, settings))
+    plain_renderer.renderer = plain_pulsar(plain_renderer.renderer)
+    with torch.no_grad():
+        plain = plain_renderer(clouds)
+    frac, worst = image_agreement(images, plain, PULSAR_IMAGE_TOL)
+    log(f"pulsar-points: {PTS_REQUESTS} clouds of {PTS_SAMPLES} points at {PTS_IMAGE}^2, radius {PTS_RADIUS}:"
+        f" launches {counts}, first call {ms:.1f} ms; coverage {[round(float(c), 4) for c in coverage]};"
+        f" against the plain path |diff| <= {PULSAR_IMAGE_TOL:g} on {frac:.6f} of pixels (max {worst:.3e})")
+    check(bool((coverage > 0.02).all()), f"pulsar-points: coverage {coverage.tolist()}")
+    check(frac >= PULSAR_IMAGE_SHARE, f"pulsar-points: only {frac:.6f} of pixels match the plain path")
+    return counts, pulsar, clouds
+
+
+def gl_renderer(cams, device):
+    from pytorch3d_tpu_torch.renderer import (
+        HardPhongShader, MeshRasterizerOpenGL, MeshRenderer, PointLights, RasterizationSettings,
+    )
+
+    settings = RasterizationSettings(image_size=IMAGE, faces_per_pixel=1)
+    lights = PointLights.create(location=[[0, 0, -3]], device=device)
+    return MeshRenderer(MeshRasterizerOpenGL(cams, settings), HardPhongShader(cameras=cams, lights=lights, device=device))
+
+
+def plain_gl():
+    """The plain path of `MeshRasterizerOpenGL`: within the block, the
+    hard kernel's wrapper is its plain version `rasterize_hard_plain`."""
+    from unittest import mock
+
+    from pytorch3d_tpu_torch.renderer.mesh import rasterize_cuda as rc
+
+    return mock.patch.object(rc, "rasterize_hard_cuda", rc.rasterize_hard_plain)
+
+
+def phase_mesh_gl_serving(device):
+    """MeshRenderer(MeshRasterizerOpenGL, HardPhongShader) on the serving
+    batch at the 8 azimuths, one #3 launch per frame, each frame against
+    the same renderer on the plain path (`plain_gl`)."""
+    import torch
+
+    meshes = main_path_meshes(device)
+    cams = [camera(a, device) for a in AZIMUTHS]
+    renderers = [gl_renderer(c, device) for c in cams]
+    torch.cuda.synchronize()
+    reset_counts()
+    with torch.no_grad():
+        images = [r(meshes) for r in renderers]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts["rasterize_hard"] == FRAMES and counts["rasterize_fine"] == 0,
+          f"mesh-gl-serving: launches {counts} for {FRAMES} frames (1 hard raster each)")
+    for i, (img, c) in enumerate(zip(images, cams)):
+        check(img.shape == (2, IMAGE, IMAGE, 4) and bool(torch.isfinite(img).all()),
+              f"mesh-gl frame {i}: shape {tuple(img.shape)} or non-finite pixels")
+        with torch.no_grad(), plain_gl():
+            plain = renderers[i](meshes)
+        frac, worst = image_agreement(img, plain, 1e-3)
+        covered = (img[..., 3] > 0).sum(dim=(1, 2))
+        log(f"  mesh-gl frame {i} azim {AZIMUTHS[i]:.0f}: covered px {covered.tolist()}, |image - plain path"
+            f" image| <= 1e-3 on {frac:.6f} of pixels (max {worst:.3e})")
+        check(bool((covered > 0).all()), f"mesh-gl frame {i}: an image covers no pixel")
+        check(frac >= 0.995, f"mesh-gl frame {i}: only {frac:.6f} of pixels match the plain path")
+    log(f"mesh-gl-serving: {FRAMES} frames of N={len(meshes)} meshes at {IMAGE}^2: launches {counts}")
+    return counts, meshes, renderers
+
+
+def phase_serving_topk(device):
+    """`rasterize_topk_cuda` driven at the serving batch, one launch per
+    image."""
+    import torch
+
+    from pytorch3d_tpu_torch.renderer.mesh import rasterize_cuda as rc
+
+    size = (IMAGE, IMAGE)
+    fv, valid = face_inputs(main_path_meshes(device), camera(30.0, device), size)
+    torch.cuda.synchronize()
+    reset_counts()
+    ids = [rc.rasterize_topk_cuda(fv[n], valid[n], size, BLUR, K, True, True) for n in range(len(fv))]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts["rasterize_topk"] == len(fv), f"serving-topk: launches {counts} for {len(fv)} images")
+    check(all(bool((i >= 0).any()) for i in ids), "serving-topk: an image selects no face")
+    log(f"serving-topk: rasterize_topk_cuda on the serving batch ({len(fv)} images, {IMAGE}^2, K={K}):"
+        f" launches {counts}")
+    return counts
+
+
+def phase_slice5_times(device, serving, fit, topk_plain_ms, hard_plain_ms, state):
+    """#2, #3, #6 and #8: device time (profiler) at their paths' shapes,
+    beside their plain versions (timed once in the kernel phase, or here),
+    bounds and, for #8, autograd of the plain blend; the pulsar-serving
+    request and the mesh-gl frame; profiles of a pulsar request, a
+    pulsar-fit step and a mesh-gl frame."""
+    import torch
+
+    from pytorch3d_tpu_torch.renderer.mesh import rasterize_cuda as rc
+    from pytorch3d_tpu_torch.renderer.points import rasterize_points_cuda as rpc
+    from pytorch3d_tpu_torch.renderer.points.pulsar.renderer import _blend_core
+
+    rows = {}
+    size = (IMAGE, IMAGE)
+    fv, valid = face_inputs(main_path_meshes(device), camera(30.0, device), size)
+
+    def topk():
+        for n in range(len(fv)):
+            rc.rasterize_topk_cuda(fv[n], valid[n], size, BLUR, K, True, True)
+
+    kernel = device_ms(topk, "rasterize_fine_kernel<8, true>", iters=10)
+    bound, by, tests = topk_bound(fv, valid, size, BLUR, K)
+    rows["rasterize_topk"] = dict(kernel=kernel, plain=topk_plain_ms, bound=bound, bound_by=by, library=None)
+    log(f"times [rasterize_topk, serving batch] N={len(fv)} F={fv.shape[1]} {IMAGE}^2 K={K}: kernel {kernel:.4f} ms"
+        f" (device time, profiler; both images), plain {topk_plain_ms:.2f} ms; bound {bound:.5f} ms by {by}"
+        f" ({tests / 1e6:.3f} M box tests)")
+
+    kernel = device_ms(lambda: rc.rasterize_hard_cuda(fv, valid, size), "rasterize_hard_kernel", iters=10)
+    bound, by, tests = hard_bound(fv, valid, size)
+    rows["rasterize_hard"] = dict(kernel=kernel, plain=hard_plain_ms, bound=bound, bound_by=by, library=None)
+    log(f"times [rasterize_hard, serving batch] N={len(fv)} F={fv.shape[1]} {IMAGE}^2: kernel {kernel:.4f} ms"
+        f" (device time, profiler), plain {hard_plain_ms:.2f} ms; bound {bound:.5f} ms by {by}"
+        f" ({tests / 1e6:.3f} M box tests)")
+
+    psize = (PULSAR_IMAGE, PULSAR_IMAGE)
+    table, idx, bins = serving.inputs(PULSAR_YAWS[0])
+    pts, rad, v = (t.contiguous() for t in serving.renderer._project_ndc(
+        serving.scene[0], serving.scene[2], pulsar_cam(PULSAR_YAWS[0], device), *PULSAR_DEPTH))
+    kernel = device_ms(lambda: rpc.select_points_cuda(pts, rad, v, psize, PULSAR_TRACK, bins), "rasterize_points_kernel",
+                       iters=10)
+    binning = cuda_ms(lambda: rpc.bin_points_for_pulsar(pts, rad, v, psize), iters=10)
+    filled = int((idx >= 0).sum())
+    bound, by, tests = select_bound(pts, rad, v, psize, PULSAR_TRACK, filled)
+    rows["select_points"] = dict(kernel=kernel, plain=serving.plain_select_ms, bound=bound, bound_by=by, library=None)
+    log(f"times [select_points, pulsar-serving request 0] P={PULSAR_SPHERES} {PULSAR_IMAGE}^2 K={PULSAR_TRACK}:"
+        f" kernel {kernel:.4f} ms (device time, profiler), binning {binning:.4f} ms, plain"
+        f" {serving.plain_select_ms:.1f} ms; bound {bound:.5f} ms by {by} ({tests / 1e6:.3f} M box tests,"
+        f" {filled} filled slots, {bins[0].numel()} tile-sphere pairs)")
+    big, big_ren = state["big"]
+    bpts, brad, bv = (t.contiguous() for t in big_ren._project_ndc(big[0], big[2], pulsar_cam(0.0, device), *PULSAR_DEPTH))
+    bbins = rpc.bin_points_for_pulsar(bpts, brad, bv, psize)
+    bk = device_ms(lambda: rpc.select_points_cuda(bpts, brad, bv, psize, PULSAR_TRACK, bbins),
+                   "rasterize_points_kernel", iters=5)
+    bbinning = cuda_ms(lambda: rpc.bin_points_for_pulsar(bpts, brad, bv, psize), iters=3)
+    log(f"times [select_points, {PULSAR_BIG} spheres (timing only)] kernel {bk:.4f} ms (device time, profiler), binning {bbinning:.4f} ms,"
+        f" {bbins[0].numel()} tile-sphere pairs")
+    with torch.no_grad():
+        btable, bidx, bbins = big_ren._prepare(big[0], big[1], big[2], pulsar_cam(0.0, device), *PULSAR_DEPTH)
+        bones = torch.ones(3, device=device)
+        benv = _blend_core(btable, bidx, bones, PULSAR_GAMMA, *PULSAR_DEPTH, 0.0, *psize)[1:3]
+    bct = torch.randn((*psize, 3), generator=torch.Generator(device=device).manual_seed(8), device=device)
+    bk = device_ms(lambda: rpc.pulsar_blend_grads_cuda(btable, bidx, bct, *benv, bones, psize, PULSAR_GAMMA,
+                                                       *PULSAR_DEPTH, 0.0, bbins),
+                   ("pulsar_grad_tiles_kernel", "pulsar_grad_combine_kernel"), iters=5)
+    bbound, bby, bhits = pulsar_grad_bound(btable, bidx)
+    log(f"times [pulsar_grad, {PULSAR_BIG} spheres (timing only, random cotangent)] kernel {bk:.4f} ms (device time, profiler; both"
+        f" passes); bound {bbound:.5f} ms by {bby} ({bhits} filled hits, {bbins[0].numel()} tile-sphere pairs)")
+    del btable, bidx, bbins, benv, bct
+
+    bg = torch.ones(3, device=device)
+    args = (PULSAR_GAMMA, *PULSAR_DEPTH)
+    cases = [("pulsar-fit step", *fit.blend_inputs())]
+    gen = torch.Generator(device=device).manual_seed(6)
+    cases.append(("pulsar-serving request 0, random cotangent", table.contiguous(), idx, bins,
+                  torch.randn((*psize, 3), generator=gen, device=device)))
+    grads = {}
+    for label, t, i, b, ct in cases:
+        _, denom, lm, _, _ = _blend_core(t, i, bg, *args, 0.0, *psize)
+        kernel = device_ms(lambda: rpc.pulsar_blend_grads_cuda(t, i, ct, denom, lm, bg, psize, *args, 0.0, b),
+                           ("pulsar_grad_tiles_kernel", "pulsar_grad_combine_kernel"), iters=10)
+        plain = cuda_ms(lambda: rpc.pulsar_blend_grads_plain(t, i, ct, denom, lm, bg, psize, *args, 0.0), iters=3, warmup=1)
+        tg = t.detach().requires_grad_(True)
+        out = _blend_core(tg, i, bg, *args, 0.0, *psize)[0]
+        library = cuda_ms(lambda: torch.autograd.grad(out, tg, ct, retain_graph=True), iters=3, warmup=1)
+        del out
+        bound, by, hits = pulsar_grad_bound(t, i)
+        grads[label] = dict(kernel=kernel, plain=plain, bound=bound, bound_by=by, library=library)
+        log(f"times [pulsar_grad, {label}] P={t.shape[0]} {PULSAR_IMAGE}^2 K={i.shape[2]}: kernel {kernel:.4f} ms"
+            f" (device time, profiler; both passes), plain {plain:.3f} ms, library (autograd of the plain blend)"
+            f" {library:.3f} ms; bound {bound:.5f} ms by {by} ({hits} filled hits, {b[0].numel()} tile-sphere pairs)")
+    rows["pulsar_grad"] = grads["pulsar-fit step"]
+
+    with torch.no_grad():
+        req_ms = sorted(timed_ms(lambda: pulsar_render(serving.renderer, serving.scene, y, device))[1]
+                        for y in PULSAR_YAWS)
+        log(f"times [pulsar-serving request] median of {PULSAR_REQUESTS} {req_ms[PULSAR_REQUESTS // 2]:.3f} ms"
+            f" (min {req_ms[0]:.3f}, max {req_ms[-1]:.3f})")
+        profile("pulsar-serving request", lambda: [pulsar_render(serving.renderer, serving.scene, y, device)
+                                                   for y in PULSAR_YAWS[:4]], 4)
+        meshes, renderers = state["mesh"]
+        frame_ms = sorted(timed_ms(lambda: r(meshes))[1] for r in renderers)
+        log(f"times [mesh-gl-serving frame] N=2 meshes, {IMAGE}^2, HardPhong: median {frame_ms[FRAMES // 2]:.3f} ms,"
+            f" min {frame_ms[0]:.3f} ms, max {frame_ms[-1]:.3f} ms")
+        profile("mesh-gl-serving frame", lambda: [r(meshes) for r in renderers], FRAMES)
+        pulsar_points, clouds = state["points"]
+        pp_ms = sorted(timed_ms(lambda: pulsar_points(clouds))[1] for _ in range(5))
+        log(f"times [pulsar-points frame] {PTS_REQUESTS} clouds in one call: median of 5 {pp_ms[2]:.3f} ms")
+
+    def fit_steps():
+        for _ in range(3):
+            fit.optimizer.zero_grad()
+            fit.forward().backward()
+            fit.optimizer.step()
+
+    profile("pulsar-fit step", fit_steps, 3)
+    return rows
+
+
+def kernel_rows(launches, errors, fine, grad, knn_t, points, points_grad, mlp, mlp_grad, field, field_grad, slice5):
     rows = []
     fused = "pytorch3d_tpu_torch/csrc/fused_mlp.cu"
     for name, source, replaces, t, library in (
@@ -2146,6 +2937,15 @@ def kernel_rows(launches, errors, fine, grad, knn_t, points, points_grad, mlp, m
         ("fused_mlp_grad", fused, "pytorch3d_tpu/ops/fused_mlp_pallas.py:79", mlp_grad, mlp_grad["library"]),
         ("nerf_field", fused, "pytorch3d_tpu/ops/fused_mlp_pallas.py:328", field, field["library"]),
         ("nerf_field_grad", fused, "pytorch3d_tpu/ops/fused_mlp_pallas.py:341", field_grad, field_grad["library"]),
+        ("rasterize_topk", "pytorch3d_tpu_torch/csrc/rasterize_fine.cu",
+         "pytorch3d_tpu/renderer/mesh/rasterize_pallas.py:601", slice5["rasterize_topk"], None),
+        ("rasterize_hard", "pytorch3d_tpu_torch/csrc/rasterize_hard.cu",
+         "pytorch3d_tpu/renderer/mesh/rasterize_pallas.py:635", slice5["rasterize_hard"], None),
+        ("select_points", "pytorch3d_tpu_torch/csrc/rasterize_points.cu",
+         "pytorch3d_tpu/renderer/points/rasterize_points_pallas.py:791", slice5["select_points"], None),
+        ("pulsar_grad", "pytorch3d_tpu_torch/csrc/pulsar_grad.cu",
+         "pytorch3d_tpu/renderer/points/rasterize_points_pallas.py:618", slice5["pulsar_grad"],
+         slice5["pulsar_grad"]["library"]),
     ):
         rows.append({
             "name": name,
@@ -2185,6 +2985,9 @@ def main() -> int:
         phase = "kernel against plain"
         pfit = PointsFit(device)
         nerf = NeRFScene(device)
+        serving5, fit5 = PulsarServing(device), PulsarFit(device)
+        topk_err, topk_plain_ms = phase_topk_kernel(device)
+        hard_err, hard_plain_ms = phase_hard_kernel(device)
         errors = {
             "rasterize_fine": phase_fine_kernel(device),
             "rasterize_grad": phase_grad_kernel(device),
@@ -2192,6 +2995,10 @@ def main() -> int:
             "rasterize_points": phase_points_kernel(device),
             "rasterize_points_grad": phase_points_grad_kernel(device, pfit),
             **phase_fused_kernels(device, nerf),
+            "rasterize_topk": topk_err,
+            "rasterize_hard": hard_err,
+            "select_points": phase_select_kernel(device, serving5),
+            "pulsar_grad": phase_pulsar_grad_kernel(device, serving5, fit5),
         }
         launches = dict.fromkeys(KERNELS, 0)
         phase = "serving"
@@ -2216,6 +3023,16 @@ def main() -> int:
         phase = "training: nerf-train"
         phase_nerf_step0(device, nerf)
         paths["nerf-train"] = phase_nerf_train(device, nerf)
+        phase = "serving-topk"
+        paths["serving-topk"] = phase_serving_topk(device)
+        phase = "pulsar-serving"
+        paths["pulsar-serving"], big, big_ren = phase_pulsar_serving(device, serving5)
+        phase = "training: pulsar-fit"
+        paths["pulsar-fit"] = phase_pulsar_fit(device, fit5)
+        phase = "pulsar-points"
+        paths["pulsar-points"], pulsar_points, pulsar_clouds = phase_pulsar_points(device)
+        phase = "mesh-gl-serving"
+        paths["mesh-gl-serving"], gl_meshes, gl_renderers = phase_mesh_gl_serving(device)
         for counts in paths.values():
             for kernel, n in counts.items():
                 launches[kernel] += n
@@ -2226,7 +3043,10 @@ def main() -> int:
         fine, grad, knn_t = phase_times(device, meshes, renderers, fit)
         points_t, points_grad_t = phase_points_times(device, clouds, points_render, pfit)
         nerf_t = phase_nerf_times(device, nerf)
-        kernels = kernel_rows(launches, errors, fine, grad, knn_t, points_t, points_grad_t, *nerf_t)
+        slice5 = phase_slice5_times(device, serving5, fit5, topk_plain_ms, hard_plain_ms, {
+            "big": (big, big_ren), "mesh": (gl_meshes, gl_renderers), "points": (pulsar_points, pulsar_clouds),
+        })
+        kernels = kernel_rows(launches, errors, fine, grad, knn_t, points_t, points_grad_t, *nerf_t, slice5)
     except Exception as e:  # report which phase failed, then exit non-zero
         import traceback
 

@@ -4,7 +4,9 @@ The JAX objects are flax dataclasses of arrays; a caller converts their
 fields with `np.asarray` and hands them here, so both packages render the
 same scene from the same state.  Nothing here imports JAX.  The mesh and
 point rendering paths have no learned weights: their state is geometry,
-vertex colors or point features, cameras, lights and materials.  The NeRF
+vertex colors or point features, cameras, lights and materials; pulsar's
+state is its sphere table (positions, colours, radii, opacities), which
+passes across as float32 arrays.  The NeRF
 model's weights convert between a flax `RadianceFieldRenderer` param tree
 (as nested dicts of numpy arrays) and the port's `state_dict`.
 """
@@ -17,7 +19,12 @@ import numpy as np
 import torch
 
 from .common import DEFAULT_DEVICE
-from .renderer.cameras import FoVOrthographicCameras, FoVPerspectiveCameras
+from .renderer.cameras import (
+    FoVOrthographicCameras,
+    FoVPerspectiveCameras,
+    OrthographicCameras,
+    PerspectiveCameras,
+)
 from .renderer.lighting import PointLights
 from .renderer.materials import Materials
 from .renderer.mesh.textures import TexturesVertex
@@ -111,6 +118,40 @@ def fov_orthographic_cameras_from_numpy(
         znear=_own(znear), zfar=_own(zfar), max_y=_own(max_y), min_y=_own(min_y),
         max_x=_own(max_x), min_x=_own(min_x), scale_xyz=_own(scale_xyz),
         R=_own(R), T=_own(T), device=device,
+    )
+
+
+def perspective_cameras_from_numpy(
+    R: np.ndarray,
+    T: np.ndarray,
+    focal_length: np.ndarray,
+    principal_point: np.ndarray,
+    image_size: Optional[np.ndarray] = None,
+    in_ndc: bool = True,
+    device: Device = DEFAULT_DEVICE,
+) -> PerspectiveCameras:
+    """PerspectiveCameras from the JAX camera's R, T, focal_length,
+    principal_point, image_size and in-NDC flag (`_in_ndc` there)."""
+    return PerspectiveCameras.create(
+        focal_length=_own(focal_length), principal_point=_own(principal_point), R=_own(R), T=_own(T),
+        image_size=_own(image_size), in_ndc=in_ndc, device=device,
+    )
+
+
+def orthographic_cameras_from_numpy(
+    R: np.ndarray,
+    T: np.ndarray,
+    focal_length: np.ndarray,
+    principal_point: np.ndarray,
+    image_size: Optional[np.ndarray] = None,
+    in_ndc: bool = True,
+    device: Device = DEFAULT_DEVICE,
+) -> OrthographicCameras:
+    """OrthographicCameras from the same fields as
+    `perspective_cameras_from_numpy`."""
+    return OrthographicCameras.create(
+        focal_length=_own(focal_length), principal_point=_own(principal_point), R=_own(R), T=_own(T),
+        image_size=_own(image_size), in_ndc=in_ndc, device=device,
     )
 
 

@@ -45,6 +45,17 @@
 // gradient through this kernel and the backward kernel be held against
 // autograd through the plain path (bin_size=0) without a selection
 // difference.
+//
+// Ids only (#2).  The template flag kIdsOnly builds the same kernel for
+// `rasterize_topk_cuda`, the counterpart of `rasterize_topk_pallas`
+// (rasterize_pallas.py:549, the same `_fine_kernel` with
+// emit_fragments=False, its pallas_call at :601): the selection is this
+// kernel's, operation for operation, so its ids equal the fragments
+// kernel's pix_to_face bit for bit; only the zbuf, bary and dists stores
+// (20 of the 24 bytes per slot) are left out, and the compiler drops the
+// register buffers that fed them.  What bounds it: at the serving batch
+// the per-pixel tests again (~0.05 ms); the bytes fall to the ids' 4 B per
+// slot (~0.005 ms).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -69,7 +80,7 @@ __device__ __forceinline__ float seg_dist2(float px, float py, float ax, float a
   return dx * dx + dy * dy;
 }
 
-template <int KB>
+template <int KB, bool kIdsOnly>
 __global__ void __launch_bounds__(kThreads)
 rasterize_fine_kernel(const float* __restrict__ face_verts,  // (N*F, 9)
                       const int* __restrict__ tile_faces,    // (P,) local ids
@@ -194,6 +205,7 @@ rasterize_fine_kernel(const float* __restrict__ face_verts,  // (N*F, 9)
       const size_t o = pix * K + k;
       const bool empty = bi[k] < 0;
       out_idx[o] = bi[k];
+      if (kIdsOnly) continue;
       out_z[o] = empty ? -1.0f : bz[k];
       out_bary[3 * o + 0] = empty ? -1.0f : b0[k];
       out_bary[3 * o + 1] = empty ? -1.0f : b1[k];
@@ -203,7 +215,7 @@ rasterize_fine_kernel(const float* __restrict__ face_verts,  // (N*F, 9)
   }
 }
 
-template <int KB>
+template <int KB, bool kIdsOnly>
 void launch(const float* face_verts, const int* tile_faces, const int* tile_start,
             const float* xs, const float* ys, int N, int F, int H, int W, int n_ty,
             int n_tx, float blur_radius, int K, int perspective_correct,
@@ -211,7 +223,7 @@ void launch(const float* face_verts, const int* tile_faces, const int* tile_star
             float* dist, cudaStream_t stream) {
   const dim3 block(kTileW, kTileH);
   const dim3 grid(static_cast<unsigned>(N) * n_ty * n_tx);
-  rasterize_fine_kernel<KB><<<grid, block, 0, stream>>>(
+  rasterize_fine_kernel<KB, kIdsOnly><<<grid, block, 0, stream>>>(
       face_verts, tile_faces, tile_start, xs, ys, F, H, W, n_ty, n_tx,
       blur_radius, K, perspective_correct != 0, clip_barycentric_coords != 0, idx,
       z, bary, dist);
@@ -225,23 +237,22 @@ extern "C" void rasterize_fine_tile(int* rows, int* cols) {
   *cols = kTileW;
 }
 
-// Returns cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue when K or N is not one this build takes.
-extern "C" int rasterize_fine(const float* face_verts, const int* tile_faces,
-                              const int* tile_start, const float* xs,
-                              const float* ys, int N, int F, int H, int W,
-                              int n_ty, int n_tx, float blur_radius, int K,
-                              int perspective_correct,
-                              int clip_barycentric_coords, int* idx, float* z,
-                              float* bary, float* dist, void* stream) {
+namespace {
+
+template <bool kIdsOnly>
+int dispatch(const float* face_verts, const int* tile_faces, const int* tile_start,
+             const float* xs, const float* ys, int N, int F, int H, int W, int n_ty,
+             int n_tx, float blur_radius, int K, int perspective_correct,
+             int clip_barycentric_coords, int* idx, float* z, float* bary, float* dist,
+             void* stream) {
   if (K < 1 || K > 64 || N < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define P3D_LAUNCH(KB)                                                           \
-  launch<KB>(face_verts, tile_faces, tile_start, xs, ys, N, F, H, W, n_ty, n_tx, \
-             blur_radius, K, perspective_correct, clip_barycentric_coords, idx,  \
-             z, bary, dist, s)
+#define P3D_LAUNCH(KB)                                                            \
+  launch<KB, kIdsOnly>(face_verts, tile_faces, tile_start, xs, ys, N, F, H, W, n_ty, \
+                       n_tx, blur_radius, K, perspective_correct,                    \
+                       clip_barycentric_coords, idx, z, bary, dist, s)
   if (K <= 1) P3D_LAUNCH(1);
   else if (K <= 2) P3D_LAUNCH(2);
   else if (K <= 4) P3D_LAUNCH(4);
@@ -251,4 +262,32 @@ extern "C" int rasterize_fine(const float* face_verts, const int* tile_faces,
   else P3D_LAUNCH(64);
 #undef P3D_LAUNCH
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Returns cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue when K or N is not one this build takes.
+extern "C" int rasterize_fine(const float* face_verts, const int* tile_faces,
+                              const int* tile_start, const float* xs,
+                              const float* ys, int N, int F, int H, int W,
+                              int n_ty, int n_tx, float blur_radius, int K,
+                              int perspective_correct,
+                              int clip_barycentric_coords, int* idx, float* z,
+                              float* bary, float* dist, void* stream) {
+  return dispatch<false>(face_verts, tile_faces, tile_start, xs, ys, N, F, H, W, n_ty,
+                         n_tx, blur_radius, K, perspective_correct,
+                         clip_barycentric_coords, idx, z, bary, dist, stream);
+}
+
+// The ids-only build (#2): the same launch without the fragment stores.
+extern "C" int rasterize_topk(const float* face_verts, const int* tile_faces,
+                              const int* tile_start, const float* xs,
+                              const float* ys, int N, int F, int H, int W,
+                              int n_ty, int n_tx, float blur_radius, int K,
+                              int perspective_correct,
+                              int clip_barycentric_coords, int* idx, void* stream) {
+  return dispatch<true>(face_verts, tile_faces, tile_start, xs, ys, N, F, H, W, n_ty,
+                        n_tx, blur_radius, K, perspective_correct,
+                        clip_barycentric_coords, idx, nullptr, nullptr, nullptr, stream);
 }

@@ -45,6 +45,18 @@
 // `<`, from the same pixel centers, and --fmad=false keeps every product
 // rounded on its own: coverage, d2 and with them the ids match the plain
 // version bit for bit, which the backward's gradient check relies on.
+//
+// Select only (#6).  The template flag kIdsOnly builds the same kernel for
+// `select_points_cuda`, the counterpart of `select_from_binned`
+// (rasterize_points_pallas.py:766, the same `_fine_kernel` select-only, its
+// pallas_call at :791), which picks pulsar's n_track spheres per pixel: the
+// selection is this kernel's, so its ids equal the fragments kernel's on
+// the same binning; the zbuf and dists stores (8 of the 12 bytes per slot)
+// are left out.  Pulsar's valid mask is min_depth < z < max_depth, and the
+// kernel, as the plain version, also drops z < 0 (the binning does): the
+// two agree whenever min_depth >= 0.  What bounds it at pulsar-serving
+// (100 000 spheres, 1024^2, K = 5): the box tests (chip_smoke.py counts
+// them from the run's own inputs) against the ids' 21 MB.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -55,7 +67,7 @@ constexpr int kTileH = 16;
 constexpr int kTileW = 16;
 constexpr int kThreads = kTileH * kTileW;
 
-template <int KB>
+template <int KB, bool kIdsOnly>
 __global__ void __launch_bounds__(kThreads)
 rasterize_points_kernel(const float* __restrict__ points,     // (N*P, 3)
                         const float* __restrict__ radius,     // (N*P,)
@@ -142,20 +154,21 @@ rasterize_points_kernel(const float* __restrict__ points,     // (N*P, 3)
       const size_t o = pix * K + k;
       const bool empty = bi[k] < 0;
       out_idx[o] = bi[k];
+      if (kIdsOnly) continue;
       out_z[o] = empty ? -1.0f : bz[k];
       out_dist[o] = empty ? -1.0f : bd[k];
     }
   }
 }
 
-template <int KB>
+template <int KB, bool kIdsOnly>
 void launch(const float* points, const float* radius, const int* tile_points,
             const int* tile_start, const float* xs, const float* ys, int N, int P,
             int H, int W, int n_ty, int n_tx, int K, int* idx, float* z, float* dist,
             cudaStream_t stream) {
   const dim3 block(kTileW, kTileH);
   const dim3 grid(static_cast<unsigned>(N) * n_ty * n_tx);
-  rasterize_points_kernel<KB><<<grid, block, 0, stream>>>(
+  rasterize_points_kernel<KB, kIdsOnly><<<grid, block, 0, stream>>>(
       points, radius, tile_points, tile_start, xs, ys, P, H, W, n_ty, n_tx, K, idx,
       z, dist);
 }
@@ -168,21 +181,21 @@ extern "C" void rasterize_points_tile(int* rows, int* cols) {
   *cols = kTileW;
 }
 
-// Returns cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue when K, N or the grid is not one this build takes.
-extern "C" int rasterize_points(const float* points, const float* radius,
-                                const int* tile_points, const int* tile_start,
-                                const float* xs, const float* ys, int N, int P, int H,
-                                int W, int n_ty, int n_tx, int K, int* idx, float* z,
-                                float* dist, void* stream) {
+namespace {
+
+template <bool kIdsOnly>
+int dispatch(const float* points, const float* radius, const int* tile_points,
+             const int* tile_start, const float* xs, const float* ys, int N, int P, int H,
+             int W, int n_ty, int n_tx, int K, int* idx, float* z, float* dist,
+             void* stream) {
   if (K < 1 || K > 64 || N < 1 || P < 1 ||
       static_cast<long long>(N) * n_ty * n_tx > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define P3D_LAUNCH(KB)                                                        \
-  launch<KB>(points, radius, tile_points, tile_start, xs, ys, N, P, H, W, n_ty, \
-             n_tx, K, idx, z, dist, s)
+#define P3D_LAUNCH(KB)                                                           \
+  launch<KB, kIdsOnly>(points, radius, tile_points, tile_start, xs, ys, N, P, H, W, \
+                       n_ty, n_tx, K, idx, z, dist, s)
   if (K <= 1) P3D_LAUNCH(1);
   else if (K <= 2) P3D_LAUNCH(2);
   else if (K <= 4) P3D_LAUNCH(4);
@@ -192,4 +205,27 @@ extern "C" int rasterize_points(const float* points, const float* radius,
   else P3D_LAUNCH(64);
 #undef P3D_LAUNCH
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Returns cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue when K, N or the grid is not one this build takes.
+extern "C" int rasterize_points(const float* points, const float* radius,
+                                const int* tile_points, const int* tile_start,
+                                const float* xs, const float* ys, int N, int P, int H,
+                                int W, int n_ty, int n_tx, int K, int* idx, float* z,
+                                float* dist, void* stream) {
+  return dispatch<false>(points, radius, tile_points, tile_start, xs, ys, N, P, H, W,
+                         n_ty, n_tx, K, idx, z, dist, stream);
+}
+
+// The select-only build (#6): the same launch without the zbuf and dists
+// stores.
+extern "C" int select_points(const float* points, const float* radius,
+                             const int* tile_points, const int* tile_start,
+                             const float* xs, const float* ys, int N, int P, int H, int W,
+                             int n_ty, int n_tx, int K, int* idx, void* stream) {
+  return dispatch<true>(points, radius, tile_points, tile_start, xs, ys, N, P, H, W,
+                        n_ty, n_tx, K, idx, nullptr, nullptr, stream);
 }

@@ -1,11 +1,15 @@
-"""Differentiable rendering (port of pytorch3d_tpu/renderer; the mesh and
-point rendering paths so far)."""
+"""Differentiable rendering (port of pytorch3d_tpu/renderer; the mesh,
+point and pulsar rendering paths so far)."""
 from .blending import BlendParams, hard_rgb_blend, sigmoid_alpha_blend, softmax_rgb_blend
 from .cameras import (
     CamerasBase,
     FoVOrthographicCameras,
     FoVPerspectiveCameras,
+    OrthographicCameras,
+    PerspectiveCameras,
     camera_position_from_spherical_angles,
+    get_ndc_to_screen_transform,
+    get_screen_to_ndc_transform,
     get_world_to_view_transform,
     look_at_rotation,
     look_at_view_transform,
@@ -18,6 +22,7 @@ from .mesh import (
     HardGouraudShader,
     HardPhongShader,
     MeshRasterizer,
+    MeshRasterizerOpenGL,
     MeshRenderer,
     RasterizationSettings,
     SoftPhongShader,
@@ -33,6 +38,7 @@ from .points import (
     PointsRasterizationSettings,
     PointsRasterizer,
     PointsRenderer,
+    PulsarPointsRenderer,
     alpha_composite,
     norm_weighted_sum,
     rasterize_points,

@@ -4,9 +4,11 @@ Conventions are the JAX package's: world, view and NDC spaces are
 right-handed with +X left, +Y up, +Z into the screen; points are row
 vectors (``x_out = x @ M`` via `Transform3d`).
 
-Ported so far: the base class, `FoVPerspectiveCameras` (with
-`unproject_points`), `FoVOrthographicCameras`, `look_at_view_transform`
-and `try_get_projection_transform`.  Cameras are
+Ported so far: the base class (with NDC and screen projections),
+`FoVPerspectiveCameras` (with `unproject_points`), `FoVOrthographicCameras`,
+the SfM-style `PerspectiveCameras` and `OrthographicCameras`,
+`look_at_view_transform`, the NDC <-> screen transforms and
+`try_get_projection_transform`.  Cameras are
 plain dataclasses holding tensors; `create` builds one on a device (CUDA
 unless the caller names another) and `replace` swaps fields.
 """
@@ -117,6 +119,26 @@ class CamerasBase:
         self, points: torch.Tensor, eps: Optional[float] = None, **kwargs
     ) -> torch.Tensor:
         return self.get_full_projection_transform(**kwargs).transform_points(points, eps=eps)
+
+    def transform_points_ndc(
+        self, points: torch.Tensor, eps: Optional[float] = None, **kwargs
+    ) -> torch.Tensor:
+        world_to_ndc = self.get_full_projection_transform(**kwargs)
+        if not self.in_ndc():
+            world_to_ndc = world_to_ndc.compose(self.get_ndc_camera_transform(**kwargs))
+        return world_to_ndc.transform_points(points, eps=eps)
+
+    def transform_points_screen(
+        self, points: torch.Tensor, eps: Optional[float] = None, with_xyflip: bool = True, **kwargs
+    ) -> torch.Tensor:
+        points_ndc = self.transform_points_ndc(points, eps=eps, **kwargs)
+        image_size = kwargs.get("image_size", self.get_image_size())
+        return get_ndc_to_screen_transform(
+            self, with_xyflip=with_xyflip, image_size=image_size
+        ).transform_points(points_ndc, eps=eps)
+
+    def get_image_size(self):
+        return getattr(self, "image_size", None)
 
 
 
@@ -316,6 +338,163 @@ class FoVOrthographicCameras(CamerasBase):
 
     def in_ndc(self) -> bool:
         return True
+
+
+def _sfm_calibration_matrix(
+    focal_length: torch.Tensor, principal_point: torch.Tensor, orthographic: bool
+) -> torch.Tensor:
+    """(N, 4, 4) column-convention intrinsics of an SfM camera: x_ndc =
+    fx X / Z + px (perspective, depth in z) or fx X + px (orthographic)."""
+    if focal_length.ndim == 2 and focal_length.shape[1] == 2:
+        fx, fy = focal_length[:, 0], focal_length[:, 1]
+    else:
+        fx = fy = focal_length.reshape(-1)
+    px, py = principal_point[:, 0], principal_point[:, 1]
+    zero, one = torch.zeros_like(px), torch.ones_like(px)
+    if orthographic:
+        rows = [[fx, zero, zero, px], [zero, fy, zero, py], [zero, zero, one, zero], [zero, zero, zero, one]]
+    else:
+        rows = [[fx, zero, px, zero], [zero, fy, py, zero], [zero, zero, zero, one], [zero, zero, one, zero]]
+    return _rows_to_matrix(rows)
+
+
+class _SfMCameraMixin(CamerasBase):
+    """What `PerspectiveCameras` and `OrthographicCameras` share: focal
+    length and principal point in NDC (or screen space with
+    `in_ndc=False` and an image size), the calibration matrix, the
+    screen-to-NDC fix and the analytic unprojection."""
+
+    _orthographic = False
+
+    @classmethod
+    def create(
+        cls,
+        focal_length=1.0,
+        principal_point=((0.0, 0.0),),
+        R: Optional[torch.Tensor] = None,
+        T: Optional[torch.Tensor] = None,
+        K: Optional[torch.Tensor] = None,
+        image_size=None,
+        in_ndc: bool = True,
+        device: Device = DEFAULT_DEVICE,
+    ):
+        R, T, fl, pp = _broadcast_batch(
+            *_extrinsics(R, T, device),
+            _to_batch(focal_length, device, last_dim=2), _to_batch(principal_point, device, last_dim=2),
+        )
+        img = None
+        if image_size is not None:
+            img = _to_batch(image_size, device, last_dim=2).expand(R.shape[0], 2)
+        if K is not None:
+            K = torch.as_tensor(K, dtype=torch.float32, device=device)
+        return cls(R=R, T=T, focal_length=fl, principal_point=pp, image_size=img, K=K, in_ndc_space=in_ndc)
+
+    def in_ndc(self) -> bool:
+        return self.in_ndc_space
+
+    def is_perspective(self) -> bool:
+        return not self._orthographic
+
+    def get_projection_transform(self, **kwargs) -> Transform3d:
+        K = kwargs.get("K", self.K)
+        if K is None:
+            K = _sfm_calibration_matrix(
+                _to_batch(kwargs.get("focal_length", self.focal_length), self.device, last_dim=2),
+                kwargs.get("principal_point", self.principal_point),
+                self._orthographic,
+            )
+        return Transform3d(K.transpose(-1, -2))
+
+    def get_ndc_camera_transform(self, **kwargs) -> Transform3d:
+        if self.in_ndc():
+            return Transform3d.create(device=self.device)
+        # Screen-space camera: undo the principal point (defined in image
+        # space), then rescale to NDC.
+        pp = kwargs.get("principal_point", self.principal_point)
+        fix = torch.eye(4, device=self.device).repeat(len(self), 1, 1)
+        fix[:, :2, 3] = -2.0 * pp
+        image_size = kwargs.get("image_size", self.get_image_size())
+        return Transform3d(fix.transpose(-1, -2)).compose(
+            get_screen_to_ndc_transform(self, with_xyflip=False, image_size=image_size)
+        )
+
+    def unproject_points(
+        self, xy_depth: torch.Tensor, world_coordinates: bool = True, from_ndc: bool = False, **kwargs
+    ) -> torch.Tensor:
+        """Projected x, y with view depth back to view (or world)
+        coordinates, inverting the intrinsics analytically."""
+        pts = xy_depth[None] if xy_depth.ndim == 2 else xy_depth
+        if from_ndc:
+            pts = self.get_ndc_camera_transform(**kwargs).inverse().transform_points(pts)
+        fl = _to_batch(kwargs.get("focal_length", self.focal_length), self.device, last_dim=2)
+        pp = kwargs.get("principal_point", self.principal_point)
+        if fl.shape[-1] == 1:
+            fl = torch.cat([fl, fl], dim=-1)
+        xy = pts[..., :2] - pp[:, None, :]
+        if self.is_perspective():
+            xy = xy * pts[..., 2:]
+        xy = xy / fl[:, None, :]
+        cam_pts = torch.cat([xy, pts[..., 2:]], dim=-1)
+        if world_coordinates:
+            cam_pts = self.get_world_to_view_transform(**kwargs).inverse().transform_points(cam_pts)
+        return cam_pts[0] if xy_depth.ndim == 2 else cam_pts
+
+
+@dataclasses.dataclass(frozen=True)
+class PerspectiveCameras(_SfMCameraMixin):
+    """SfM-style perspective camera: x_ndc = fx X / Z + px, view depth
+    passed through as z."""
+
+    R: torch.Tensor
+    T: torch.Tensor
+    focal_length: torch.Tensor  # (N, 2) or (N, 1)
+    principal_point: torch.Tensor  # (N, 2)
+    image_size: Optional[torch.Tensor] = None  # (N, 2) (height, width)
+    K: Optional[torch.Tensor] = None
+    in_ndc_space: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class OrthographicCameras(_SfMCameraMixin):
+    """SfM-style orthographic camera: x_ndc = fx X + px."""
+
+    R: torch.Tensor
+    T: torch.Tensor
+    focal_length: torch.Tensor
+    principal_point: torch.Tensor
+    image_size: Optional[torch.Tensor] = None
+    K: Optional[torch.Tensor] = None
+    in_ndc_space: bool = True
+
+    _orthographic = True
+
+
+def get_ndc_to_screen_transform(cameras, with_xyflip: bool = False, image_size=None) -> Transform3d:
+    """NDC -> screen (+X right, +Y down, origin top-left)."""
+    if image_size is None:
+        raise ValueError(
+            "For NDC to screen conversion, image_size=(height, width) needs to be specified."
+        )
+    image_size = torch.as_tensor(image_size, dtype=torch.float32, device=cameras.device).reshape(-1, 2)
+    height, width = image_size[:, 0], image_size[:, 1]
+    scale = image_size.amin(dim=1) / 2.0
+    zero, one = torch.zeros_like(scale), torch.ones_like(scale)
+    K = _rows_to_matrix([
+        [scale, zero, zero, -width / 2.0],
+        [zero, scale, zero, -height / 2.0],
+        [zero, zero, one, zero],
+        [zero, zero, zero, one],
+    ])
+    transform = Transform3d(K.transpose(-1, -2))
+    if with_xyflip:
+        flip = torch.diag(torch.tensor([-1.0, -1.0, 1.0, 1.0], device=K.device)).expand(K.shape[0], 4, 4)
+        transform = transform.compose(Transform3d(flip))
+    return transform
+
+
+def get_screen_to_ndc_transform(cameras, with_xyflip: bool = False, image_size=None) -> Transform3d:
+    """Screen -> NDC, the inverse of `get_ndc_to_screen_transform`."""
+    return get_ndc_to_screen_transform(cameras, with_xyflip=with_xyflip, image_size=image_size).inverse()
 
 
 def camera_position_from_spherical_angles(

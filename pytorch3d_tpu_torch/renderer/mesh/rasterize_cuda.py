@@ -18,6 +18,15 @@ Its backward, `rasterize_grad_cuda`, replaces the TPU kernel `_grad_kernel`
 `csrc/rasterize_grad.cu`, one thread per (pixel, slot) with atomic adds
 per face; on CPU tensors it runs `rasterize_grad_plain`.  On CPU the
 forward is the plain version, which autograd differentiates directly.
+
+Two more entry points share the binning.  `rasterize_topk_cuda` replaces
+the ids-only `_fine_kernel` (emit_fragments=False, its pallas_call at :601
+in `rasterize_topk_pallas` :549): the ids-only build of
+`csrc/rasterize_fine.cu`, with `rasterize_topk` as its plain version.
+`rasterize_hard_cuda` replaces `_hard_kernel` (:635, its pallas_call at
+:770 in `rasterize_hard_pallas` :735), the K=1 z-min of
+`MeshRasterizerOpenGL`: `csrc/rasterize_hard.cu`, with
+`rasterize_hard_plain` as its plain version.
 """
 
 from __future__ import annotations
@@ -61,6 +70,20 @@ def half_pixel(H: int, W: int) -> float:
     return max(non_square_ndc_range(H, W) / H, non_square_ndc_range(W, H) / W) / 2.0
 
 
+def box_tiles(xmin, xmax, ymin, ymax, image_size: Tuple[int, int]):
+    """((first tile row, tile rows), (first tile column, tile columns)) of
+    NDC boxes: the tiles holding a pixel center inside each box."""
+    H, W = image_size
+    # Pixel c's center is x = -o + (r * (W - 1 - c) + o) / W (r the NDC span,
+    # o = r / 2): x falls as c grows, so the largest x gives the first column.
+    rx, ry = non_square_ndc_range(W, H), non_square_ndc_range(H, W)
+    c_lo = W - 1 - ((xmax + rx / 2) * W - rx / 2) / rx
+    c_hi = W - 1 - ((xmin + rx / 2) * W - rx / 2) / rx
+    r_lo = H - 1 - ((ymax + ry / 2) * H - ry / 2) / ry
+    r_hi = H - 1 - ((ymin + ry / 2) * H - ry / 2) / ry
+    return _tile_range(r_lo, r_hi, H, TILE[0]), _tile_range(c_lo, c_hi, W, TILE[1])
+
+
 def bin_boxes(xmin, xmax, ymin, ymax, ok, image_size: Tuple[int, int]):
     """Per-tile lists of NDC boxes as CSR: (tile_items, tile_start, n_ty, n_tx).
 
@@ -73,18 +96,9 @@ def bin_boxes(xmin, xmax, ymin, ymax, ok, image_size: Tuple[int, int]):
     """
     N, M = ok.shape
     H, W = image_size
-    TH, TW = TILE
-    n_ty, n_tx = -(-H // TH), -(-W // TW)
+    n_ty, n_tx = -(-H // TILE[0]), -(-W // TILE[1])
     device = ok.device
-    # Pixel c's center is x = -o + (r * (W - 1 - c) + o) / W (r the NDC span,
-    # o = r / 2): x falls as c grows, so the largest x gives the first column.
-    rx, ry = non_square_ndc_range(W, H), non_square_ndc_range(H, W)
-    c_lo = W - 1 - ((xmax + rx / 2) * W - rx / 2) / rx
-    c_hi = W - 1 - ((xmin + rx / 2) * W - rx / 2) / rx
-    r_lo = H - 1 - ((ymax + ry / 2) * H - ry / 2) / ry
-    r_hi = H - 1 - ((ymin + ry / 2) * H - ry / 2) / ry
-    tx0, nx = _tile_range(c_lo, c_hi, W, TW)
-    ty0, ny = _tile_range(r_lo, r_hi, H, TH)
+    (ty0, ny), (tx0, nx) = box_tiles(xmin, xmax, ymin, ymax, image_size)
 
     counts = torch.where(ok, nx * ny, 0).reshape(-1)  # (N*M,)
     P = int(counts.sum())
@@ -164,6 +178,8 @@ def _library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.rasterize_fine.argtypes = [p] * 5 + [i] * 6 + [ctypes.c_float, i, i, i] + [p] * 5
         lib.rasterize_fine.restype = ctypes.c_int
+        lib.rasterize_topk.argtypes = [p] * 5 + [i] * 6 + [ctypes.c_float, i, i, i] + [p] * 2
+        lib.rasterize_topk.restype = ctypes.c_int
     return lib
 
 
@@ -350,3 +366,152 @@ def rasterize_fragments_cuda(
 
 
 rasterize_fragments_cuda.launches = 0
+
+
+def _check_faces(name: str, face_verts: torch.Tensor, valid: torch.Tensor, ndim: int) -> None:
+    """Raise on what the kernels do not take: float32, contiguous
+    (..., F, 3, 3) face verts with a matching bool mask."""
+    if face_verts.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {face_verts.device}")
+    if face_verts.dtype != torch.float32:
+        raise TypeError(f"{name}: face_verts must be float32, got {face_verts.dtype}")
+    if face_verts.ndim != ndim or face_verts.shape[-2:] != (3, 3):
+        raise ValueError(f"{name}: face_verts must have {ndim} dims ending (3, 3), got {tuple(face_verts.shape)}")
+    if not face_verts.is_contiguous():
+        raise ValueError(f"{name}: face_verts must be contiguous")
+    if valid.shape != face_verts.shape[:-2] or valid.dtype != torch.bool or valid.device != face_verts.device:
+        raise ValueError(f"{name}: valid must be a bool {tuple(face_verts.shape[:-2])} tensor on the faces' device")
+
+
+def rasterize_topk_cuda(
+    face_verts: torch.Tensor,  # (F, 3, 3) one image's faces, NDC xy + view z
+    valid: torch.Tensor,  # (F,) bool
+    image_size: Tuple[int, int],
+    blur_radius: float = 0.0,
+    faces_per_pixel: int = 1,
+    perspective_correct: bool = False,
+    clip_barycentric_coords: bool = False,
+    cull_backfaces: bool = False,
+) -> torch.Tensor:
+    """(H, W, K) per-pixel ascending-z face ids, -1 where fewer cover
+    (JAX `rasterize_topk_pallas`).
+
+    CUDA tensors launch the ids-only fine kernel (and count the launch in
+    `rasterize_topk_cuda.launches`); its ids equal `rasterize_fragments_cuda`'s
+    pix_to_face bit for bit.  CPU tensors run the plain version,
+    `rasterize_topk`.  Anything the kernel does not take raises.
+    """
+    if face_verts.device.type == "cpu":
+        return rasterize_topk(
+            face_verts, valid, image_size, blur_radius, faces_per_pixel,
+            perspective_correct, clip_barycentric_coords, cull_backfaces,
+        )
+    _check_faces("rasterize_topk_cuda", face_verts, valid, 3)
+    if not 1 <= faces_per_pixel <= MAX_FACES_PER_PIXEL:
+        raise ValueError(
+            f"rasterize_topk_cuda: faces_per_pixel={faces_per_pixel} is outside the kernel's 1..{MAX_FACES_PER_PIXEL}"
+        )
+    H, W = image_size
+    K = int(faces_per_pixel)
+    fv = face_verts.detach()[None]
+    tile_faces, tile_start, n_ty, n_tx = bin_faces(
+        fv, _face_culls(fv, valid[None], cull_backfaces), (H, W), blur_radius
+    )
+    idx = torch.empty((H, W, K), dtype=torch.int32, device=fv.device)
+    ys, xs = pixel_grid_ndc(H, W, fv.device)
+    lib = _library()
+    with torch.cuda.device(fv.device):
+        err = lib.rasterize_topk(
+            fv.data_ptr(), tile_faces.data_ptr(), tile_start.data_ptr(), xs.data_ptr(), ys.data_ptr(),
+            1, fv.shape[1], H, W, n_ty, n_tx, float(blur_radius), K, int(perspective_correct),
+            int(clip_barycentric_coords), idx.data_ptr(), torch.cuda.current_stream(fv.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"rasterize_topk launch failed: CUDA error {err}")
+    rasterize_topk_cuda.launches += 1
+    return idx
+
+
+rasterize_topk_cuda.launches = 0
+
+
+def rasterize_hard_plain(
+    face_verts: torch.Tensor,  # (N, F, 3, 3)
+    valid: torch.Tensor,  # (N, F) bool
+    image_size: Tuple[int, int],
+):
+    """The plain PyTorch version of the hard kernel, the JAX package's CPU
+    route of `MeshRasterizerOpenGL` (mesh/rasterizer.py:196-203): per image
+    `rasterize_topk(fv, valid, size, 0.0, 1)`, then
+    `interpolate_fragments(..., perspective_correct=True)`.
+
+    Returns (pix_to_face (N, H, W, 1) local ids, zbuf (N, H, W, 1), bary
+    (N, H, W, 1, 3)); empty pixels hold -1."""
+    pix, zbuf, bary = [], [], []
+    for fv, m in zip(face_verts.detach(), valid):
+        idx = rasterize_topk(fv, m, image_size, 0.0, 1)
+        z, b, _ = interpolate_fragments(fv, idx, image_size, perspective_correct=True)
+        pix.append(idx)
+        zbuf.append(z)
+        bary.append(b)
+    return torch.stack(pix), torch.stack(zbuf), torch.stack(bary)
+
+
+def _hard_library() -> ctypes.CDLL:
+    lib = _build.load("rasterize_hard")
+    if not lib.rasterize_hard.argtypes:
+        rows, cols = ctypes.c_int(), ctypes.c_int()
+        lib.rasterize_hard_tile(ctypes.byref(rows), ctypes.byref(cols))
+        if (rows.value, cols.value) != TILE:
+            raise RuntimeError(
+                f"rasterize_hard.cu rasterizes {rows.value}x{cols.value} tiles but"
+                f" the binning makes {TILE[0]}x{TILE[1]} tiles"
+            )
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.rasterize_hard.argtypes = [p] * 5 + [i] * 6 + [p] * 4
+        lib.rasterize_hard.restype = ctypes.c_int
+    return lib
+
+
+def rasterize_hard_cuda(
+    face_verts: torch.Tensor,  # (N, F, 3, 3) NDC xy + view z
+    valid: torch.Tensor,  # (N, F) bool
+    image_size: Tuple[int, int],
+):
+    """(pix_to_face, zbuf, bary) of a batch at K=1 with no blur: the nearest
+    covering face per pixel and its perspective-correct z and barycentrics
+    (JAX `rasterize_hard_pallas`, one launch for the batch where JAX loops
+    over meshes).  Local face ids; not differentiable.
+
+    CUDA tensors launch the hard kernel (and count the launch in
+    `rasterize_hard_cuda.launches`); CPU tensors run `rasterize_hard_plain`.
+    Anything the kernel does not take raises.
+    """
+    if face_verts.device.type == "cpu":
+        return rasterize_hard_plain(face_verts, valid, image_size)
+    _check_faces("rasterize_hard_cuda", face_verts, valid, 4)
+    H, W = image_size
+    N, F = face_verts.shape[:2]
+    fv = face_verts.detach()
+    device = fv.device
+    idx = torch.empty((N, H, W, 1), dtype=torch.int32, device=device)
+    zbuf = torch.empty((N, H, W, 1), dtype=torch.float32, device=device)
+    bary = torch.empty((N, H, W, 1, 3), dtype=torch.float32, device=device)
+    if N == 0:
+        return idx, zbuf, bary
+    tile_faces, tile_start, n_ty, n_tx = bin_faces(fv, _face_culls(fv, valid, False), (H, W), 0.0)
+    ys, xs = pixel_grid_ndc(H, W, device)
+    lib = _hard_library()
+    with torch.cuda.device(device):
+        err = lib.rasterize_hard(
+            fv.data_ptr(), tile_faces.data_ptr(), tile_start.data_ptr(), xs.data_ptr(), ys.data_ptr(),
+            N, F, H, W, n_ty, n_tx, idx.data_ptr(), zbuf.data_ptr(), bary.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"rasterize_hard launch failed: CUDA error {err}")
+    rasterize_hard_cuda.launches += 1
+    return idx, zbuf, bary
+
+
+rasterize_hard_cuda.launches = 0

@@ -1,18 +1,16 @@
-"""MeshRasterizer: camera transform + rasterization to Fragments
-(port of pytorch3d_tpu/renderer/mesh/rasterizer.py).
-
-`MeshRasterizerOpenGL` waits for the hard-rasterizer kernel (#3 of the
-kernel table in PERF.md).
-"""
+"""MeshRasterizer and MeshRasterizerOpenGL: camera transform + rasterization
+to Fragments (port of pytorch3d_tpu/renderer/mesh/rasterizer.py)."""
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
-from ..cameras import try_get_projection_transform
+from ..cameras import OrthographicCameras, PerspectiveCameras, try_get_projection_transform
+from ..utils import parse_image_size
 from .rasterize_meshes import rasterize_meshes
 
 
@@ -23,7 +21,7 @@ class Fragments:
     pix_to_face: torch.Tensor  # (N, H, W, K) packed face ids, -1 empty
     zbuf: torch.Tensor  # (N, H, W, K)
     bary_coords: torch.Tensor  # (N, H, W, K, 3)
-    dists: torch.Tensor  # (N, H, W, K) signed squared NDC distance
+    dists: Optional[torch.Tensor]  # (N, H, W, K) signed squared NDC distance; None from MeshRasterizerOpenGL
 
 
 class RasterizationSettings(NamedTuple):
@@ -101,3 +99,52 @@ class MeshRasterizer:
             cull_to_frustum=raster_settings.cull_to_frustum,
         )
         return Fragments(pix_to_face=pix_to_face, zbuf=zbuf, bary_coords=bary, dists=dists)
+
+
+class MeshRasterizerOpenGL(MeshRasterizer):
+    """The hard serving rasterizer: K = 1, no blur, perspective-correct,
+    not differentiable, `dists` None (the counterpart of the reference's
+    OpenGL rasterizer, which it pairs with hard and splatter shading).
+
+    On CUDA tensors the whole batch goes through the hard kernel
+    (`rasterize_hard_cuda`) in one launch; on CPU tensors through its plain
+    version.  The camera and setting checks raise and warn as the JAX
+    package's do.
+    """
+
+    def forward(self, meshes_world, **kwargs) -> Fragments:
+        from .rasterize_cuda import rasterize_hard_cuda
+
+        rs = kwargs.get("raster_settings", self.raster_settings)
+        cameras = kwargs.get("cameras", self.cameras)
+        if cameras is None:
+            raise ValueError(
+                "Cameras must be specified either at initialization or in "
+                "the forward pass of MeshRasterizerOpenGL"
+            )
+        if isinstance(cameras, (PerspectiveCameras, OrthographicCameras)):
+            raise ValueError(
+                "MeshRasterizerOpenGL only works with FoVPerspectiveCameras "
+                "and FoVOrthographicCameras, which are OpenGL compatible."
+            )
+        if rs.faces_per_pixel > 1:
+            warnings.warn("MeshRasterizerOpenGL currently works only with one face per pixel.")
+        if rs.cull_backfaces:
+            warnings.warn("MeshRasterizerOpenGL cannot cull backfaces yet, rasterizing without culling.")
+        if rs.cull_to_frustum:
+            warnings.warn("MeshRasterizerOpenGL cannot cull to frustum yet, rasterizing without culling.")
+        if rs.z_clip_value is not None:
+            raise NotImplementedError("MeshRasterizerOpenGL cannot do z-clipping yet.")
+        if rs.perspective_correct is False:
+            raise ValueError("MeshRasterizerOpenGL always uses perspective-correct interpolation.")
+
+        meshes_ndc = self.transform(meshes_world, **kwargs)
+        N, F = len(meshes_ndc), meshes_ndc.max_faces
+        with torch.no_grad():
+            face_verts = meshes_ndc.verts_packed()[meshes_ndc.faces_packed()].reshape(N, F, 3, 3).contiguous()
+            mask = meshes_ndc.faces_packed_mask().reshape(N, F)
+            pix, zbuf, bary = rasterize_hard_cuda(face_verts, mask, parse_image_size(rs.image_size))
+            # packed face ids: mesh n's faces live at [n*F, (n+1)*F)
+            offsets = (torch.arange(N, device=pix.device) * F)[:, None, None, None]
+            pix_to_face = torch.where(pix >= 0, pix.long() + offsets, -1)
+        return Fragments(pix_to_face=pix_to_face, zbuf=zbuf, bary_coords=bary, dists=None)

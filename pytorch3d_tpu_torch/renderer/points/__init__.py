@@ -1,6 +1,7 @@
-"""Point rendering (port of pytorch3d_tpu/renderer/points; pulsar not yet)."""
+"""Point rendering (port of pytorch3d_tpu/renderer/points, pulsar included)."""
 from .compositing import alpha_composite, norm_weighted_sum, weighted_sum
 from .compositor import AlphaCompositor, NormWeightedCompositor
+from .pulsar import PulsarPointsRenderer
 from .rasterize_points import rasterize_points
 from .rasterizer import PointFragments, PointsRasterizationSettings, PointsRasterizer
 from .renderer import PointsRenderer

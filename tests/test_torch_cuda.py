@@ -428,3 +428,188 @@ def test_fused_kernels_refuse_what_they_do_not_take(cuda_device):
         tfm.nerf_field_cuda(x, de[:50], ws, bs, head, (1,))
     with pytest.raises(ValueError):
         tfm.nerf_field_grad_cuda(x, de, ws, bs, head, (1,), torch.zeros((100, 3), device=cuda_device))
+
+
+# --------------------------------------------------------------------------- #
+# Slice 5: the ids-only fine kernel (#2), the hard kernel (#3), the pulsar
+# select (#6) and the pulsar blend backward (#8)
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("size,blur,K,persp,clip", [((128, 128), 1e-4, 8, True, True), ((96, 128), 0.0, 1, False, False)])
+def test_topk_kernel_matches_fine_kernel_and_plain(cuda_device, size, blur, K, persp, clip):
+    fv, valid = _batch_faces(cuda_device, size, aspect_ratio=size[1] / size[0])
+    fine = trc.rasterize_fragments_cuda(fv, valid, size, blur, K, persp, clip)[0]
+    for n in range(len(fv)):
+        before = trc.rasterize_topk_cuda.launches
+        got = trc.rasterize_topk_cuda(fv[n], valid[n], size, blur, K, persp, clip)
+        torch.cuda.synchronize()
+        assert trc.rasterize_topk_cuda.launches == before + 1
+        assert torch.equal(got, fine[n])  # the same arithmetic: bit for bit
+        want = trm.rasterize_topk(fv[n], valid[n], size, blur, K, persp, clip)
+        assert (got.long() == want).float().mean() > 0.999
+
+
+@pytest.mark.parametrize("size", [(128, 128), (96, 160)])
+def test_hard_kernel_matches_plain(cuda_device, size):
+    fv, valid = _batch_faces(cuda_device, size, aspect_ratio=size[1] / size[0])
+    before = trc.rasterize_hard_cuda.launches
+    pix, zbuf, bary = trc.rasterize_hard_cuda(fv, valid, size)
+    torch.cuda.synchronize()
+    assert trc.rasterize_hard_cuda.launches == before + 1
+    w_pix, w_zbuf, w_bary = trc.rasterize_hard_plain(fv, valid, size)
+    same = pix.long() == w_pix
+    assert same.float().mean() >= _CHIP_SMOKE.HARD_IDS_GATE
+    assert (zbuf - w_zbuf).abs()[same].max() <= 1e-5
+    assert (bary - w_bary).abs()[same[..., None].expand_as(bary)].max() <= 1e-4
+    empty = pix < 0
+    assert (zbuf[empty] == -1).all() and (bary[empty[..., None].expand_as(bary)] == -1).all()
+
+
+def _spheres(device, P=3000, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    pts = torch.cat([torch.rand((P, 2), generator=gen, device=device) * 2.2 - 1.1,
+                     torch.rand((P, 1), generator=gen, device=device) * 4.5 - 0.5], -1)
+    rad = torch.rand(P, generator=gen, device=device) * 0.05 + 0.01
+    return pts, rad, (pts[:, 2] > 0.5) & (pts[:, 2] < 3.5)  # spheres on both sides of the bounds and of z = 0
+
+
+@pytest.mark.parametrize("size,K", [((128, 128), 5), ((96, 160), 1), ((128, 96), 12)])
+def test_select_kernel_matches_plain(cuda_device, size, K):
+    pts, rad, valid = _spheres(cuda_device)
+    bins = tpc.bin_points_for_pulsar(pts, rad, valid, size)
+    before = tpc.select_points_cuda.launches
+    got = tpc.select_points_cuda(pts, rad, valid, size, K, bins)
+    torch.cuda.synchronize()
+    assert tpc.select_points_cuda.launches == before + 1
+    assert torch.equal(got.long(), trp.rasterize_points_topk(pts, rad, valid, size, K))
+    assert torch.equal(got, tpc._run_kernel(pts[None], rad[None], bins[:4], size, K)[0][0])
+
+
+def _pulsar_case(device, size, K, seed=0, C=3, gamma=0.1):
+    from pytorch3d_tpu_torch.renderer.points.pulsar.renderer import _blend_core
+
+    pts, rad, valid = _spheres(device, seed=seed)
+    P = pts.shape[0]
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    table = torch.cat([pts, rad[:, None], torch.rand((P, 1), generator=gen, device=device) * 0.7 + 0.3,
+                       torch.rand((P, C), generator=gen, device=device)], -1).contiguous()
+    bins = tpc.bin_points_for_pulsar(pts, rad, valid, size)
+    idx = tpc.select_points_cuda(pts, rad, valid, size, K, bins)
+    ct = torch.randn((*size, C), generator=gen, device=device)
+    bg = torch.ones(C, device=device)
+    env = (*_blend_core(table, idx, bg, gamma, 0.5, 3.5, 0.0, *size)[1:3], bg)  # denom, logit_max, bg_col
+    return table, idx, bins, ct, env
+
+
+@pytest.mark.parametrize("size,K,C,gamma", [
+    ((128, 128), 5, 3, 0.1),
+    ((96, 160), 3, 3, 0.1),
+    ((96, 128), 5, 40, 0.1),  # 4 + C partial sums per warp outnumber its 32 lanes
+    ((96, 128), 5, 200, 0.1),  # fewer than 64 spheres staged per chunk
+    ((96, 128), 5, 3, 1e-4),  # PulsarPointsRenderer's gamma: logits ~1e4
+])
+def test_pulsar_grad_kernel_matches_plain(cuda_device, size, K, C, gamma):
+    table, idx, bins, ct, env = _pulsar_case(cuda_device, size, K, C=C, gamma=gamma)
+    before = tpc.pulsar_blend_grads_cuda.launches
+    ok, ratio, ratio_plain, _ = _CHIP_SMOKE.compare_pulsar_grad(table, idx, bins, ct, "card test", gamma, (0.5, 3.5))
+    assert tpc.pulsar_blend_grads_cuda.launches == before + 1
+    assert ok, (ratio, ratio_plain)
+    a = tpc.pulsar_blend_grads_cuda(table, idx, ct, *env, size, gamma, 0.5, 3.5, 0.0, bins)
+    b = tpc.pulsar_blend_grads_cuda(table, idx, ct, *env, size, gamma, 0.5, 3.5, 0.0, bins)
+    assert torch.equal(a, b)  # no atomics: two runs give the same bits
+
+
+def test_pulsar_points_renderer_backward_at_its_default_gamma(cuda_device):
+    """PulsarPointsRenderer (gamma 1e-4, depths 0.1-100) backward through
+    #8 against the same renderer on the card with the plain gradient
+    patched in: one forward, so the two differ only in float32 summation
+    order.  (Against the CPU the forward itself moves by ~1e-3 at this
+    gamma: logits of ~1e4 turn ulp-level projection differences into
+    weight changes.)"""
+    from unittest import mock
+
+    from pytorch3d_tpu_torch.renderer import (
+        FoVOrthographicCameras, PointsRasterizationSettings, PointsRasterizer, PulsarPointsRenderer,
+    )
+    from pytorch3d_tpu_torch.renderer.points.pulsar import renderer as pulsar_module
+
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    P = 2000
+    pts = (torch.rand((P, 3), generator=gen, device=cuda_device) * 1.6 - 0.8).requires_grad_(True)
+    feats = torch.rand((P, 3), generator=gen, device=cuda_device).requires_grad_(True)
+    R, T = look_at_view_transform(3.0, 20.0, 30.0, device=cuda_device)
+    cams = FoVOrthographicCameras.create(R=R, T=T, znear=0.01, device=cuda_device)
+    render = PulsarPointsRenderer(PointsRasterizer(cams, PointsRasterizationSettings(image_size=96, radius=0.03)))
+    cloud = Pointclouds.create(pts[None], features=feats[None], device=cuda_device)
+    wts = torch.randn((1, 96, 96, 3), generator=gen, device=cuda_device)
+
+    grad = tpc.pulsar_blend_grads_cuda.launches
+    img = render(cloud)
+    got = torch.autograd.grad((img * wts).sum(), [pts, feats])
+    assert tpc.pulsar_blend_grads_cuda.launches == grad + 1
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    plain_grads = lambda *args: tpc.pulsar_blend_grads_plain(*args[:11])  # noqa: E731 (drops the binning)
+    with mock.patch.object(pulsar_module, "pulsar_blend_grads_cuda", plain_grads):
+        img_plain = render(cloud)
+        want = torch.autograd.grad((img_plain * wts).sum(), [pts, feats])
+    assert torch.equal(img, img_plain)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max() <= 1e-4 * w.abs().max()  # float32 summation order
+
+
+def test_pulsar_renderer_backward_launches_the_kernels(cuda_device):
+    from pytorch3d_tpu_torch.renderer.points.pulsar import Renderer
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    P = 400
+    pos = torch.cat([torch.rand((P, 2), generator=gen, device=cuda_device) * 2 - 1,
+                     torch.rand((P, 1), generator=gen, device=cuda_device) * 4 + 2], -1).requires_grad_(True)
+    col = torch.rand((P, 3), generator=gen, device=cuda_device).requires_grad_(True)
+    rad = (torch.rand(P, generator=gen, device=cuda_device) * 0.3 + 0.1).requires_grad_(True)
+    cam = torch.tensor([0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 1.0, 2.0], device=cuda_device, requires_grad=True)
+    ren = Renderer(96, 64, P)
+    sel, grad = tpc.select_points_cuda.launches, tpc.pulsar_blend_grads_cuda.launches
+    img = ren(pos, col, rad, cam, 0.1, 10.0, 0.5)
+    wts = torch.randn(img.shape, generator=gen, device=cuda_device)
+    got = torch.autograd.grad((img * wts).sum(), [pos, col, rad, cam])
+    assert (tpc.select_points_cuda.launches, tpc.pulsar_blend_grads_cuda.launches) == (sel + 1, grad + 1)
+    cpu = [t.detach().cpu().requires_grad_(True) for t in (pos, col, rad, cam)]
+    img_cpu = ren(cpu[0], cpu[1], cpu[2], cpu[3], 0.1, 10.0, 0.5)
+    torch.testing.assert_close(img.cpu(), img_cpu, atol=1e-5, rtol=0)
+    want = torch.autograd.grad((img_cpu * wts.cpu()).sum(), cpu)
+    for g, w in zip(got, want):
+        assert (g.cpu() - w).abs().max() <= 1e-3 * w.abs().max()  # the blend gradient's float32 conditioning
+
+
+def test_mesh_rasterizer_opengl_launches_the_hard_kernel(cuda_device):
+    from pytorch3d_tpu_torch.renderer import MeshRasterizerOpenGL, RasterizationSettings
+
+    ico = ico_sphere(2, device=cuda_device)
+    R, T = look_at_view_transform(2.7, 15.0, 20.0, device=cuda_device)
+    cams = FoVPerspectiveCameras.create(R=R, T=T, device=cuda_device)
+    before = trc.rasterize_hard_cuda.launches
+    frags = MeshRasterizerOpenGL(cams, RasterizationSettings(image_size=64))(ico.extend(2))
+    assert trc.rasterize_hard_cuda.launches == before + 1
+    with _CHIP_SMOKE.plain_gl():
+        plain = MeshRasterizerOpenGL(cams, RasterizationSettings(image_size=64))(ico.extend(2))
+    assert (frags.pix_to_face == plain.pix_to_face).float().mean() >= _CHIP_SMOKE.HARD_IDS_GATE
+    assert frags.dists is None and frags.pix_to_face[1].max() >= ico.faces_packed().shape[0]
+
+
+def test_slice5_kernels_refuse_what_they_do_not_take(cuda_device):
+    fv, valid = _batch_faces(cuda_device, (32, 32))
+    with pytest.raises(ValueError):
+        trc.rasterize_topk_cuda(fv[0], valid[0], (32, 32), 0.0, trc.MAX_FACES_PER_PIXEL + 1)
+    with pytest.raises(ValueError):
+        trc.rasterize_topk_cuda(fv, valid, (32, 32))  # a batch: one image's faces only
+    with pytest.raises(TypeError):
+        trc.rasterize_hard_cuda(fv.double(), valid, (32, 32))
+    pts, rad, valid_p = _spheres(cuda_device, P=200)
+    with pytest.raises(ValueError):
+        tpc.select_points_cuda(pts, rad, valid_p, (32, 32), tpc.MAX_POINTS_PER_PIXEL + 1)
+    table, idx, bins, ct, env = _pulsar_case(cuda_device, (32, 32), 5)
+    with pytest.raises(ValueError):
+        tpc.pulsar_blend_grads_cuda(table, idx, ct, *env, (32, 32), 0.1, 0.5, 3.5, 0.0, None)
+    with pytest.raises(TypeError):
+        tpc.pulsar_blend_grads_cuda(table.double(), idx, ct, *env, (32, 32), 0.1, 0.5, 3.5, 0.0, bins)
