@@ -108,8 +108,12 @@ REPO = Path(__file__).resolve().parent
 # instruction of its own and issues at half that rate.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_OPS_PER_S = 67e12 / 2
-# The fused MLP builds with FMA: 67 TFLOP/s, an FMA counted as two.
-PEAK_FP32_FMA_OPS_PER_S = 67e12
+# The fused MLP's products run on the tensor cores as three TF32 passes
+# (a b = a_lo b_hi + a_hi b_lo + a_hi b_hi, as accurate as float32), so the
+# least time of float32-accurate products is their operations over a third of
+# the sheet's dense TF32 rate of 495 TFLOP/s (700 W): 165 TFLOP/s, above the
+# 67 TFLOP/s of fp32 FMA on the CUDA cores.
+PEAK_TF32X3_OPS_PER_S = 495e12 / 3
 
 KERNELS = ("rasterize_fine", "rasterize_grad", "knn", "rasterize_points", "rasterize_points_grad",
            "fused_mlp", "fused_mlp_grad", "nerf_field", "nerf_field_grad",
@@ -565,6 +569,27 @@ def compare_fused(x, d_embed, weights, biases, head, skips, g):
     return out
 
 
+def fused_backward_repeats(x, d_embed, weights, biases, head, skips, g):
+    """Whether two backward launches on one saving forward's tensors give
+    the same bits in every output (the design adds in a fixed order, with
+    no atomics)."""
+    import torch
+
+    from pytorch3d_tpu_torch.ops import fused_mlp_cuda as fm
+
+    if head is None:
+        saved = fm.fused_mlp_cuda(x, weights, biases, skips, save=True)
+        runs = [fm.fused_mlp_grad_cuda(x, weights, biases, skips, g, saved=saved) for _ in range(2)]
+    else:
+        saved = fm.nerf_field_cuda(x, d_embed, weights, biases, head, skips, save=True)
+        runs = [fm.nerf_field_grad_cuda(x, d_embed, weights, biases, head, skips, g, saved=saved) for _ in range(2)]
+
+    def flat(out):
+        return [t for part in out for t in (part if isinstance(part, (list, tuple)) else [part]) if t is not None]
+
+    return all(torch.equal(a, b) for a, b in zip(flat(runs[0]), flat(runs[1])))
+
+
 def fused_ok(result):
     grads_ok = all(
         masked <= FUSED_GRAD_GATE and exact <= max(FUSED_GRAD_GATE, FUSED_PLAIN_FACTOR * plain)
@@ -594,14 +619,9 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(stop) / iters
 
 
-def device_ms(fn, kernel, iters=20, warmup=3):
-    """Device time per call of the device kernels whose name contains
-    `kernel` (or any of a tuple of names), from torch.profiler (CUPTI).
-    Raises where the profiler recorded none of them, so that a kernel's
-    row never turns into another measure unnoticed.  For a launch of a few tens of
-    microseconds, CUDA events around back-to-back wrapper calls measure the
-    host's rate of issuing them (validation, pixel grid, ctypes) rather than
-    the kernel."""
+def device_ms_by_kernel(fn, kernels, iters=20, warmup=3):
+    """{name: device time per call} of the device kernels whose name
+    contains each of `kernels`, from one torch.profiler (CUPTI) window."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -614,13 +634,22 @@ def device_ms(fn, kernel, iters=20, warmup=3):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return {k: sum(e.self_device_time_total for e in events if k in e.key) / 1e3 / iters for k in kernels}
+
+
+def device_ms(fn, kernel, iters=20, warmup=3):
+    """Device time per call of the device kernels whose name contains
+    `kernel` (or any of a tuple of names), from torch.profiler (CUPTI).
+    Raises where the profiler recorded none of them, so that a kernel's
+    row never turns into another measure unnoticed.  For a launch of a few tens of
+    microseconds, CUDA events around back-to-back wrapper calls measure the
+    host's rate of issuing them (validation, pixel grid, ctypes) rather than
+    the kernel."""
     names = (kernel,) if isinstance(kernel, str) else kernel
-    us = sum(
-        e.self_device_time_total for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA and any(k in e.key for k in names)
-    )
-    check(us > 0, f"the profiler recorded no device kernel named {names}")
-    return us / 1e3 / iters
+    ms = sum(device_ms_by_kernel(fn, names, iters, warmup).values())
+    check(ms > 0, f"the profiler recorded no device kernel named {names}")
+    return ms
 
 
 def fine_ops_per_candidate(persp, clip):
@@ -742,9 +771,8 @@ def phase_build():
     log(f"build: {len(SOURCES)} sources in {time.perf_counter() - t0:.2f} s wall")
     for name, (seconds, text) in built.items():
         log(f"build: {name} {seconds:.2f} s")
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+        for kernel, figures in ptxas_figures(text).items():
+            log(f"  ptxas {name}: {kernel}: {figures}")
     rc._library()  # loads it and checks its tile against the binning's
     rc._grad_library()
     knn._library()
@@ -753,6 +781,38 @@ def phase_build():
     fm._library()
     rc._hard_library()
     rpc._pulsar_grad_library()
+
+
+def ptxas_figures(text):
+    """{kernel: "R registers, S bytes smem, spill stores / loads"} from
+    nvcc -Xptxas=-v output (mangled names shortened to their base name and
+    template arguments)."""
+    import re
+
+    out, current = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(_Z\w+)'?", line)
+        if m:
+            current = m.group(1)
+            base = re.match(r"_Z(\d+)", current)
+            if base:
+                n = int(base.group(1))
+                body = current[len(base.group(0)):]
+                name, rest = body[:n], body[n:]
+                args = re.findall(r"Lb([01])E", rest)
+                current = name + (f"<{', '.join('true' if a == '1' else 'false' for a in args)}>" if args else "")
+            out.setdefault(current, {})
+        if current is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            out[current]["spill"] = f"{spill.group(1)} / {spill.group(2)} bytes spilled"
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            out[current]["registers"] = f"{regs.group(1)} registers"
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[current]["smem"] = f"{smem.group(1) if smem else 0} bytes static smem"
+    return {k: ", ".join(v[f] for f in ("registers", "smem", "spill") if f in v) for k, v in out.items()}
 
 
 def phase_fine_kernel(device):
@@ -1873,12 +1933,13 @@ def mlp_macs_per_row(D, H, L, skips, Ddir=0, Hh=0):
 
 
 def mlp_bound(N, D, H, L, skips, Ddir=0, Hh=0, backward=False):
-    """Least time of the function's work at fp32 FMA peak and HBM rate.
+    """Least time of the function's work at the three-pass TF32 rate and
+    HBM rate.
 
     Forward: 2 FLOP per multiply-add; bytes: the inputs (x, d_embed) and
     the weights read once, the output written once.  Backward: the input
     gradient and the weight gradients, 2 multiply-adds per forward one
-    (the kernel's recompute of the forward is not the function's work);
+    (the forward's saved activations are read, not recomputed);
     bytes: the inputs, the output gradient and the weights read once, dx,
     d d_embed and the weight gradients written once."""
     macs = mlp_macs_per_row(D, H, L, skips, Ddir, Hh)
@@ -1888,7 +1949,7 @@ def mlp_bound(N, D, H, L, skips, Ddir=0, Hh=0, backward=False):
     words = N * (D + Ddir) + n_weights + N * out
     if backward:
         words += N * (D + Ddir) + n_weights
-    t_bytes, t_ops = 4.0 * words / PEAK_BYTES_PER_S, ops / PEAK_FP32_FMA_OPS_PER_S
+    t_bytes, t_ops = 4.0 * words / PEAK_BYTES_PER_S, ops / PEAK_TF32X3_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), ops
 
 
@@ -1939,12 +2000,20 @@ def phase_fused_kernels(device, scene):
     if not fused_report(f"fused_mlp + grad, trunk path N={x.shape[0]} D={x.shape[1]} H={mlp.hidden_dim}"
                         f" L={mlp.n_layers}", result):
         failed.append("trunk")
+    repeats = fused_backward_repeats(x, None, ws, bs, None, mlp.input_skips, g)
+    log(f"  two backward launches on the same saved tensors: {'equal bits' if repeats else 'DIFFERENT bits'}")
+    if not repeats:
+        failed.append("trunk repeat")
     errors["fused_mlp"], errors["fused_mlp_grad"] = result["fwd_diff"], result["worst"]
     errors["nerf_field"] = errors["nerf_field_grad"] = 0.0
     for name, (x, de, ws, bs, head, skips, g) in zip(("coarse", "fine"), scene.field_launches(scene.train_idx[0])):
         result = compare_fused(x, de, ws, bs, head, skips, g)
         if not fused_report(f"nerf_field + grad, training step's {name} launch N={x.shape[0]}", result):
             failed.append(name)
+        repeats = fused_backward_repeats(x, de, ws, bs, head, skips, g)
+        log(f"  two backward launches on the same saved tensors: {'equal bits' if repeats else 'DIFFERENT bits'}")
+        if not repeats:
+            failed.append(f"{name} repeat")
         errors["nerf_field"] = max(errors["nerf_field"], result["fwd_diff"])
         errors["nerf_field_grad"] = max(errors["nerf_field_grad"], result["worst"])
     del x, de, g
@@ -1959,17 +2028,23 @@ def phase_nerf_trunk(device, scene):
     coarse points (kernels #10 and #11)."""
     import torch
 
+    from pytorch3d_tpu_torch.ops import fused_mlp_cuda as fm
+
     x, mlp = scene.trunk_inputs()
     w = torch.randn((x.shape[0], mlp.hidden_dim), generator=torch.Generator(device=device).manual_seed(6),
                     device=device)
     reset_counts()
+    recomputed = fm._backward.forwards_run
     feats = mlp(x, x)
     (feats * w).sum().backward()
     torch.cuda.synchronize()
     counts = read_counts()
+    recomputed = fm._backward.forwards_run - recomputed
     mlp.zero_grad(set_to_none=True)
-    log(f"nerf-trunk: MLPWithInputSkips (no head) forward and backward at N={x.shape[0]}: launches {counts}")
+    log(f"nerf-trunk: MLPWithInputSkips (no head) forward and backward at N={x.shape[0]}: launches {counts};"
+        f" forwards the backward ran itself: {recomputed}")
     check(counts["fused_mlp"] == 1 and counts["fused_mlp_grad"] == 1, f"nerf-trunk: launches {counts}")
+    check(recomputed == 0, "nerf-trunk: the backward recomputed the forward instead of reading its saved tensors")
     check(bool(torch.isfinite(feats).all()), "nerf-trunk: non-finite features")
     return counts
 
@@ -2079,9 +2154,12 @@ def phase_nerf_train(device, scene):
     order = np.random.RandomState(0).permutation(scene.train_idx)
     steps = NERF_WARMUP + NERF_STEPS
     views = [int(order[i % len(order)]) for i in range(steps + NERF_TIMED)]
+    from pytorch3d_tpu_torch.ops import fused_mlp_cuda as fm
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
+    recomputed = fm._backward.forwards_run
     losses, step_ms = [], []
     for v in views[:steps]:
         t0 = time.perf_counter()
@@ -2090,6 +2168,7 @@ def phase_nerf_train(device, scene):
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(metrics["loss"]))
     counts = read_counts()
+    recomputed = fm._backward.forwards_run - recomputed
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"nerf-train: {steps} Adam steps of {NERF_RAYS} rays (64 + 64 points) on one of {len(scene.train_idx)}"
         f" views each: losses {[round(v, 6) for v in losses]}; launches {counts}; peak memory {peak_gb:.2f} GB")
@@ -2098,6 +2177,7 @@ def phase_nerf_train(device, scene):
     check(last < first, f"nerf-train: the mean of the last 5 losses {last:.6f} is not below the first 5's {first:.6f}")
     check(counts["nerf_field"] == 2 * steps and counts["nerf_field_grad"] == 2 * steps,
           f"nerf-train: launches {counts} for {steps} steps (2 field forwards and 2 backwards each)")
+    check(recomputed == 0, f"nerf-train: the backward ran {recomputed} forwards instead of reading the saved tensors")
     check(all(bool(torch.isfinite(p).all()) for p in model.parameters()), "nerf-train: non-finite weights")
     timed = sorted(step_ms[-NERF_TIMED:])
     fwd_ms, bwd_ms = [], []
@@ -2116,7 +2196,7 @@ def phase_nerf_train(device, scene):
     bwd_ms.sort()
     mid = NERF_TIMED // 2
     log(f"times [nerf-train step] median of the last {NERF_TIMED} steps: {timed[mid]:.3f} ms (min {timed[0]:.3f},"
-        f" max {timed[-1]:.3f}); split over {NERF_TIMED} more steps: forward {fwd_ms[mid]:.3f} ms, backward + Adam"
+        f" max {timed[-1]:.3f}), peak memory {peak_gb:.3f} GB; split over {NERF_TIMED} more steps: forward {fwd_ms[mid]:.3f} ms, backward + Adam"
         f" {bwd_ms[mid]:.3f} ms; mean loss first 5 {first:.6f}, last 5 {last:.6f}")
     return counts
 
@@ -2128,9 +2208,12 @@ def phase_nerf_times(device, scene):
 
     from pytorch3d_tpu_torch.ops import fused_mlp_cuda as fm
 
-    fwd_names = {False: "fused_mlp_fwd_kernel<false>", True: "fused_mlp_fwd_kernel<true>"}
-    bwd_names = {h: (f"fused_mlp_bwd_rows_kernel<{'true' if h else 'false'}>", "fused_mlp_bwd_weights_kernel",
-                     "fused_mlp_bwd_reduce_kernel") for h in (False, True)}
+    flag = {False: "false", True: "true"}
+    fwd_names = {h: f"fused_mlp_fwd_kernel<{flag[h]}, false>" for h in (False, True)}
+    save_names = {h: f"fused_mlp_fwd_kernel<{flag[h]}, true>" for h in (False, True)}
+    passes = {h: {"weight preparation": "fused_mlp_bwd_prep_kernel", "row pass": f"fused_mlp_bwd_rows_kernel<{flag[h]}>",
+                  "weight pass": "fused_mlp_bwd_weights_kernel", "split sum": "fused_mlp_bwd_reduce_kernel"}
+              for h in (False, True)}
     x, mlp = scene.trunk_inputs()
     ws, bs = (list(t.detach() for t in ts) for ts in mlp.weights())
     skips = mlp.input_skips
@@ -2144,15 +2227,21 @@ def phase_nerf_times(device, scene):
         N, D = x.shape
         H, L = ws[0].shape[1], len(ws)
         Ddir, Hh = (de.shape[1], head[4].shape[1]) if h else (0, 0)
-        fwd = (lambda: fm.nerf_field_cuda(x, de, ws, bs, head, skips)) if h else (lambda: fm.fused_mlp_cuda(x, ws, bs, skips))
-        bwd = ((lambda: fm.nerf_field_grad_cuda(x, de, ws, bs, head, skips, g)) if h
-               else (lambda: fm.fused_mlp_grad_cuda(x, ws, bs, skips, g)))
+        fwd = ((lambda save=False: fm.nerf_field_cuda(x, de, ws, bs, head, skips, save=save)) if h
+               else (lambda save=False: fm.fused_mlp_cuda(x, ws, bs, skips, save=save)))
+        saved = fwd(save=True)  # the backward reads what a training step's forward saved
+        bwd = ((lambda: fm.nerf_field_grad_cuda(x, de, ws, bs, head, skips, g, saved=saved)) if h
+               else (lambda: fm.fused_mlp_grad_cuda(x, ws, bs, skips, g, saved=saved)))
         plain_f = ((lambda: fm.fused_nerf_field_plain(x, de, ws, bs, head, skips)) if h
                    else (lambda: fm.fused_mlp_plain(x, ws, bs, skips)))
         plain_b = ((lambda: fm.fused_nerf_field_grad_plain(x, de, ws, bs, head, skips, g)) if h
                    else (lambda: fm.fused_mlp_grad_plain(x, ws, bs, skips, g)))
         events_f, events_b = cuda_ms(fwd, 10, 2), cuda_ms(bwd, 5, 1)
-        kernel_f, kernel_b = device_ms(fwd, fwd_names[h], iters=5, warmup=1), device_ms(bwd, bwd_names[h], iters=3, warmup=1)
+        kernel_f = device_ms(fwd, fwd_names[h], iters=5, warmup=1)
+        kernel_fs = device_ms(lambda: fwd(save=True), save_names[h], iters=5, warmup=1)
+        per_pass = dict(zip(passes[h], device_ms_by_kernel(bwd, tuple(passes[h].values()), 3, 1).values()))
+        check(all(v > 0 for v in per_pass.values()), f"the profiler missed a pass of the backward: {per_pass}")
+        kernel_b = sum(per_pass.values())
         with torch.no_grad():
             p_f = cuda_ms(plain_f, 5, 1)
             lib_f = cuda_ms(lambda: addmm_chain(x, ws, bs, skips, de, head), 5, 1)
@@ -2173,13 +2262,22 @@ def phase_nerf_times(device, scene):
             f" (device time, profiler; events {events_b:.4f}), plain"
             f" {p_b:.4f} ms, library (autograd of the addmm chain) {lib_b:.4f} ms, bound {bound_b:.4f} ms by {by_b}"
             f" ({ops_b / 1e9:.2f} GFLOP = {ops_b / kernel_b / 1e9:.2f} TFLOP/s achieved)")
+        log(f"  backward by pass (device ms): {', '.join(f'{k} {v:.4f}' for k, v in per_pass.items())};"
+            f" the saving forward (a training step's, storing the activations) {kernel_fs:.4f} ms against"
+            f" {kernel_f:.4f} without the stores")
         rows[label] = (
-            dict(kernel=kernel_f, plain=p_f, library=lib_f, bound=bound_f, bound_by=by_f),
+            dict(kernel=kernel_f, plain=p_f, library=lib_f, bound=bound_f, bound_by=by_f, saving=kernel_fs),
             dict(kernel=kernel_b, plain=p_b, library=lib_b, bound=bound_b, bound_by=by_b),
         )
-        del x, de, g, params, xr
+        del x, de, g, params, xr, saved
         torch.cuda.empty_cache()
 
+    launches = 2 * scene.model._raysampler.get_n_chunks(NERF_CHUNK, 1)
+    serve = device_ms(lambda: scene.frame(scene.test_idx[1]), fwd_names[True], iters=2, warmup=1) / launches
+    fine_save, coarse_save = (rows[f"training step's {n} launch"][0]["saving"] for n in ("fine", "coarse"))
+    log(f"times [nerf_field, serving launch] {serve:.4f} ms per launch (device time, profiler; {launches} a frame,"
+        f" no stores) against the training launches' {fine_save:.4f} (fine) and {coarse_save:.4f} (coarse) with the"
+        " stores")
     profile("nerf-serving frame", lambda: scene.frame(scene.test_idx[1]), 1)
 
     def train_steps():

@@ -18,9 +18,13 @@ its `launches`) and runs the plain PyTorch version for CPU tensors:
 `fused_mlp_grad_plain`, `fused_nerf_field_grad_plain`, which write out what
 the Pallas backward kernels compute.  `fused_mlp` and `fused_nerf_field` are
 differentiable: `torch.autograd.Function`s whose backward is the backward
-kernel.  One launch of a backward wrapper runs three CUDA kernels in order
-(the row chain, the weight-gradient products, the sum of their splits) and
-counts once.
+kernel.  Under autograd the CUDA forward stores the activations the backward
+reads (`save=True`), so the backward does not recompute them; a backward
+wrapper called without them runs that saving forward first, inside its own
+launch (counted in `_backward.forwards_run`, not as a forward launch).  One
+launch of a backward wrapper runs four CUDA kernels in order (the weights'
+packing, the row chain, the weight-gradient products, the sum of their
+splits) and counts once.
 
 The kernels take float32, contiguous tensors, hidden and colour widths up to
 256 and up to 12 trunk layers; they raise on anything else.  Layer 0 cannot
@@ -228,22 +232,30 @@ def _c_ptrs(tensors):
     return (ctypes.c_longlong * len(tensors))(*[0 if t is None else t.data_ptr() for t in tensors])
 
 
-def _forward(what, x, d_embed, weights, biases, head, skips):
+def _forward(what, x, d_embed, weights, biases, head, skips, save=False):
+    """out, or (out, saved) with save: the saving forward also stores every
+    trunk layer's output (the trunk's last is out itself) and, with the
+    head, il and the colour hidden h, in one flat tensor for the backward."""
     N, D, H, skip_bits = _trunk_dims(what, x, weights, biases, skips)
     Ddir = Hh = 0
     if head is not None:
         Ddir, Hh = _head_dims(what, d_embed, head, N, H)
     tensors = [x, *weights, *biases] + ([d_embed, *head] if head is not None else [])
     _check(what, x, tensors)
+    lib = _library()
+    dims = _c_dims(N, D, Ddir, H, Hh, len(weights), skip_bits)
+    saved = None
+    if save:
+        saved_n, scratch_n = ctypes.c_longlong(0), ctypes.c_longlong(0)
+        _raise_on(lib.fused_mlp_workspace(dims, int(head is not None), ctypes.byref(saved_n), ctypes.byref(scratch_n)),
+                  what)
+        saved = torch.empty(max(saved_n.value, 1), dtype=torch.float32, device=x.device)
     out = torch.empty((N, 4 if head is not None else H), dtype=torch.float32, device=x.device)
-    ptrs = _c_ptrs([x, d_embed, out, *weights, *biases, *(head or ())])
+    ptrs = _c_ptrs([x, d_embed, out, saved, *weights, *biases, *(head or ())])
     with torch.cuda.device(x.device):
-        err = _library().fused_mlp_forward(
-            ptrs, _c_dims(N, D, Ddir, H, Hh, len(weights), skip_bits), int(head is not None),
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
+        err = lib.fused_mlp_forward(ptrs, dims, int(head is not None), torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, what)
-    return out
+    return (out, saved) if save else out
 
 
 def _grad_shapes(D, H, Ddir, Hh, L, skips, head):
@@ -266,7 +278,9 @@ def _split(flat, shapes):
     return views
 
 
-def _backward(what, x, d_embed, weights, biases, head, skips, g):
+def _backward(what, x, d_embed, weights, biases, head, skips, g, saved=None):
+    """The backward launch on what the saving forward left, (out, saved);
+    without it, that forward runs first (as part of this launch)."""
     N, D, H, skip_bits = _trunk_dims(what, x, weights, biases, skips)
     L = len(weights)
     Ddir = Hh = 0
@@ -276,25 +290,23 @@ def _backward(what, x, d_embed, weights, biases, head, skips, g):
         raise ValueError(f"{what}: the output gradient has shape {tuple(g.shape)}")
     tensors = [x, g, *weights, *biases] + ([d_embed, *head] if head is not None else [])
     _check(what, x, tensors)
+    if saved is None:
+        saved = _forward(what, x, d_embed, weights, biases, head, skips, save=True)
+        _backward.forwards_run += 1
+    out, acts = saved
     lib = _library()
     dims = _c_dims(N, D, Ddir, H, Hh, L, skip_bits)
-    acts_n, parts_n = ctypes.c_longlong(0), ctypes.c_longlong(0)
-    _raise_on(lib.fused_mlp_workspace(dims, int(head is not None), ctypes.byref(acts_n), ctypes.byref(parts_n)), what)
+    saved_n, scratch_n = ctypes.c_longlong(0), ctypes.c_longlong(0)
+    _raise_on(lib.fused_mlp_workspace(dims, int(head is not None), ctypes.byref(saved_n), ctypes.byref(scratch_n)), what)
+    if acts.numel() < saved_n.value or tuple(out.shape) != (N, 4 if head is not None else H):
+        raise ValueError(f"{what}: the saved tensors are not this forward's")
     dev = x.device
-    acts = torch.empty(acts_n.value, dtype=torch.float32, device=dev)
-    parts = torch.empty(parts_n.value, dtype=torch.float32, device=dev)
+    scratch = torch.empty(scratch_n.value, dtype=torch.float32, device=dev)
     shapes = _grad_shapes(D, H, Ddir, Hh, L, skips, head is not None)
     flat = torch.empty(sum(torch.Size(s).numel() for s in shapes), dtype=torch.float32, device=dev)
     dx = torch.empty_like(x)
     dde = torch.empty_like(d_embed) if head is not None else None
-    # The reverse products read W^T: transposed once per call.
-    wyT = [w.t().contiguous() if li == 0 else w[:H].t().contiguous() for li, w in enumerate(weights)]
-    wxT = [w[H:].t().contiguous() if li in skips else None for li, w in enumerate(weights)]
-    head_ptrs = []
-    if head is not None:
-        wd, bd, wi, bi, wc1a, wc1b, bc1, wc2, bc2 = head
-        head_ptrs = [*head] + [t.t().contiguous() for t in (wi, wc1a, wc1b, wc2)]
-    ptrs = _c_ptrs([x, d_embed, g, dx, dde, flat, acts, parts, *weights, *biases, *wyT, *wxT, *head_ptrs])
+    ptrs = _c_ptrs([x, d_embed, g, dx, dde, flat, out, acts, scratch, *weights, *(head or ())])
     with torch.cuda.device(dev):
         err = lib.fused_mlp_backward(ptrs, dims, int(head is not None), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, what)
@@ -303,45 +315,51 @@ def _backward(what, x, d_embed, weights, biases, head, skips, g):
     return dx, dde, dws, dbs, tuple(views[2 * L :])
 
 
-def fused_mlp_cuda(x, weights, biases, skips) -> torch.Tensor:
+_backward.forwards_run = 0  # saving forwards a backward launch had to run itself (none under autograd)
+
+
+def fused_mlp_cuda(x, weights, biases, skips, save=False):
     """The trunk (N, H) from kernel #10 for CUDA tensors (counted in
-    `fused_mlp_cuda.launches`), from `fused_mlp_plain` for CPU tensors."""
+    `fused_mlp_cuda.launches`), from `fused_mlp_plain` for CPU tensors.
+    save (CUDA only): return (out, saved), what `fused_mlp_grad_cuda` reads."""
     if x.device.type == "cpu":
         return fused_mlp_plain(x, weights, biases, skips)
-    out = _forward("fused_mlp_cuda", x, None, weights, biases, None, tuple(skips))
+    out = _forward("fused_mlp_cuda", x, None, weights, biases, None, tuple(skips), save)
     fused_mlp_cuda.launches += 1
     return out
 
 
-def fused_mlp_grad_cuda(x, weights, biases, skips, g):
+def fused_mlp_grad_cuda(x, weights, biases, skips, g, saved=None):
     """(dx, [dW], [db]) from kernel #11 for CUDA tensors (counted in
     `fused_mlp_grad_cuda.launches`), from `fused_mlp_grad_plain` for CPU
-    tensors."""
+    tensors.  saved: the (out, saved) of `fused_mlp_cuda(..., save=True)` on
+    the same inputs; without it the launch runs that forward first."""
     if x.device.type == "cpu":
         return fused_mlp_grad_plain(x, weights, biases, skips, g)
-    dx, _, dws, dbs, _ = _backward("fused_mlp_grad_cuda", x, None, weights, biases, None, tuple(skips), g)
+    dx, _, dws, dbs, _ = _backward("fused_mlp_grad_cuda", x, None, weights, biases, None, tuple(skips), g, saved)
     fused_mlp_grad_cuda.launches += 1
     return dx, dws, dbs
 
 
-def nerf_field_cuda(x, d_embed, weights, biases, head, skips) -> torch.Tensor:
+def nerf_field_cuda(x, d_embed, weights, biases, head, skips, save=False):
     """(N, 4) [raw density, rgb logits] from kernel #12 for CUDA tensors
     (counted in `nerf_field_cuda.launches`), from `fused_nerf_field_plain`
-    for CPU tensors."""
+    for CPU tensors.  save as in `fused_mlp_cuda`."""
     if x.device.type == "cpu":
         return fused_nerf_field_plain(x, d_embed, weights, biases, head, skips)
-    out = _forward("nerf_field_cuda", x, d_embed, weights, biases, tuple(head), tuple(skips))
+    out = _forward("nerf_field_cuda", x, d_embed, weights, biases, tuple(head), tuple(skips), save)
     nerf_field_cuda.launches += 1
     return out
 
 
-def nerf_field_grad_cuda(x, d_embed, weights, biases, head, skips, g):
+def nerf_field_grad_cuda(x, d_embed, weights, biases, head, skips, g, saved=None):
     """(dx, d d_embed, [dW], [db], head gradients) from kernel #13 for CUDA
     tensors (counted in `nerf_field_grad_cuda.launches`), from
-    `fused_nerf_field_grad_plain` for CPU tensors."""
+    `fused_nerf_field_grad_plain` for CPU tensors.  saved as in
+    `fused_mlp_grad_cuda`."""
     if x.device.type == "cpu":
         return fused_nerf_field_grad_plain(x, d_embed, weights, biases, head, skips, g)
-    out = _backward("nerf_field_grad_cuda", x, d_embed, weights, biases, tuple(head), tuple(skips), g)
+    out = _backward("nerf_field_grad_cuda", x, d_embed, weights, biases, tuple(head), tuple(skips), g, saved)
     nerf_field_grad_cuda.launches += 1
     return out
 
@@ -355,44 +373,77 @@ for _wrapper in (fused_mlp_cuda, fused_mlp_grad_cuda, nerf_field_cuda, nerf_fiel
 # --------------------------------------------------------------------------- #
 
 
+def _keeps_saved(tensors) -> bool:
+    """A CUDA forward whose gradient autograd will ask for stores its
+    activations (asked before `apply`: inside it grad mode is off, and
+    `needs_input_grad` ignores `torch.no_grad`)."""
+    return (tensors[0].device.type == "cuda" and torch.is_grad_enabled()
+            and any(t.requires_grad for t in tensors))
+
+
 class _FusedMLP(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, skips, n_layers, *params):
-        ctx.save_for_backward(x, *params)
+    def forward(ctx, x, skips, n_layers, save, *params):
         ctx.skips, ctx.n_layers = skips, n_layers
-        return fused_mlp_cuda(x, params[:n_layers], params[n_layers:], skips)
+        L = n_layers
+        if not save:
+            ctx.save_for_backward(x, *params)
+            ctx.acts = None
+            return fused_mlp_cuda(x, params[:L], params[L:], skips)
+        out, ctx.acts = fused_mlp_cuda(x, params[:L], params[L:], skips, save=True)
+        ctx.save_for_backward(x, out, *params)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        x, *params = ctx.saved_tensors
         L = ctx.n_layers
-        dx, dws, dbs = fused_mlp_grad_cuda(x, params[:L], params[L:], ctx.skips, g.contiguous())
-        return (dx, None, None, *dws, *dbs)
+        if ctx.acts is None:
+            x, *params = ctx.saved_tensors
+            saved = None
+        else:
+            x, out, *params = ctx.saved_tensors
+            saved = (out, ctx.acts)
+        dx, dws, dbs = fused_mlp_grad_cuda(x, params[:L], params[L:], ctx.skips, g.contiguous(), saved=saved)
+        ctx.acts = None
+        return (dx, None, None, None, *dws, *dbs)
 
 
 class _FusedNeRFField(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, d_embed, skips, n_layers, *params):
-        ctx.save_for_backward(x, d_embed, *params)
+    def forward(ctx, x, d_embed, skips, n_layers, save, *params):
         ctx.skips, ctx.n_layers = skips, n_layers
         L = n_layers
-        return nerf_field_cuda(x, d_embed, params[:L], params[L : 2 * L], params[2 * L :], skips)
+        args = (x, d_embed, params[:L], params[L : 2 * L], params[2 * L :], skips)
+        if not save:
+            ctx.save_for_backward(x, d_embed, *params)
+            ctx.acts = None
+            return nerf_field_cuda(*args)
+        out, ctx.acts = nerf_field_cuda(*args, save=True)
+        ctx.save_for_backward(x, d_embed, out, *params)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        x, d_embed, *params = ctx.saved_tensors
         L = ctx.n_layers
+        if ctx.acts is None:
+            x, d_embed, *params = ctx.saved_tensors
+            saved = None
+        else:
+            x, d_embed, out, *params = ctx.saved_tensors
+            saved = (out, ctx.acts)
         dx, dde, dws, dbs, d_head = nerf_field_grad_cuda(
-            x, d_embed, params[:L], params[L : 2 * L], params[2 * L :], ctx.skips, g.contiguous()
+            x, d_embed, params[:L], params[L : 2 * L], params[2 * L :], ctx.skips, g.contiguous(), saved=saved
         )
-        return (dx, dde, None, None, *dws, *dbs, *d_head)
+        ctx.acts = None
+        return (dx, dde, None, None, None, *dws, *dbs, *d_head)
 
 
 def fused_mlp(x: torch.Tensor, weights, biases, skips) -> torch.Tensor:
     """Differentiable trunk: kernels #10/#11 on the card, the plain versions
     on the CPU.  x (N, D); weights[l] (in_l, H) with in_0 = D and in_l = H
     (+ D at the layers in `skips`); biases[l] (H,).  Returns (N, H)."""
-    return _FusedMLP.apply(x.contiguous(), tuple(skips), len(weights), *weights, *biases)
+    params = (*weights, *biases)
+    return _FusedMLP.apply(x.contiguous(), tuple(skips), len(weights), _keeps_saved((x, *params)), *params)
 
 
 def fused_nerf_field(x: torch.Tensor, d_embed: torch.Tensor, weights, biases, head, skips) -> torch.Tensor:
@@ -401,6 +452,7 @@ def fused_nerf_field(x: torch.Tensor, d_embed: torch.Tensor, weights, biases, he
     embedded directions, the trunk as `fused_mlp`, head = (wd (H, 1), bd (1,),
     wi (H, H), bi (H,), wc1a (H, Hh), wc1b (Ddir, Hh), bc1 (Hh,), wc2 (Hh, 3),
     bc2 (3,)).  Returns (N, 4) [raw density, rgb logits]."""
+    params = (*weights, *biases, *head)
     return _FusedNeRFField.apply(
-        x.contiguous(), d_embed.contiguous(), tuple(skips), len(weights), *weights, *biases, *head
+        x.contiguous(), d_embed.contiguous(), tuple(skips), len(weights), _keeps_saved((x, d_embed, *params)), *params
     )

@@ -1,12 +1,16 @@
 """Differentiable rendering (port of pytorch3d_tpu/renderer; the mesh,
-point and pulsar rendering paths so far)."""
+point, pulsar and NeRF rendering paths so far)."""
 from .blending import BlendParams, hard_rgb_blend, sigmoid_alpha_blend, softmax_rgb_blend
 from .cameras import (
     CamerasBase,
     FoVOrthographicCameras,
     FoVPerspectiveCameras,
+    OpenGLOrthographicCameras,
+    OpenGLPerspectiveCameras,
     OrthographicCameras,
     PerspectiveCameras,
+    SfMOrthographicCameras,
+    SfMPerspectiveCameras,
     camera_position_from_spherical_angles,
     get_ndc_to_screen_transform,
     get_screen_to_ndc_transform,
@@ -14,6 +18,16 @@ from .cameras import (
     look_at_rotation,
     look_at_view_transform,
     try_get_projection_transform,
+)
+from .implicit import (
+    HarmonicEmbedding,
+    MonteCarloRaysampler,
+    MultinomialRaysampler,
+    NDCMultinomialRaysampler,
+    RayBundle,
+    ray_bundle_to_ray_points,
+    ray_bundle_variables_to_ray_points,
+    sample_pdf,
 )
 from .lighting import PointLights, diffuse, specular
 from .materials import Materials
@@ -24,6 +38,7 @@ from .mesh import (
     MeshRasterizer,
     MeshRasterizerOpenGL,
     MeshRenderer,
+    MeshRendererWithFragments,
     RasterizationSettings,
     SoftPhongShader,
     SoftSilhouetteShader,

@@ -567,3 +567,10 @@ def try_get_projection_transform(cameras, cameras_kwargs) -> Optional[Transform3
         return cameras.get_projection_transform(**cameras_kwargs)
     except NotImplementedError:
         return None
+
+
+# The reference's legacy names for the FoV (OpenGL) and SfM cameras.
+OpenGLPerspectiveCameras = FoVPerspectiveCameras
+OpenGLOrthographicCameras = FoVOrthographicCameras
+SfMPerspectiveCameras = PerspectiveCameras
+SfMOrthographicCameras = OrthographicCameras

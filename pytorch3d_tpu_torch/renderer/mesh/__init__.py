@@ -1,8 +1,9 @@
 """Mesh rendering (port of pytorch3d_tpu/renderer/mesh)."""
 from .rasterize_meshes import rasterize_meshes
 from .rasterizer import Fragments, MeshRasterizer, MeshRasterizerOpenGL, RasterizationSettings
-from .renderer import MeshRenderer
-from .shader import HardGouraudShader, HardPhongShader, SoftPhongShader, SoftSilhouetteShader
+from .renderer import MeshRenderer, MeshRendererWithFragments
+from .shader import HardGouraudShader, HardPhongShader, ShaderBase, SoftPhongShader, SoftSilhouetteShader
+from .shading import gouraud_shading, phong_shading
 from .textures import TexturesVertex
 
 __all__ = [k for k in dir() if not k.startswith("_")]

@@ -19,3 +19,11 @@ class MeshRenderer:
         fragments = self.rasterizer(meshes_world, **kwargs)
         return self.shader(fragments, meshes_world, **kwargs)
 
+
+
+class MeshRendererWithFragments(MeshRenderer):
+    """A MeshRenderer that also returns the rasterizer's Fragments."""
+
+    def forward(self, meshes_world, **kwargs):
+        fragments = self.rasterizer(meshes_world, **kwargs)
+        return self.shader(fragments, meshes_world, **kwargs), fragments

@@ -382,6 +382,14 @@ _MLP_GRID = [
     (1000, 39, 32, 2, (1,), 27, 16),
     (4096 + 13, 39, 256, 8, (5,), 27, 128),
     (333, 39, 200, 3, (1, 2), 15, 100),
+    # the backward's tiling edges: 64-row blocks of the row pass, 8-wide
+    # n-tiles and 16-wide k-steps of its products, 128 x 128 weight tiles
+    (1, 39, 256, 8, (5,), 27, 128),  # N = 1
+    (63, 39, 8, 1, (), 27, 100),  # N = block rows - 1, H = 8, L = 1
+    (65, 10, 40, 4, (3,), 15, 24),  # N = block rows + 1, widths not multiples of 16
+    (65, 39, 8, 1, (), 0, 0),  # the trunk at H = 8, L = 1
+    (4096, 39, 256, 8, (7,), 0, 0),  # a skip at the last layer
+    (100, 39, 33, 3, (1,), 15, 17),  # odd widths: the scalar paths of the vector loads and stores
 ]
 
 
@@ -399,16 +407,41 @@ def test_fused_kernels_match_plain(cuda_device, N, D, H, L, skips, Ddir, Hh):
     assert _CHIP_SMOKE.fused_ok(result), result
 
 
+@pytest.mark.parametrize("N,D,H,L,skips,Ddir,Hh", [_MLP_GRID[1], _MLP_GRID[5], _MLP_GRID[9]])
+def test_fused_backward_gives_the_same_bits_twice(cuda_device, N, D, H, L, skips, Ddir, Hh):
+    x, de, ws, bs, head = _mlp_inputs(cuda_device, N, D, H, L, skips, Ddir, Hh)
+    g = torch.randn((N, 4 if head else H), generator=torch.Generator(device=cuda_device).manual_seed(2),
+                    device=cuda_device)
+    assert _CHIP_SMOKE.fused_backward_repeats(x, de, ws, bs, head, skips, g)
+
+
 def test_fused_backward_through_autograd_launches_the_kernels(cuda_device):
     x, de, ws, bs, head = _mlp_inputs(cuda_device, 600, 39, 64, 3, (2,), 27, 32)
     params = [*ws, *bs, *head]
     for p in params:
         p.requires_grad_(True)
-    before = (tfm.nerf_field_cuda.launches, tfm.nerf_field_grad_cuda.launches)
+    before = (tfm.nerf_field_cuda.launches, tfm.nerf_field_grad_cuda.launches, tfm._backward.forwards_run)
     out = tfm.fused_nerf_field(x, de, ws, bs, head, (2,))
     got = torch.autograd.grad((out ** 2).sum(), params)
-    assert (tfm.nerf_field_cuda.launches, tfm.nerf_field_grad_cuda.launches) == (before[0] + 1, before[1] + 1)
+    # one forward and one backward launch; the backward read the forward's
+    # saved activations and ran no forward of its own
+    assert (tfm.nerf_field_cuda.launches, tfm.nerf_field_grad_cuda.launches, tfm._backward.forwards_run) == (
+        before[0] + 1, before[1] + 1, before[2])
     want = torch.autograd.grad((tfm.fused_nerf_field_plain(x, de, ws, bs, head, (2,)) ** 2).sum(), params)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+def test_fused_trunk_backward_through_autograd_reads_the_saved_activations(cuda_device):
+    x, _, ws, bs, _ = _mlp_inputs(cuda_device, 300, 39, 64, 4, (2,))
+    params = [*ws, *bs]
+    for p in params:
+        p.requires_grad_(True)
+    before = (tfm.fused_mlp_cuda.launches, tfm.fused_mlp_grad_cuda.launches, tfm._backward.forwards_run)
+    got = torch.autograd.grad((tfm.fused_mlp(x, ws, bs, (2,)) ** 2).sum(), params)
+    assert (tfm.fused_mlp_cuda.launches, tfm.fused_mlp_grad_cuda.launches, tfm._backward.forwards_run) == (
+        before[0] + 1, before[1] + 1, before[2])
+    want = torch.autograd.grad((tfm.fused_mlp_plain(x, ws, bs, (2,)) ** 2).sum(), params)
     for a, b in zip(got, want):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
 

@@ -1,0 +1,81 @@
+"""The port exports what the JAX package exports, module by module.
+
+Each JAX `__init__` is read as text (`ast`), so this test imports no JAX.
+A name the port does not export yet must stand in `NOT_YET`, under the
+item of ROADMAP.md's queue 1 ("Modules to port") that ports it; a name
+listed there that the port now exports must leave the list.
+"""
+
+import ast
+import importlib
+import pathlib
+
+import pytest
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+MODULES = ["transforms", "renderer", "renderer/mesh", "renderer/points", "renderer/implicit", "structures", "ops",
+           "loss"]
+
+# ROADMAP.md queue 1 item -> the JAX names it brings to the port.
+NOT_YET = {
+    "1. the rest of the mesh path": [
+        "AmbientLights", "DirectionalLights", "HardDepthShader", "HardFlatShader", "SoftDepthShader",
+        "SoftGouraudShader", "SplatterBlender", "SplatterPhongShader", "Textures", "TexturesAtlas", "TexturesUV",
+        "flat_shading", "grid_sample",
+    ],
+    "2. the rest of structures, transforms and cameras": [
+        "FishEyeCameras", "TensorProperties", "acos_linear_extrapolation", "camera_to_eye_at_up",
+        "cameras_from_opencv_projection", "convert_to_tensors_and_broadcast", "format_tensor", "hat", "hat_inv",
+        "join_cameras_as_batch", "join_meshes_as_batch", "join_meshes_as_scene", "list_to_packed",
+        "ndc_grid_sample", "ndc_to_grid_sample_coords", "opencv_from_cameras_projection", "packed_to_list",
+        "padded_to_list", "padded_to_packed", "rotate_on_spot", "se3_exp_map", "se3_log_map", "so3_exp_map",
+        "so3_exponential_map", "so3_log_map", "so3_relative_angle", "so3_rotation_angle",
+    ],
+    "3. the rest of NeRF that needs nothing of Implicitron": [
+        "AbsorptionOnlyRaymarcher", "EmissionAbsorptionRaymarcher", "GridRaysampler", "HeterogeneousRayBundle",
+        "ImplicitRenderer", "NDCGridRaysampler", "VolumeLocator", "VolumeRenderer", "VolumeSampler", "Volumes",
+        "sample_pdf_python",
+    ],
+    "4. the remaining ops and losses": [
+        "GraphConv", "SubdivideMeshes", "add_pointclouds_to_volumes",
+        "add_points_features_to_volume_densities_features", "ball_query", "box3d_overlap",
+        "convert_pointclouds_to_tensor", "corresponding_cameras_alignment", "corresponding_points_alignment",
+        "cot_laplacian", "cubify", "efficient_pnp", "estimate_pointcloud_local_coord_frames",
+        "estimate_pointcloud_normals", "eyes", "gather_scatter", "gather_scatter_python", "get_point_covariances",
+        "interpolate_face_attributes_python", "is_pointclouds", "iterative_closest_point", "laplacian",
+        "marching_cubes", "marching_cubes_naive", "masked_gather", "mesh_face_areas_normals", "norm_laplacian",
+        "packed_to_padded", "point_mesh_edge_distance", "point_mesh_face_distance", "rasterize_points_python",
+        "sample_farthest_points", "sample_farthest_points_naive", "taubin_smoothing", "vert_align", "wmean",
+    ],
+}
+_QUEUED = {name: item for item, names in NOT_YET.items() for name in names}
+
+
+def jax_exports(module: str) -> set:
+    """The public names a JAX package `__init__` binds: what it imports from
+    its submodules and what it defines or assigns itself."""
+    tree = ast.parse((REPO / "pytorch3d_tpu" / module / "__init__.py").read_text())
+    names = set()
+    for node in tree.body:
+        if isinstance(node, ast.ImportFrom):
+            names.update(a.asname or a.name for a in node.names)
+        elif isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets if isinstance(t, ast.Name))
+    return {n for n in names if not n.startswith("_")}
+
+
+def test_every_queued_name_is_one_the_jax_package_exports():
+    exported = set().union(*(jax_exports(m) for m in MODULES))
+    assert sorted(set(_QUEUED) - exported) == []
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_port_exports_the_jax_names(module):
+    port = importlib.import_module("pytorch3d_tpu_torch." + module.replace("/", "."))
+    names = jax_exports(module)
+    missing = sorted(n for n in names if not hasattr(port, n) and n not in _QUEUED)
+    assert missing == [], f"pytorch3d_tpu_torch.{module} lacks {missing}: export them or queue them in NOT_YET"
+    ported = sorted(n for n in names if hasattr(port, n) and n in _QUEUED)
+    assert ported == [], f"pytorch3d_tpu_torch.{module} now exports {ported}: take them out of NOT_YET"
