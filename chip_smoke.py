@@ -500,71 +500,117 @@ def compare_knn(p1, p2, lengths2, k, norm=2):
 # path's 262 144 rows the float32 plain version is 2.4e-3 of the largest
 # gradient off it on an H100), so there the kernel must be no further off
 # than FUSED_PLAIN_FACTOR times the float32 plain version (or
-# FUSED_GRAD_GATE).
+# FUSED_GRAD_GATE).  The float32 forward is the kernel's saving forward,
+# whose stored activations the backward kernel reads (masks y > 0): its
+# tensor-core sums round otherwise than cuBLAS's float32 chain, so at these
+# row counts a few dozen of the plain forward's ~5e8 pre-activations lie on
+# the other side of 0 (about as many as float64 disagrees with either), and
+# one flipped row moves a weight gradient by ~1 / sqrt(N) of its largest
+# entry.  Both float32 evaluations flip alike but at different entries, so
+# the plain backward on its own masks is no yardstick for the kernel's
+# (max over tensors of one draw over another: fused_mask_study.py read it
+# from 0.03 to 11 across 12 inputs on an NVIDIA H100 80GB HBM3 at 700 W, the
+# kernel's masks no further from float64 than the plain forward's).  So the plain backward takes the kernel
+# forward's masks, and the masks themselves are held apart: the kernel's
+# forward may flip no more of them against float64 than FUSED_PLAIN_FACTOR
+# times the float32 plain forward does, plus FUSED_FLIP_SLACK (counts of a
+# few dozen vary by their square root from input to input).  The plain
+# backward on its own masks is reported beside.
 FUSED_FWD_GATE = 1e-5
 FUSED_GRAD_GATE = 1e-4
 FUSED_ROW_SHARE = 0.999
 FUSED_PLAIN_FACTOR = 1.5
+FUSED_FLIP_SLACK = 4
 FUSED_GRAD_NAMES = ("wd", "bd", "wi", "bi", "wc1a", "wc1b", "bc1", "wc2", "bc2")
+
+
+def saved_masks(saved, N, H, L, Hh=0):
+    """The ReLU masks of a saving forward's (out, saved) as its backward
+    reads them: y > 0 of each trunk layer's stored output (the trunk's last
+    is out itself), then with a head (Hh) the colour layer's (the layout of
+    point_saved in csrc/fused_mlp.cu)."""
+    out, acts = saved
+    NH = N * H
+    ys = [acts[l * NH : (l + 1) * NH].view(N, H) for l in range(L if Hh else L - 1)]
+    if not Hh:
+        return [y > 0 for y in ys] + [out > 0]
+    return [y > 0 for y in ys] + [acts[(L + 1) * NH : (L + 1) * NH + N * Hh].view(N, Hh) > 0]
 
 
 def compare_fused(x, d_embed, weights, biases, head, skips, g):
     """Kernels #10/#11 (head None) or #12/#13 against the plain versions on
-    the same inputs and output gradient g.
+    the same inputs and output gradient g: the serving forward, and the
+    backward on what the saving forward stored.
 
     Returns a dict: "fwd" (max |diff| over the plain version's largest
-    |output|), "fwd_diff" (max |diff|), "grads" {name: (kernel vs float64 on
-    the float32 masks, kernel vs float64, float32 plain vs float64), each a
+    |output|), "fwd_diff" (max |diff|), "same_bits" (the saving forward's
+    output equals the serving one's), "grads" {name: (kernel vs float64 on
+    the saving forward's masks, kernel vs float64, float32 plain on those
+    masks vs float64, float32 plain on its own masks vs float64), each a
     max error over the reference's largest |value|}, "rows" {"dx"/"dde":
-    share of rows within FUSED_GRAD_GATE of the float64 reference on the
-    float32 masks}, "worst" (the largest |diff| of any gradient there)."""
+    share of rows within FUSED_GRAD_GATE of the float64 reference on those
+    masks}, "worst" (the largest |diff| of any gradient there), "flips" (ReLU masks that disagree with float64's:
+    the kernel's, the float32 plain forward's; and with each other)."""
     import torch
 
     from pytorch3d_tpu_torch.ops import fused_mlp_cuda as fm
 
     f64 = lambda ts: [t.double() for t in ts]
     x64, ws64, bs64, g64 = x.double(), f64(weights), f64(biases), g.double()
+    N, H, L = x.shape[0], weights[0].shape[1], len(weights)
     if head is None:
         got = fm.fused_mlp_cuda(x, weights, biases, skips)
-        dx, dws, dbs = fm.fused_mlp_grad_cuda(x, weights, biases, skips, g)
+        saved = fm.fused_mlp_cuda(x, weights, biases, skips, save=True)
+        dx, dws, dbs = fm.fused_mlp_grad_cuda(x, weights, biases, skips, g, saved=saved)
         torch.cuda.synchronize()
         kernel = [dx, *dws, *dbs]
         want = fm.fused_mlp_plain(x, weights, biases, skips)
-        masks = fm.relu_masks(x, weights, biases, skips)
-        evals = [fm.fused_mlp_grad_plain(x, weights, biases, skips, g),
+        masks = saved_masks(saved, N, H, L)
+        plain_masks = fm.relu_masks(x, weights, biases, skips)
+        exact_masks = fm.relu_masks(x64, ws64, bs64, skips)
+        evals = [fm.fused_mlp_grad_plain(x, weights, biases, skips, g, masks),
                  fm.fused_mlp_grad_plain(x64, ws64, bs64, skips, g64, masks),
-                 fm.fused_mlp_grad_plain(x64, ws64, bs64, skips, g64)]
-        plain32, masked, exact = ([e[0], *e[1], *e[2]] for e in evals)
+                 fm.fused_mlp_grad_plain(x64, ws64, bs64, skips, g64),
+                 fm.fused_mlp_grad_plain(x, weights, biases, skips, g)]
+        plain32, masked, exact, plain_own = ([e[0], *e[1], *e[2]] for e in evals)
         rows_names = ("dx",)
     else:
         got = fm.nerf_field_cuda(x, d_embed, weights, biases, head, skips)
-        dx, dde, dws, dbs, dhead = fm.nerf_field_grad_cuda(x, d_embed, weights, biases, head, skips, g)
+        saved = fm.nerf_field_cuda(x, d_embed, weights, biases, head, skips, save=True)
+        dx, dde, dws, dbs, dhead = fm.nerf_field_grad_cuda(x, d_embed, weights, biases, head, skips, g, saved=saved)
         torch.cuda.synchronize()
         kernel = [dx, dde, *dws, *dbs, *dhead]
         want = fm.fused_nerf_field_plain(x, d_embed, weights, biases, head, skips)
-        masks = fm.relu_masks(x, weights, biases, skips, d_embed, head)
+        masks = saved_masks(saved, N, H, L, head[4].shape[1])
         de64, head64 = d_embed.double(), f64(head)
-        evals = [fm.fused_nerf_field_grad_plain(x, d_embed, weights, biases, head, skips, g),
+        plain_masks = fm.relu_masks(x, weights, biases, skips, d_embed, head)
+        exact_masks = fm.relu_masks(x64, ws64, bs64, skips, de64, head64)
+        evals = [fm.fused_nerf_field_grad_plain(x, d_embed, weights, biases, head, skips, g, masks),
                  fm.fused_nerf_field_grad_plain(x64, de64, ws64, bs64, head64, skips, g64, masks),
-                 fm.fused_nerf_field_grad_plain(x64, de64, ws64, bs64, head64, skips, g64)]
-        plain32, masked, exact = ([e[0], e[1], *e[2], *e[3], *e[4]] for e in evals)
+                 fm.fused_nerf_field_grad_plain(x64, de64, ws64, bs64, head64, skips, g64),
+                 fm.fused_nerf_field_grad_plain(x, d_embed, weights, biases, head, skips, g)]
+        plain32, masked, exact, plain_own = ([e[0], e[1], *e[2], *e[3], *e[4]] for e in evals)
         rows_names = ("dx", "dde")
     fwd_diff = float((got - want).abs().max())
-    L = len(weights)
     names = [*rows_names, *(f"W{i}" for i in range(L)), *(f"b{i}" for i in range(L)),
              *(FUSED_GRAD_NAMES if head is not None else ())]
 
     def ratio(a, ref):
         return float((a.double() - ref).abs().max()) / max(float(ref.abs().max()), 1e-300)
 
-    out = {"fwd": fwd_diff / max(float(want.abs().max()), 1e-30), "fwd_diff": fwd_diff, "grads": {}, "rows": {},
-           "worst": 0.0}
-    for name, k, m, e, p in zip(names, kernel, masked, exact, plain32):
+    def flips(a, b):
+        return sum(int((u != v).sum()) for u, v in zip(a, b))
+
+    out = {"fwd": fwd_diff / max(float(want.abs().max()), 1e-30), "fwd_diff": fwd_diff,
+           "same_bits": torch.equal(got, saved[0]), "grads": {}, "rows": {}, "worst": 0.0,
+           "flips": {"kernel vs float64": flips(masks, exact_masks), "float32 plain vs float64":
+                     flips(plain_masks, exact_masks), "kernel vs float32 plain": flips(masks, plain_masks)}}
+    for name, k, m, e, p, q in zip(names, kernel, masked, exact, plain32, plain_own):
         if name in rows_names:
             tol = FUSED_GRAD_GATE * float(m.abs().max())
             out["rows"][name] = float(((k.double() - m).abs().amax(dim=1) <= tol).double().mean())
         else:
-            out["grads"][name] = (ratio(k, m), ratio(k, e), ratio(p, e))
+            out["grads"][name] = (ratio(k, m), ratio(k, e), ratio(p, e), ratio(q, e))
             out["worst"] = max(out["worst"], float((k.double() - m).abs().max()))
     return out
 
@@ -593,9 +639,12 @@ def fused_backward_repeats(x, d_embed, weights, biases, head, skips, g):
 def fused_ok(result):
     grads_ok = all(
         masked <= FUSED_GRAD_GATE and exact <= max(FUSED_GRAD_GATE, FUSED_PLAIN_FACTOR * plain)
-        for masked, exact, plain in result["grads"].values()
+        for masked, exact, plain, _ in result["grads"].values()
     )
-    return (result["fwd"] <= FUSED_FWD_GATE and grads_ok
+    flips = result["flips"]
+    masks_ok = (flips["kernel vs float64"]
+                <= FUSED_PLAIN_FACTOR * flips["float32 plain vs float64"] + FUSED_FLIP_SLACK)
+    return (result["fwd"] <= FUSED_FWD_GATE and result["same_bits"] and grads_ok and masks_ok
             and all(s >= FUSED_ROW_SHARE for s in result["rows"].values()))
 
 
@@ -619,9 +668,13 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(stop) / iters
 
 
-def device_ms_by_kernel(fn, kernels, iters=20, warmup=3):
+def device_ms_by_kernel(fn, kernels, iters=20, warmup=3, launches=1):
     """{name: device time per call} of the device kernels whose name
-    contains each of `kernels`, from one torch.profiler (CUPTI) window."""
+    contains each of `kernels`, from one torch.profiler (CUPTI) window in
+    which each of them recorded `launches` launches per call of fn.  The
+    profiler sometimes drops a launch's record (a 1.9 ms launch once read
+    1.1 ms): a window with any other count is taken again, up to three
+    windows, and then fails."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -630,26 +683,28 @@ def device_ms_by_kernel(fn, kernels, iters=20, warmup=3):
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    return {k: sum(e.self_device_time_total for e in events if k in e.key) / 1e3 / iters for k in kernels}
+    for _ in range(3):
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        counts = {k: sum(e.count for e in events if k in e.key) for k in kernels}
+        if all(n == iters * launches for n in counts.values()):
+            return {k: sum(e.self_device_time_total for e in events if k in e.key) / 1e3 / iters for k in kernels}
+        log(f"  profiler window of {iters} calls recorded {counts} launches, not {iters * launches} each: again")
+    check(False, f"the profiler did not record every launch of {tuple(kernels)} in three windows")
 
 
-def device_ms(fn, kernel, iters=20, warmup=3):
+def device_ms(fn, kernel, iters=20, warmup=3, launches=1):
     """Device time per call of the device kernels whose name contains
-    `kernel` (or any of a tuple of names), from torch.profiler (CUPTI).
-    Raises where the profiler recorded none of them, so that a kernel's
-    row never turns into another measure unnoticed.  For a launch of a few tens of
-    microseconds, CUDA events around back-to-back wrapper calls measure the
-    host's rate of issuing them (validation, pixel grid, ctypes) rather than
-    the kernel."""
+    `kernel` (or any of a tuple of names), each launched `launches` times
+    per call, from torch.profiler (CUPTI); see device_ms_by_kernel.  For a
+    launch of a few tens of microseconds, CUDA events around back-to-back
+    wrapper calls measure the host's rate of issuing them (validation,
+    pixel grid, ctypes) rather than the kernel."""
     names = (kernel,) if isinstance(kernel, str) else kernel
-    ms = sum(device_ms_by_kernel(fn, names, iters, warmup).values())
-    check(ms > 0, f"the profiler recorded no device kernel named {names}")
-    return ms
+    return sum(device_ms_by_kernel(fn, names, iters, warmup, launches).values())
 
 
 def fine_ops_per_candidate(persp, clip):
@@ -784,23 +839,33 @@ def phase_build():
 
 
 def ptxas_figures(text):
-    """{kernel: "R registers, S bytes smem, spill stores / loads"} from
-    nvcc -Xptxas=-v output (mangled names shortened to their base name and
-    template arguments)."""
+    """{kernel: "R registers, S bytes smem, spill stores / loads[, notes]"}
+    from nvcc -Xptxas=-v output (mangled names shortened to their base name
+    and template arguments).  Notes count ptxas's performance remarks on a
+    kernel by code: C7510-C7515 serialize its wgmma, C7517 / C7519 add
+    waits or fences around it."""
     import re
+
+    def short(mangled):
+        base = re.match(r"_Z(\d+)", mangled)
+        if not base:
+            return mangled
+        n = int(base.group(1))
+        body = mangled[len(base.group(0)):]
+        name, rest = body[:n], body[n:]
+        args = re.findall(r"Lb([01])E", rest)
+        return name + (f"<{', '.join('true' if a == '1' else 'false' for a in args)}>" if args else "")
 
     out, current = {}, None
     for line in text.splitlines():
+        note = re.search(r"\((C75\d\d)\).*function '(_Z\w+)'", line)
+        if note:
+            notes = out.setdefault(short(note.group(2)), {}).setdefault("notes", {})
+            notes[note.group(1)] = notes.get(note.group(1), 0) + 1
+            continue
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(_Z\w+)'?", line)
         if m:
-            current = m.group(1)
-            base = re.match(r"_Z(\d+)", current)
-            if base:
-                n = int(base.group(1))
-                body = current[len(base.group(0)):]
-                name, rest = body[:n], body[n:]
-                args = re.findall(r"Lb([01])E", rest)
-                current = name + (f"<{', '.join('true' if a == '1' else 'false' for a in args)}>" if args else "")
+            current = short(m.group(1))
             out.setdefault(current, {})
         if current is None:
             continue
@@ -812,7 +877,10 @@ def ptxas_figures(text):
             out[current]["registers"] = f"{regs.group(1)} registers"
             smem = re.search(r"(\d+) bytes smem", line)
             out[current]["smem"] = f"{smem.group(1) if smem else 0} bytes static smem"
-    return {k: ", ".join(v[f] for f in ("registers", "smem", "spill") if f in v) for k, v in out.items()}
+    for v in out.values():
+        if "notes" in v:
+            v["notes"] = "ptxas notes " + ", ".join(f"{k} x{n}" for k, n in sorted(v["notes"].items()))
+    return {k: ", ".join(v[f] for f in ("registers", "smem", "spill", "notes") if f in v) for k, v in out.items()}
 
 
 def phase_fine_kernel(device):
@@ -1907,6 +1975,31 @@ class NeRFScene:
                         rec["g"]))
         return out
 
+    def serving_launches(self, view):
+        """The coarse and fine field launches of one served chunk of test
+        view `view` (4096 rays x 64 and x 128 points): for each, its inputs
+        (x, d_embed), the field's weights and its skips."""
+        import torch
+
+        captured, handles = [], []
+        for field in (self.model._renderer_coarse_field, self.model._renderer_fine_field):
+            def hook(module, args, kwargs, output, field=field):
+                d_embed, _ = kwargs["head"]
+                captured.append((args[0].reshape(-1, args[0].shape[-1]).contiguous(),
+                                 d_embed.reshape(-1, d_embed.shape[-1]).contiguous(), field))
+
+            handles.append(field.mlp_xyz.register_forward_hook(hook, with_kwargs=True))
+        with torch.no_grad():
+            self.model(self.camera(view), training=False, chunksize=NERF_CHUNK, chunk_idx=0)
+        for h in handles:
+            h.remove()
+        out = []
+        for x, de, field in captured:
+            ws, bs = field.mlp_xyz.weights()
+            out.append((x, de, [w.detach() for w in ws], [b.detach() for b in bs],
+                        tuple(t.detach() for t in field.head_params()), field.mlp_xyz.input_skips))
+        return out
+
     def trunk_inputs(self):
         """What Implicitron's NeRF hands MLPWithInputSkips without a head:
         the embedded points of the first serving chunk of test view 0
@@ -1973,15 +2066,21 @@ def addmm_chain(x, weights, biases, skips, d_embed=None, head=None):
 
 
 def fused_report(label, result):
-    grads = result["grads"]
+    grads, flips = result["grads"], result["flips"]
     worst = max(grads, key=lambda n: grads[n][0])
     worst_exact = max(grads, key=lambda n: grads[n][1])
+    own = max(grads, key=lambda n: grads[n][1] / max(FUSED_GRAD_GATE, FUSED_PLAIN_FACTOR * grads[n][3]))
     ok = fused_ok(result)
-    log(f"kernel vs plain [{label}]: forward max|diff| {result['fwd_diff']:.3e} = {result['fwd']:.3e} of max|out|;"
-        f" backward vs the float64 plain version on the float32 ReLU masks: worst {worst}"
+    log(f"kernel vs plain [{label}]: forward max|diff| {result['fwd_diff']:.3e} = {result['fwd']:.3e} of max|out|"
+        f" (saving forward: {'the same bits' if result['same_bits'] else 'DIFFERENT bits'}); ReLU masks off"
+        f" {', '.join(f'{k} {v}' for k, v in flips.items())} (kernel at most"
+        f" {FUSED_PLAIN_FACTOR * flips['float32 plain vs float64'] + FUSED_FLIP_SLACK:g});"
+        f" backward vs the float64 plain version on the kernel forward's ReLU masks: worst {worst}"
         f" {grads[worst][0]:.3e} of its max|grad|, rows {{{', '.join(f'{k}: {v:.6f}' for k, v in result['rows'].items())}}};"
         f" vs the float64 plain version on its own masks: worst {worst_exact} kernel {grads[worst_exact][1]:.3e},"
-        f" float32 plain version {grads[worst_exact][2]:.3e} -> {'ok' if ok else 'FAIL'}")
+        f" float32 plain version on the kernel's masks {grads[worst_exact][2]:.3e} -> {'ok' if ok else 'FAIL'};"
+        f" float32 plain version on its own masks (not a gate): at {own} kernel {grads[own][1]:.3e} against"
+        f" {grads[own][3]:.3e}")
     return ok
 
 
@@ -2101,7 +2200,13 @@ def phase_nerf_step0(device, scene):
     depths that sample_pdf draws from the coarse weights, amplifying their
     last-bit differences by 1 / pdf (up to ~1e4 in near-empty bins): so its
     gradients are held within GRAD_GATE on one fine bundle shared by both
-    paths (the fused path's), and within NERF_FINE_GATE end to end."""
+    paths (the fused path's), and within NERF_FINE_GATE end to end.  Two
+    float32 paths differ at the ReLU masks that lie within rounding of 0,
+    so on the shared bundle both are also held to the plain path run in
+    float64: the fused one no further off than FUSED_PLAIN_FACTOR times the
+    plain one (or GRAD_GATE)."""
+    import copy
+
     import torch
 
     from pytorch3d_tpu_torch.models.nerf.utils import calc_mse, sample_images_at_mc_locs
@@ -2122,26 +2227,40 @@ def phase_nerf_step0(device, scene):
         handle.remove()
     bundle = kept[0]
     gt = sample_images_at_mc_locs(scene.images[view : view + 1], bundle.xys)
+
+    def field_grads(field, bundle):
+        field.zero_grad(set_to_none=True)
+        rgb, w = model._raymarcher(*field(bundle))
+        calc_mse(rgb + (1.0 - w.sum(dim=-1, keepdim=True)) * model.bg_color, gt).backward()
+        return {n: p.grad.clone() for n, p in field.named_parameters()}
+
     for fused in (True, False):
         model.use_fused_kernel = fused
-        fine.zero_grad(set_to_none=True)
-        rgb, w = model._raymarcher(*fine(bundle))
-        calc_mse(rgb + (1.0 - w.sum(dim=-1, keepdim=True)) * model.bg_color, gt).backward()
-        shared.append({n: p.grad.clone() for n, p in fine.named_parameters()})
+        shared.append(field_grads(fine, bundle))
     model.use_fused_kernel = True
     model.zero_grad(set_to_none=True)
+    # float64 witness: the plain path in float64 on the same bundle
+    ref = copy.deepcopy(fine).double()
+    ref.use_fused_kernel = False
+    exact = field_grads(ref, bundle.replace(**{k: getattr(bundle, k).double()
+                                               for k in ("origins", "directions", "lengths", "xys")}))
+    del ref
     end_to_end, on_shared = grad_ratios(*grads), grad_ratios(*shared)
     coarse = {n: v for n, v in end_to_end.items() if "coarse" in n}
     fine_e2e = {n: v for n, v in end_to_end.items() if "fine" in n}
     worst = {k: max(d, key=d.get) for k, d in (("coarse", coarse), ("shared", on_shared), ("fine", fine_e2e))}
+    witness = [max(grad_ratios(gs, exact).values()) for gs in shared]
     log(f"nerf-train: step 0 gradients vs use_fused_kernel=False, worst of each tensor's max|grad|: coarse field"
         f" end to end {worst['coarse']} {coarse[worst['coarse']]:.3e}; fine field on one shared fine bundle"
-        f" {worst['shared']} {on_shared[worst['shared']]:.3e}; fine field end to end {worst['fine']}"
+        f" {worst['shared']} {on_shared[worst['shared']]:.3e} (against the plain path in float64 there: fused"
+        f" {witness[0]:.3e}, plain {witness[1]:.3e}); fine field end to end {worst['fine']}"
         f" {fine_e2e[worst['fine']]:.3e}")
     check(all(math.isfinite(v) for v in [*end_to_end.values(), *on_shared.values()]),
           "nerf-train: non-finite step 0 gradients")
     check(coarse[worst["coarse"]] <= GRAD_GATE and on_shared[worst["shared"]] <= GRAD_GATE
           and fine_e2e[worst["fine"]] <= NERF_FINE_GATE, "nerf-train: step 0 gradients off the plain path's")
+    check(witness[0] <= max(GRAD_GATE, FUSED_PLAIN_FACTOR * witness[1]),
+          "nerf-train: the fused fine field is further from float64 than the plain path")
 
 
 def phase_nerf_train(device, scene):
@@ -2209,8 +2328,9 @@ def phase_nerf_times(device, scene):
     from pytorch3d_tpu_torch.ops import fused_mlp_cuda as fm
 
     flag = {False: "false", True: "true"}
-    fwd_names = {h: f"fused_mlp_fwd_kernel<{flag[h]}, false>" for h in (False, True)}
-    save_names = {h: f"fused_mlp_fwd_kernel<{flag[h]}, true>" for h in (False, True)}
+    # a forward launch is the weights' packing and the chain
+    fwd_names = {h: (f"fused_mlp_fwd_kernel<{flag[h]}, false>", "fused_mlp_fwd_prep_kernel") for h in (False, True)}
+    save_names = {h: (f"fused_mlp_fwd_kernel<{flag[h]}, true>", "fused_mlp_fwd_prep_kernel") for h in (False, True)}
     passes = {h: {"weight preparation": "fused_mlp_bwd_prep_kernel", "row pass": f"fused_mlp_bwd_rows_kernel<{flag[h]}>",
                   "weight pass": "fused_mlp_bwd_weights_kernel", "split sum": "fused_mlp_bwd_reduce_kernel"}
               for h in (False, True)}
@@ -2237,10 +2357,9 @@ def phase_nerf_times(device, scene):
         plain_b = ((lambda: fm.fused_nerf_field_grad_plain(x, de, ws, bs, head, skips, g)) if h
                    else (lambda: fm.fused_mlp_grad_plain(x, ws, bs, skips, g)))
         events_f, events_b = cuda_ms(fwd, 10, 2), cuda_ms(bwd, 5, 1)
-        kernel_f = device_ms(fwd, fwd_names[h], iters=5, warmup=1)
-        kernel_fs = device_ms(lambda: fwd(save=True), save_names[h], iters=5, warmup=1)
+        kernel_f = device_ms(fwd, fwd_names[h], iters=10, warmup=2)
+        kernel_fs = device_ms(lambda: fwd(save=True), save_names[h], iters=10, warmup=2)
         per_pass = dict(zip(passes[h], device_ms_by_kernel(bwd, tuple(passes[h].values()), 3, 1).values()))
-        check(all(v > 0 for v in per_pass.values()), f"the profiler missed a pass of the backward: {per_pass}")
         kernel_b = sum(per_pass.values())
         with torch.no_grad():
             p_f = cuda_ms(plain_f, 5, 1)
@@ -2258,7 +2377,7 @@ def phase_nerf_times(device, scene):
             f" forward {kernel_f:.4f} ms (device time, profiler;"
             f" events {events_f:.4f}), plain {p_f:.4f} ms, library (torch.addmm chain, {L + (5 if h else 0)} calls)"
             f" {lib_f:.4f} ms, bound {bound_f:.4f} ms by {by_f} ({ops_f / 1e9:.2f} GFLOP = "
-            f"{ops_f / kernel_f / 1e9:.2f} TFLOP/s achieved); backward {kernel_b:.4f} ms"
+            f"{ops_f / kernel_f / 1e9:.2f} TFLOP/s achieved, {bound_f / kernel_f:.3f} of the bound); backward {kernel_b:.4f} ms"
             f" (device time, profiler; events {events_b:.4f}), plain"
             f" {p_b:.4f} ms, library (autograd of the addmm chain) {lib_b:.4f} ms, bound {bound_b:.4f} ms by {by_b}"
             f" ({ops_b / 1e9:.2f} GFLOP = {ops_b / kernel_b / 1e9:.2f} TFLOP/s achieved)")
@@ -2272,12 +2391,28 @@ def phase_nerf_times(device, scene):
         del x, de, g, params, xr, saved
         torch.cuda.empty_cache()
 
+    for name, (x, de, ws, bs, head, skips) in zip(("coarse", "fine"), scene.serving_launches(scene.test_idx[1])):
+        N, D = x.shape
+        H, L, Ddir, Hh = ws[0].shape[1], len(ws), de.shape[1], head[4].shape[1]
+        with torch.no_grad():
+            fwd = lambda: fm.nerf_field_cuda(x, de, ws, bs, head, skips)
+            events_f = cuda_ms(fwd, 10, 2)
+            kernel_f = device_ms(fwd, fwd_names[True], iters=10, warmup=2)
+            lib_f = cuda_ms(lambda: addmm_chain(x, ws, bs, skips, de, head), 5, 1)
+        bound_f, by_f, ops_f = mlp_bound(N, D, H, L, skips, Ddir, Hh)
+        log(f"times [nerf_field, serving {name} launch] N={N} D={D} H={H} L={L} Ddir={Ddir} Hh={Hh}: forward"
+            f" {kernel_f:.4f} ms (device time, profiler; events {events_f:.4f}), library (torch.addmm chain,"
+            f" {L + 5} calls) {lib_f:.4f} ms, bound {bound_f:.4f} ms by {by_f} ({ops_f / 1e9:.2f} GFLOP ="
+            f" {ops_f / kernel_f / 1e9:.2f} TFLOP/s achieved, {bound_f / kernel_f:.3f} of the bound)")
+        rows[f"serving {name} launch"] = (dict(kernel=kernel_f, library=lib_f, bound=bound_f, bound_by=by_f), None)
+        del x, de
     launches = 2 * scene.model._raysampler.get_n_chunks(NERF_CHUNK, 1)
-    serve = device_ms(lambda: scene.frame(scene.test_idx[1]), fwd_names[True], iters=2, warmup=1) / launches
+    serve = device_ms(lambda: scene.frame(scene.test_idx[1]), fwd_names[True], iters=2, warmup=1,
+                      launches=launches) / launches
     fine_save, coarse_save = (rows[f"training step's {n} launch"][0]["saving"] for n in ("fine", "coarse"))
     log(f"times [nerf_field, serving launch] {serve:.4f} ms per launch (device time, profiler; {launches} a frame,"
-        f" no stores) against the training launches' {fine_save:.4f} (fine) and {coarse_save:.4f} (coarse) with the"
-        " stores")
+        f" coarse and fine alike, no stores) against the training launches' {fine_save:.4f} (fine) and"
+        f" {coarse_save:.4f} (coarse) with the stores")
     profile("nerf-serving frame", lambda: scene.frame(scene.test_idx[1]), 1)
 
     def train_steps():
@@ -2920,7 +3055,7 @@ def phase_slice5_times(device, serving, fit, topk_plain_ms, hard_plain_ms, state
         for n in range(len(fv)):
             rc.rasterize_topk_cuda(fv[n], valid[n], size, BLUR, K, True, True)
 
-    kernel = device_ms(topk, "rasterize_fine_kernel<8, true>", iters=10)
+    kernel = device_ms(topk, "rasterize_fine_kernel<8, true>", iters=10, launches=len(fv))
     bound, by, tests = topk_bound(fv, valid, size, BLUR, K)
     rows["rasterize_topk"] = dict(kernel=kernel, plain=topk_plain_ms, bound=bound, bound_by=by, library=None)
     log(f"times [rasterize_topk, serving batch] N={len(fv)} F={fv.shape[1]} {IMAGE}^2 K={K}: kernel {kernel:.4f} ms"

@@ -1,14 +1,15 @@
 // Fused ReLU MLP with input skips, and the full NeRF field (trunk + density
 // head + view-conditioned colour head), forward and backward, for Hopper
-// (sm_90a), float32 throughout.
+// (sm_90a), float32 in and out.
 //
 // Replaces the TPU kernels of pytorch3d_tpu/ops/fused_mlp_pallas.py:
-//   #10 `_fwd_kernel` (:70)       -> fused_mlp_fwd_kernel<false, SAVE>
+//   #10 `_fwd_kernel` (:70)       -> fused_mlp_fwd_prep_kernel
+//                                    + fused_mlp_fwd_kernel<false, SAVE>
 //   #11 `_bwd_kernel` (:79)       -> fused_mlp_bwd_prep_kernel
 //                                    + fused_mlp_bwd_rows_kernel<false>
 //                                    + fused_mlp_bwd_weights_kernel
 //                                    + fused_mlp_bwd_reduce_kernel
-//   #12 `_nerf_fwd_kernel` (:328) -> fused_mlp_fwd_kernel<true, SAVE>
+//   #12 `_nerf_fwd_kernel` (:328) -> the same two with fwd_kernel<true, SAVE>
 //   #13 `_nerf_bwd_kernel` (:341) -> the same four with rows_kernel<true>
 // #12 is #10's layer chain with the head as its epilogue and #13 is #11's
 // reverse with the head's reverse in front, so one compile-time flag (HEAD)
@@ -19,26 +20,35 @@
 // a colour head of 128 fed 27 direction features) a row costs 581,120
 // multiply-adds, 1.16 MFLOP, against ~280 bytes of input and output: three
 // orders of magnitude above the card's ridge.  The backward does twice the
-// forward's multiply-adds (the chain to dx and the weight gradients).
+// forward's multiply-adds (the chain to dx and the weight gradients).  Every
+// product runs on the tensor cores as three TF32 passes: each operand is
+// split into hi (rounded to TF32's 10 mantissa bits) and lo = a - hi, and
+// a.b is taken as a_lo.b_hi + a_hi.b_lo + a_hi.b_hi.  One pass keeps ~11
+// bits (~3e-4 of the NeRF field's largest output off float64); three are as
+// close as float32, at 495 / 3 = 165 TFLOP/s of peak against the fp32 CUDA
+// cores' 67.  The tensor cores truncate as they accumulate, so every short
+// run of passes goes into a fresh tile that a rounded fp32 add puts into
+// the sum.
 //
-// Forward (#10, #12): a block takes BM = 64 rows and keeps their
-// activations in shared memory for the whole chain, stored transposed
-// (feature-major, act[k * 64 + row]) so a warp reads its 8 rows of one
-// feature as two broadcast float4.  Each layer is a 64 x Nout x K product on
-// the fp32 CUDA cores (67 TFLOP/s with FMA): 256 threads, warp w owns rows
-// 8w..8w+7, lane l owns columns 4l..4l+3 and 128+4l..128+4l+3, so each
-// thread keeps an 8 x 8 register tile.  Weights stream from global memory
-// (they stay in the 50 MB L2: 2.33 MB a field) through a double-buffered
-// shared-memory stage of KT rows.  A layer's output overwrites its input in
-// place once every thread has read it.  The input-skip concat is not
-// materialised: a layer's product runs over two segments, the hidden
-// activations and the block's copy of x.  The Pallas kernels' padding of D
-// and Ddir to 128 lanes, of N to 512 rows and of the head's narrow outputs to
-// a 128-lane block is TPU layout and is not carried over; the density and rgb
-// logits (1 and 3 outputs) are dot products reduced over four quarters of K
-// and written as (N, 4).  SAVE (the forward of a training step) also stores
-// what the chain computes anyway: every trunk layer's output and, with the
-// head, il and the colour hidden h.
+// Forward (#10, #12): warp-specialised wgmma (see the forward section).  A
+// block runs two consumer warpgroups of 64 rows and one producer warpgroup
+// and walks row blocks of 128 (one block per SM).  A prep launch packs, per
+// call, every weight the chain reads into hi and lo planes of 128-output,
+// 8-input tiles in the order the chain reads them (4.65 MB at the NeRF
+// widths, 8 KB a tile); the producer streams them by cp.async.bulk into a
+// ring of shared-memory slots (mbarriers), and both warpgroups read each
+// tile, so L2 serves one tile per 128 rows.  The consumers run wgmma
+// m64n128k8 with A from registers; a layer's activations never leave the
+// threads that computed them (the wgmma accumulator layout is, up to a
+// permutation of the input features that the packing applies, the A
+// fragment layout of the next layer), so they go to one 16-byte slot per
+// thread per 8 features in shared memory, with no bank conflict and no
+// barrier.  Bias, ReLU, the saving stores (SAVE: every trunk layer's output
+// and, with the head, il and the colour hidden h, for the backward) and
+// the density and rgb dot products run on the accumulators in registers;
+// the output is (N, 4) with the head.  The Pallas kernels' padding of D and
+// Ddir to 128 lanes and of N to 512 rows is TPU layout and is not carried
+// over; widths pad to multiples of 8 (inputs) and 128 (outputs) with zeros.
 //
 // Backward (#11, #13).  The Pallas backward recomputes the forward in VMEM
 // and adds every row block's weight gradient into one VMEM accumulator, as
@@ -65,15 +75,10 @@
 //      where the flat layout keeps b.
 //   3. reduce (fused_mlp_bwd_reduce_kernel): the splits' partial sums added
 //      in a fixed order.  No atomics: two calls give the same bits.
-// Passes 1 and 2 run on the tensor cores: mma.sync m16n8k8 TF32 with fp32
-// accumulation, each operand split into hi (rounded to TF32's 10 mantissa
-// bits) and lo = a - hi, and a.b taken as a_lo.b_hi + a_hi.b_lo + a_hi.b_hi.
-// One TF32 pass keeps ~11 bits and is ~1e-3 of a gradient's largest entry
-// off float64; three passes are as close as float32 (~1e-6), at 495 / 3 =
-// 165 TFLOP/s of peak, 2.5x the fp32 CUDA cores'.  The tensor cores truncate
-// as they accumulate, so each k-step's three passes go into a fresh tile
-// that a rounded fp32 add puts into the sum (one long chain drifted by
-// ~1e-4 over 8192 rows).  Shared-memory strides are padded so that every
+// Passes 1 and 2 run the three passes as mma.sync m16n8k8 TF32 (one pass
+// is ~1e-3 of a gradient's largest entry off float64, three ~1e-6), each
+// k-step's passes into a fresh tile (one long chain drifted by ~1e-4 over
+// 8192 rows).  Shared-memory strides are padded so that every
 // fragment load is free of bank conflicts; two blocks of 256 threads fit an
 // SM.  Products with at most 64 outputs (dx's x part, d d_embed) spread
 // their tiles over all 8 warps.  The scratch holds L masked gradients of
@@ -87,13 +92,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define BM 64      // rows per block
-#define NT 256     // threads per block
-#define TN 256     // output columns one block covers (32 lanes x 8)
-#define KT 8       // weight rows staged per step
+#define NT 256     // threads per block of the backward
+#define TN 256     // widest layer (one column tile of the backward)
 #define MAX_L 12   // trunk layers
 #define MAX_PROD 16
 
+// The backward's view of one call.
 struct Params {
     int N, D, Ddir, H, Hh, L;
     unsigned skips;  // bit l: layer l concatenates x after the hidden input
@@ -104,7 +108,6 @@ struct Params {
     float* dx;
     float* dde;
     const float* w[MAX_L];    // (Kin_l, H) row-major, rows [hidden; x]
-    const float* b[MAX_L];
     const float *wd, *bd, *wi, *bi, *wc1a, *wc1b, *bc1, *wc2, *bc2;
     float* ys[MAX_L];  // saved by the forward: each trunk layer's output (N, H)
     float* il;         // saved: (N, H) head intermediate
@@ -120,225 +123,8 @@ struct Params {
     const float *wiP, *wc1aP, *wc1bP;
 };
 
-__device__ __forceinline__ int col_of(int j, int lane) {
-    return j < 4 ? lane * 4 + j : 128 + lane * 4 + (j - 4);
-}
-
-__device__ __forceinline__ void zero_acc(float (&acc)[8][8]) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-}
-
-__device__ __forceinline__ void fma8x8(float (&acc)[8][8], const float* a, const float* b) {
-    const float4 a0 = *reinterpret_cast<const float4*>(a);
-    const float4 a1 = *reinterpret_cast<const float4*>(a + 4);
-    const float4 b0 = *reinterpret_cast<const float4*>(b);
-    const float4 b1 = *reinterpret_cast<const float4*>(b + 128);
-    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-}
-
-// Thread tid's KT entries of column tid of rows k0..k0+KT-1 of W (K x Nout).
-__device__ __forceinline__ void load_w(float (&pre)[KT], const float* __restrict__ W, int K, int Nout, int k0) {
-    const int c = threadIdx.x;
-#pragma unroll
-    for (int j = 0; j < KT; ++j)
-        pre[j] = (c < Nout && k0 + j < K) ? __ldg(W + (size_t)(k0 + j) * Nout + c) : 0.0f;
-}
-
-// acc += A^T-tile product: acc[i][j] += sum_k A[k * BM + row(i)] * W[k, col(j)],
-// A in shared memory (K x BM, feature-major), W (K x Nout) in global memory.
-// Ends with a barrier, so the caller may overwrite A.
-__device__ void gemm_seg(float (&acc)[8][8], const float* A, int K, const float* __restrict__ W, int Nout,
-                         float* ws) {
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int nsteps = (K + KT - 1) / KT;
-    float pre[KT];
-    load_w(pre, W, K, Nout, 0);
-    for (int s = 0; s < nsteps; ++s) {
-        float* buf = ws + (s & 1) * KT * TN;
-#pragma unroll
-        for (int j = 0; j < KT; ++j) buf[j * TN + tid] = pre[j];
-        __syncthreads();
-        if (s + 1 < nsteps) load_w(pre, W, K, Nout, (s + 1) * KT);
-        const float* a = A + (size_t)s * KT * BM + warp * 8;
-        const float* b = buf + lane * 4;
-        const int kk_end = min(KT, K - s * KT);
-        if (kk_end == KT) {
-#pragma unroll
-            for (int kk = 0; kk < KT; ++kk) fma8x8(acc, a + kk * BM, b + kk * TN);
-        } else {
-            for (int kk = 0; kk < kk_end; ++kk) fma8x8(acc, a + kk * BM, b + kk * TN);
-        }
-    }
-    __syncthreads();
-}
-
-// out[j][row] = bias[j] + sum_k A[k * BM + row] * w[k * NJ + j] for j < NJ <= 4,
-// each of the four row quarters of threads summing a quarter of K.
-__device__ void narrow(const float* A, int K, const float* __restrict__ w, int NJ, const float* __restrict__ bias,
-                       float* nar, float* out) {
-    const int tid = threadIdx.x, r = tid & (BM - 1), q = tid / BM;
-    const int kq = (K + 3) / 4, k0 = q * kq, k1 = min(K, k0 + kq);
-    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    for (int k = k0; k < k1; ++k) {
-        const float a = A[k * BM + r];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-            if (j < NJ) s[j] = fmaf(a, __ldg(w + k * NJ + j), s[j]);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) nar[(q * 4 + j) * BM + r] = s[j];
-    __syncthreads();
-    if (tid < BM)
-        for (int j = 0; j < NJ; ++j)
-            out[j * BM + tid] = ((nar[j * BM + tid] + nar[(4 + j) * BM + tid]) +
-                                 (nar[(8 + j) * BM + tid] + nar[(12 + j) * BM + tid])) + __ldg(bias + j);
-    __syncthreads();
-}
-
-// Write the tile into shared memory A (feature-major, in place) and,
-// optionally, to the row-major global matrix dst (ld = Nout).  RELU:
-// relu(acc + bias); else acc + bias.  VEC (a training step's forward, whose
-// stores are most of its traffic) stores a thread's columns 4l..4l+3 and
-// 128+4l..128+4l+3 of a row as two float4 where Nout % 4 == 0 and dst is
-// 16-byte aligned, in a second loop that leaves the first as serving runs it.
-template <bool RELU, bool VEC>
-__device__ __forceinline__ void epilogue(const float (&acc)[8][8], int Nout, const float* __restrict__ bias, float* A,
-                                         float* dst, int row0, int N) {
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-        const int c = col_of(j, lane);
-        if (c >= Nout) continue;
-        const float bc = __ldg(bias + c);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-            const int r = warp * 8 + i;
-            const float v = RELU ? fmaxf(acc[i][j] + bc, 0.0f) : acc[i][j] + bc;
-            A[c * BM + r] = v;
-            if (!VEC && dst != nullptr && row0 + r < N) dst[(size_t)(row0 + r) * Nout + c] = v;
-        }
-    }
-    if (!VEC || dst == nullptr) return;
-    const bool vec = (Nout & 3) == 0 && ((size_t)dst & 15) == 0;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-        const int c0 = h * 128 + lane * 4;
-        if (c0 >= Nout) continue;
-        float bc[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bc[j] = c0 + j < Nout ? __ldg(bias + c0 + j) : 0.0f;
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-            const int r = warp * 8 + i;
-            if (row0 + r >= N) continue;
-            float v[4];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) v[j] = RELU ? fmaxf(acc[i][4 * h + j] + bc[j], 0.0f) : acc[i][4 * h + j] + bc[j];
-            float* out = dst + (size_t)(row0 + r) * Nout + c0;
-            if (vec) {
-                *reinterpret_cast<float4*>(out) = make_float4(v[0], v[1], v[2], v[3]);
-            } else {
-#pragma unroll
-                for (int j = 0; j < 4; ++j)
-                    if (c0 + j < Nout) out[j] = v[j];
-            }
-        }
-    }
-}
-
-struct Smem {
-    float *X, *DE, *Y, *WS, *NAR, *OUT4;
-};
-
-__host__ __device__ inline size_t smem_floats(int D, int Ddir, int H, int Hh, bool head) {
-    const int maxw = head ? (H > Hh ? H : Hh) : H;
-    size_t f = (size_t)D * BM + (head ? (size_t)Ddir * BM : 0) + (size_t)maxw * BM + 2 * KT * TN;
-    if (head) f += 16 * BM + 4 * BM;  // NAR, OUT4
-    return f;
-}
-
-__device__ Smem carve(float* sm, const Params& p, bool head) {
-    Smem s;
-    const int maxw = head ? max(p.H, p.Hh) : p.H;
-    s.X = sm;
-    s.DE = s.X + p.D * BM;
-    s.Y = s.DE + (head ? p.Ddir * BM : 0);
-    s.WS = s.Y + maxw * BM;
-    float* next = s.WS + 2 * KT * TN;
-    s.NAR = s.OUT4 = nullptr;
-    if (head) {
-        s.NAR = next;
-        s.OUT4 = next + 16 * BM;
-    }
-    return s;
-}
-
-// Row block [row0, row0 + BM) of src (N x width, row-major) into the
-// feature-major shared buffer dst, zero past N.
-__device__ void load_rows(float* dst, const float* __restrict__ src, int width, int row0, int N) {
-    for (int e = threadIdx.x; e < BM * width; e += NT) {
-        const int r = e / width, k = e - r * width;
-        dst[k * BM + r] = (row0 + r < N) ? __ldg(src + (size_t)(row0 + r) * width + k) : 0.0f;
-    }
-}
-
-// The forward chain of one row block.  SAVE (a training step's forward)
-// also writes every trunk layer's output, il and h to the caller's tensors.
-template <bool HEAD, bool SAVE>
-__device__ void forward_chain(const Params& p, const Smem& s, int row0) {
-    const int N = p.N, H = p.H;
-    float acc[8][8];
-    for (int l = 0; l < p.L; ++l) {
-        zero_acc(acc);
-        if (l == 0) {
-            gemm_seg(acc, s.X, p.D, p.w[0], H, s.WS);
-        } else {
-            gemm_seg(acc, s.Y, H, p.w[l], H, s.WS);
-            if ((p.skips >> l) & 1) gemm_seg(acc, s.X, p.D, p.w[l] + (size_t)H * H, H, s.WS);
-        }
-        float* dst = (!HEAD && l == p.L - 1) ? p.out : (SAVE ? p.ys[l] : nullptr);
-        epilogue<true, SAVE>(acc, H, p.b[l], s.Y, dst, row0, N);
-        __syncthreads();
-    }
-    if (!HEAD) return;
-    narrow(s.Y, H, p.wd, 1, p.bd, s.NAR, s.OUT4);  // raw density from the trunk output
-    zero_acc(acc);
-    gemm_seg(acc, s.Y, H, p.wi, H, s.WS);  // il = y Wi + bi, no ReLU
-    epilogue<false, SAVE>(acc, H, p.bi, s.Y, SAVE ? p.il : nullptr, row0, N);
-    __syncthreads();
-    zero_acc(acc);
-    gemm_seg(acc, s.Y, H, p.wc1a, p.Hh, s.WS);  // h = relu(il Wc1a + dE Wc1b + bc1)
-    gemm_seg(acc, s.DE, p.Ddir, p.wc1b, p.Hh, s.WS);
-    epilogue<true, SAVE>(acc, p.Hh, p.bc1, s.Y, SAVE ? p.hs : nullptr, row0, N);
-    __syncthreads();
-    narrow(s.Y, p.Hh, p.wc2, 3, p.bc2, s.NAR, s.OUT4 + BM);  // rgb logits
-    for (int e = threadIdx.x; e < BM * 4; e += NT) {
-        const int r = e >> 2, j = e & 3;
-        if (row0 + r < N) p.out[(size_t)(row0 + r) * 4 + j] = s.OUT4[j * BM + r];
-    }
-}
-
-template <bool HEAD, bool SAVE>
-__global__ void __launch_bounds__(NT, 2) fused_mlp_fwd_kernel(const Params p) {
-    extern __shared__ float4 smem4[];
-    const Smem s = carve(reinterpret_cast<float*>(smem4), p, HEAD);
-    const int row0 = blockIdx.x * BM;
-    load_rows(s.X, p.x, p.D, row0, p.N);
-    if (HEAD) load_rows(s.DE, p.de, p.Ddir, row0, p.N);
-    __syncthreads();
-    forward_chain<HEAD, SAVE>(p, s, row0);
-}
-
 // ---------------------------------------------------------------------------
-// Backward.  Tensor-core helpers: mma.sync m16n8k8 TF32, fragments as in the
+// Tensor-core helpers.  The backward's mma.sync m16n8k8 TF32, fragments as in the
 // PTX ISA (g = lane / 4, t = lane % 4): A (16 x 8, row-major) a0 (g, t),
 // a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4); B (8 x 8, k x n) b0 (t, g),
 // b1 (t + 4, g); C (16 x 8) c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t),
@@ -414,6 +200,493 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 __host__ __device__ inline int round_up(int v, int m) { return (v + m - 1) / m * m; }
+
+// ---------------------------------------------------------------------------
+// Forward (#10, #12) on the tensor cores: wgmma m64n128k8 TF32 in three passes.
+//
+// A block runs FWD_NC (2) consumer warpgroups of 64 rows each and one
+// producer warpgroup.  Each product of the chain runs as column blocks of
+// 128 outputs, each over its k-blocks (8 input features each): the producer
+// streams the block's weight tiles, packed by fused_mlp_fwd_prep_kernel in
+// the order the chain reads them, with cp.async.bulk into a ring of
+// shared-memory slots (full / empty mbarriers), and both warpgroups read
+// every tile; they issue their chunks in turn (two named barriers), so that
+// one's waits and adds overlap the other's passes.  A consumer warpgroup
+// issues, per k-block, wgmma m64n128k8 with A (its 64 rows x 8 features)
+// from registers and B (the packed tile, 128 x 8, K-major, no swizzle) from
+// the ring: a_lo b_hi + a_hi b_lo + a_hi b_hi.  The tensor cores truncate as they accumulate, and one chain of
+// 37 k-blocks drifted 5e-6 off float64, enough to flip ReLU masks that the
+// backward reads: so the passes of every FWD_CHUNK k-blocks go into a fresh
+// tile that a rounded fp32 add puts into the sum (float32's accuracy).
+//
+// The activations never leave the thread that computed them.  Thread
+// (warp w, lane 4g + t) of a warpgroup holds accumulator entries (16w + g
+// [+ 8], 8j + 2t [+ 1]); those four values of 8-column block j are exactly
+// its A fragment (rows 16w + g [+ 8], k-slots t and t + 4) of k-block j for
+// the next layer, if k-slot t of block j stands for feature 8j + 2t and slot
+// t + 4 for 8j + 2t + 1.  The packing applies that permutation to the rows
+// of every weight, so the epilogue writes its outputs as one float4 per
+// block into the thread's own column of shared memory (one 16-byte slot per
+// thread per k-block: no bank conflict, no barrier between layers), and the
+// next product reads it back as its A fragment.  Every column block of a
+// layer reads the whole input, so the outputs replace it only once the
+// product is done.  x and d_embed are loaded into the same layout once per
+// row block.
+
+#define FWD_NC 2                            // consumer warpgroups per block
+#define FWD_THREADS ((FWD_NC + 1) * 128)    // + one producer warpgroup
+#define FWD_N 128                           // outputs per column block (the wgmma's N)
+#define FWD_CHUNK 2                         // k-blocks summed in one fresh tile
+#define FWD_TILE_BYTES (2 * FWD_N * 8 * 4)  // a tile's hi and lo planes
+#define FWD_MAX_SLOTS 8
+
+struct FwdParams {
+    int N, D, Ddir, H, Hh, L;
+    unsigned skips;
+    int nc, slots;       // consumer warpgroups, ring slots
+    int nbX, nbH, nbE;   // k-blocks of x, of the hidden width, of d_embed
+    const float* x;
+    const float* de;
+    float* out;
+    const float* b[MAX_L];
+    const float *wd, *bd, *bi, *bc1, *wc2, *bc2;
+    float* ys[MAX_L];  // saving forward: each trunk layer's output (N, H)
+    float* il;         // (N, H)
+    float* hs;         // (N, Hh)
+    const float* packed;  // the weight tiles in the order the chain reads them
+    int n_tiles;          // per row block
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+    uint32_t done;
+    do {
+        asm volatile(
+            "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes, uint32_t bar) {
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+                 ::"r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// Descriptor of a 128 x 8 K-major tf32 plane without swizzle: core matrices
+// of 8 rows x 16 bytes, the two along K 128 bytes apart (LBO), successive
+// 8-row groups 256 bytes apart (SBO).
+__device__ __forceinline__ uint64_t tile_desc(uint32_t addr) {
+    return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) | ((uint64_t)(256 >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// Keeps a register's value where it is until this point (an in-flight wgmma
+// still reads it).
+__device__ __forceinline__ void keep(uint32_t (&r)[4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+__device__ __forceinline__ void keep(float (&r)[64]) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d = A B + (add ? d : 0) for A (64 x 8, tf32, registers) and B (128 x 8 at desc).
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4], uint64_t desc, bool add) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"((int)add));
+}
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+    asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+    asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The ring as one consumer thread sees it.
+struct Ring {
+    uint32_t slots, full, empty;  // shared addresses: slot 0, full[0], empty[0]
+    int n;                        // slots
+    int slot;                     // the next tile's slot
+    uint32_t parity;              // and the parity of its fill
+    int wg;                       // this thread's consumer warpgroup
+    bool pair;                    // two consumer warpgroups take turns issuing
+    __device__ __forceinline__ void advance() {
+        if (++slot == n) {
+            slot = 0;
+            parity ^= 1u;
+        }
+    }
+    // One thread of each warpgroup hands a slot back (the empty barrier
+    // counts warpgroups).
+    __device__ __forceinline__ void release(int s, bool lead) const {
+        if (s >= 0 && lead) mbar_arrive(empty + 8 * s);
+    }
+    // Two warpgroups issue their chunks in turn (named barriers 1 and 2), so
+    // that one's wait and fp32 adds overlap the other's passes.
+    __device__ __forceinline__ void my_turn() const {
+        if (pair) bar_sync(1 + wg, 256);
+    }
+    __device__ __forceinline__ void your_turn() const {
+        if (pair) bar_arrive(2 - wg, 256);
+    }
+};
+
+__device__ __forceinline__ void split4(const float4 v, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+    split_tf32(v.x, hi[0], lo[0]);
+    split_tf32(v.y, hi[1], lo[1]);
+    split_tf32(v.z, hi[2], lo[2]);
+    split_tf32(v.w, hi[3], lo[3]);
+}
+
+// sums[h] = bias[128h..] + [A0 | A1] B_h for the NH column blocks of one
+// product (bias zero past width), over nb0 + nb1 k-blocks, A0 and A1 in the
+// fragment layout (a0[q * nct] is this thread's fragment of k-block q).  The
+// bias goes in first, so the epilogue loads none.  Per chunk of FWD_CHUNK
+// k-blocks, their fragments are loaded and split once; then, column block
+// by column block, the tiles land in ring order (the packing's order), the
+// passes go into a fresh tile (the chunk's first pass overwrites it), all
+// retire, the tile goes into the block's sum and the slots go back.
+template <int NH>
+__device__ __forceinline__ void product(float (&sums)[NH][64], const float* __restrict__ bias, int width,
+                                        const float4* a0, int nb0, const float4* a1, int nb1, int nct, Ring& r,
+                                        bool lead) {
+    const int t = threadIdx.x & 3;
+#pragma unroll
+    for (int h = 0; h < NH; ++h)
+#pragma unroll
+        for (int j = 0; j < FWD_N / 8; ++j) {
+            const int f = FWD_N * h + 8 * j + 2 * t;
+            const float b0 = f < width ? __ldg(bias + f) : 0.0f, b1 = f + 1 < width ? __ldg(bias + f + 1) : 0.0f;
+            sums[h][4 * j] = sums[h][4 * j + 2] = b0;
+            sums[h][4 * j + 1] = sums[h][4 * j + 3] = b1;
+        }
+    float tile[64];
+    uint32_t hi[FWD_CHUNK][4], lo[FWD_CHUNK][4];
+    const int nq = nb0 + nb1;
+    for (int q = 0; q < nq; q += FWD_CHUNK) {
+        const int nk = min(FWD_CHUNK, nq - q);
+#pragma unroll
+        for (int k = 0; k < FWD_CHUNK; ++k)
+            if (k < nk) split4(q + k < nb0 ? a0[(q + k) * nct] : a1[(q + k - nb0) * nct], hi[k], lo[k]);
+#pragma unroll
+        for (int h = 0; h < NH; ++h) {
+            int used[FWD_CHUNK];
+            r.my_turn();
+#pragma unroll
+            for (int k = 0; k < FWD_CHUNK; ++k) {
+                if (k >= nk) break;
+                mbar_wait(r.full + 8 * r.slot, r.parity);
+                const uint32_t at = r.slots + r.slot * FWD_TILE_BYTES;
+                const uint64_t dhi = tile_desc(at), dlo = tile_desc(at + FWD_N * 32);
+                wgmma_fence();
+                wgmma_tf32(tile, lo[k], dhi, k > 0);
+                wgmma_tf32(tile, hi[k], dlo, true);
+                wgmma_tf32(tile, hi[k], dhi, true);
+                wgmma_commit();
+                used[k] = r.slot;
+                r.advance();
+            }
+            r.your_turn();
+            wgmma_wait<0>();
+            keep(tile);
+#pragma unroll
+            for (int k = 0; k < FWD_CHUNK; ++k) {
+                keep(hi[k]);
+                keep(lo[k]);
+                if (k < nk) r.release(used[k], lead);
+            }
+#pragma unroll
+            for (int i = 0; i < 64; ++i) sums[h][i] += tile[i];
+        }
+    }
+}
+
+// v0..v3 = (r0, f), (r0, f + 1), (r1, f), (r1, f + 1) into dst (row stride
+// ld), the second column where f + 1 < width, as float2 where vec.
+__device__ __forceinline__ void store_pairs(float* dst, int ld, int width, int f, int r0, int r1, int N, float v0,
+                                            float v1, float v2, float v3, bool vec) {
+    const bool two = f + 1 < width;
+    if (vec && two) {
+        if (r0 < N) *reinterpret_cast<float2*>(dst + (size_t)r0 * ld + f) = make_float2(v0, v1);
+        if (r1 < N) *reinterpret_cast<float2*>(dst + (size_t)r1 * ld + f) = make_float2(v2, v3);
+        return;
+    }
+    if (r0 < N) {
+        dst[(size_t)r0 * ld + f] = v0;
+        if (two) dst[(size_t)r0 * ld + f + 1] = v1;
+    }
+    if (r1 < N) {
+        dst[(size_t)r1 * ld + f] = v2;
+        if (two) dst[(size_t)r1 * ld + f + 1] = v3;
+    }
+}
+
+// The outputs of one column block from its sums (bias included): v = sum,
+// ReLU'd with RELU, for the block's width columns.  ACT: into the thread's
+// fragment column (act points at the block's first k-block) for the next
+// product.  STORE: to dst (the block's first column; row stride ld, rows r0,
+// r1 < N).  NDOT: dots[e][k] += v . wdot[:, k] (the density or rgb logits
+// over the thread's columns; the caller adds the other three lanes of the
+// row).
+template <bool RELU, bool ACT, bool STORE, int NDOT>
+__device__ __forceinline__ void epilogue(const float (&sum)[64], int width, float4* act, int nct, float* dst, int ld,
+                                         int r0, int r1, int N, const float* __restrict__ wdot, float (&dots)[2][3]) {
+    const int t = threadIdx.x & 3;
+    const bool vec = STORE && (ld & 1) == 0 && ((size_t)dst & 7) == 0;
+#pragma unroll
+    for (int j = 0; j < FWD_N / 8; ++j) {
+        const int f = 8 * j + 2 * t;
+        if (8 * j >= width) break;
+        float v0 = sum[4 * j], v1 = sum[4 * j + 1], v2 = sum[4 * j + 2], v3 = sum[4 * j + 3];
+        if (RELU) {
+            v0 = fmaxf(v0, 0.0f);
+            v1 = fmaxf(v1, 0.0f);
+            v2 = fmaxf(v2, 0.0f);
+            v3 = fmaxf(v3, 0.0f);
+        }
+        if (ACT) act[j * nct] = make_float4(v0, v2, v1, v3);
+        if (STORE && f < width) store_pairs(dst, ld, width, f, r0, r1, N, v0, v1, v2, v3, vec);
+#pragma unroll
+        for (int k = 0; k < NDOT; ++k) {
+            const float w0 = f < width ? __ldg(wdot + f * NDOT + k) : 0.0f;
+            const float w1 = f + 1 < width ? __ldg(wdot + (f + 1) * NDOT + k) : 0.0f;
+            dots[0][k] = fmaf(v1, w1, fmaf(v0, w0, dots[0][k]));
+            dots[1][k] = fmaf(v3, w1, fmaf(v2, w0, dots[1][k]));
+        }
+    }
+}
+
+// The fragment column of src (N x width, row-major) for rows r0 and r1:
+// k-block j holds (r0, f), (r1, f), (r0, f + 1), (r1, f + 1), f = 8j + 2t,
+// zero past N and width.
+__device__ __forceinline__ void load_frags(float4* dst, int nct, const float* __restrict__ src, int width, int nb,
+                                           int r0, int r1, int N) {
+    const int t = threadIdx.x & 3;
+    for (int j = 0; j < nb; ++j) {
+        const int f = 8 * j + 2 * t;
+        float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        if (r0 < N && f < width) v[0] = __ldg(src + (size_t)r0 * width + f);
+        if (r1 < N && f < width) v[1] = __ldg(src + (size_t)r1 * width + f);
+        if (r0 < N && f + 1 < width) v[2] = __ldg(src + (size_t)r0 * width + f + 1);
+        if (r1 < N && f + 1 < width) v[3] = __ldg(src + (size_t)r1 * width + f + 1);
+        dst[j * nct] = make_float4(v[0], v[1], v[2], v[3]);
+    }
+}
+
+// One layer of H outputs from [A0 | A1] (NH column blocks) and its
+// epilogue: the outputs replace the input only once the product is done.
+template <int NH, bool RELU, bool ACT, bool STORE, int NDOT>
+__device__ __forceinline__ void layer_nh(const float* bias, int H, const float4* a0, int nb0, const float4* a1,
+                                         int nb1, float4* act, int nct, float* dst, int r0, int r1, int N,
+                                         const float* wdot, float (&dots)[2][3], Ring& r, bool lead) {
+    float s[NH][64];
+    product<NH>(s, bias, H, a0, nb0, a1, nb1, nct, r, lead);
+#pragma unroll
+    for (int h = 0; h < NH; ++h)
+        epilogue<RELU, ACT, STORE, NDOT>(s[h], min(FWD_N, H - FWD_N * h), act + (FWD_N / 8) * h * nct, nct,
+                                         STORE ? dst + FWD_N * h : dst, H, r0, r1, N,
+                                         NDOT ? wdot + FWD_N * h * NDOT : wdot, dots);
+}
+
+template <bool RELU, bool ACT, bool STORE, int NDOT>
+__device__ __forceinline__ void layer(const float* bias, int H, const float4* a0, int nb0, const float4* a1, int nb1,
+                                      float4* act, int nct, float* dst, int r0, int r1, int N,
+                                      const float* wdot, float (&dots)[2][3], Ring& r, bool lead) {
+    if (H > FWD_N) layer_nh<2, RELU, ACT, STORE, NDOT>(bias, H, a0, nb0, a1, nb1, act, nct, dst, r0, r1, N, wdot, dots, r, lead);
+    else layer_nh<1, RELU, ACT, STORE, NDOT>(bias, H, a0, nb0, a1, nb1, act, nct, dst, r0, r1, N, wdot, dots, r, lead);
+}
+
+// One consumer warpgroup's chain over the block's row blocks.
+template <bool HEAD, bool SAVE>
+__device__ __forceinline__ void consume(const FwdParams& p, Ring& r, float4* act, float4* xs, float4* des) {
+    const int tid = threadIdx.x, nct = p.nc * 128, rows = p.nc * 64;
+    const int wg = tid >> 7, w = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const bool lead = (tid & 127) == 0;
+    const int N = p.N, H = p.H, L = p.L, nblocks = (N + rows - 1) / rows;
+    float none[2][3] = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
+    for (int rb = blockIdx.x; rb < nblocks; rb += gridDim.x) {
+        const int r0 = rb * rows + wg * 64 + 16 * w + g, r1 = r0 + 8;
+        load_frags(xs, nct, p.x, p.D, p.nbX, r0, r1, N);
+        if (HEAD) load_frags(des, nct, p.de, p.Ddir, p.nbE, r0, r1, N);
+        float dens[2][3] = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
+        for (int l = 0; l < L; ++l) {
+            const float4* a0 = l == 0 ? xs : act;
+            const int nb0 = l == 0 ? p.nbX : p.nbH, nb1 = l > 0 && ((p.skips >> l) & 1) ? p.nbX : 0;
+            if (l < L - 1) {
+                if constexpr (SAVE) layer<true, true, true, 0>(p.b[l], H, a0, nb0, xs, nb1, act, nct, p.ys[l], r0, r1, N, nullptr, none, r, lead);
+                else layer<true, true, false, 0>(p.b[l], H, a0, nb0, xs, nb1, act, nct, nullptr, r0, r1, N, nullptr, none, r, lead);
+            } else if (!HEAD) {
+                layer<true, false, true, 0>(p.b[l], H, a0, nb0, xs, nb1, act, nct, p.out, r0, r1, N, nullptr, none, r, lead);
+            } else {  // the trunk's output, and the density logit from it
+                layer<true, true, SAVE, 1>(p.b[l], H, a0, nb0, xs, nb1, act, nct, p.ys[l], r0, r1, N, p.wd, dens, r, lead);
+            }
+        }
+        if (!HEAD) continue;
+        // il = y Wi + bi
+        layer<false, true, SAVE, 0>(p.bi, H, act, p.nbH, xs, 0, act, nct, p.il, r0, r1, N, nullptr, none, r, lead);
+        // h = relu(il Wc1a + d_embed Wc1b + bc1) and rgb = h wc2 (h is not kept)
+        float rgb[2][3] = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
+        layer<true, false, SAVE, 3>(p.bc1, p.Hh, act, p.nbH, des, p.nbE, act, nct, p.hs, r0, r1, N, p.wc2, rgb, r,
+                                    lead);
+        float o[2][4] = {{dens[0][0], rgb[0][0], rgb[0][1], rgb[0][2]}, {dens[1][0], rgb[1][0], rgb[1][1], rgb[1][2]}};
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+                o[e][k] += __shfl_xor_sync(0xffffffffu, o[e][k], 1);
+                o[e][k] += __shfl_xor_sync(0xffffffffu, o[e][k], 2);
+            }
+        if (t == 0) {
+            const float4 bias = make_float4(__ldg(p.bd), __ldg(p.bc2), __ldg(p.bc2 + 1), __ldg(p.bc2 + 2));
+            if (r0 < N)
+                *reinterpret_cast<float4*>(p.out + (size_t)r0 * 4) =
+                    make_float4(o[0][0] + bias.x, o[0][1] + bias.y, o[0][2] + bias.z, o[0][3] + bias.w);
+            if (r1 < N)
+                *reinterpret_cast<float4*>(p.out + (size_t)r1 * 4) =
+                    make_float4(o[1][0] + bias.x, o[1][1] + bias.y, o[1][2] + bias.z, o[1][3] + bias.w);
+        }
+    }
+}
+
+// The producer: one thread streams the packed tiles, for every row block
+// the block takes, into the ring.
+__device__ __forceinline__ void produce(const FwdParams& p, uint32_t slots, uint32_t full, uint32_t empty) {
+    const int rows = p.nc * 64, nblocks = (p.N + rows - 1) / rows;
+    int slot = 0;
+    uint32_t parity = 0;
+    for (int rb = blockIdx.x; rb < nblocks; rb += gridDim.x) {
+        const char* src = reinterpret_cast<const char*>(p.packed);
+        for (int i = 0; i < p.n_tiles; ++i, src += FWD_TILE_BYTES) {
+            mbar_wait(empty + 8 * slot, parity ^ 1u);
+            mbar_expect_tx(full + 8 * slot, FWD_TILE_BYTES);
+            bulk_load(slots + slot * FWD_TILE_BYTES, src, FWD_TILE_BYTES, full + 8 * slot);
+            if (++slot == p.slots) {
+                slot = 0;
+                parity ^= 1u;
+            }
+        }
+    }
+}
+
+// Shared memory: the ring's slots, the activations (nbH k-blocks), x (nbX),
+// d_embed (nbE, with the head), each a 16-byte slot per consumer thread per
+// k-block, then the 2 x slots mbarriers.
+__host__ __device__ inline size_t fwd_smem_bytes(int nc, int slots, int nbX, int nbH, int nbE) {
+    return (size_t)slots * FWD_TILE_BYTES + (size_t)nc * 128 * 16 * (nbH + nbX + nbE) + 16 * FWD_MAX_SLOTS;
+}
+
+template <bool HEAD, bool SAVE>
+__global__ void __launch_bounds__(FWD_THREADS, 1) fused_mlp_fwd_kernel(const FwdParams p) {
+    extern __shared__ float4 smem4[];
+    char* base = reinterpret_cast<char*>(smem4);
+    const int nct = p.nc * 128;
+    float4* act = reinterpret_cast<float4*>(base + (size_t)p.slots * FWD_TILE_BYTES);
+    float4* xs = act + p.nbH * nct;
+    float4* des = xs + p.nbX * nct;
+    const uint32_t slots = smem_u32(base);
+    const uint32_t full = smem_u32(des + p.nbE * nct), empty = full + 8 * FWD_MAX_SLOTS;
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < p.slots; ++s) {
+            mbar_init(full + 8 * s, 1);
+            mbar_init(empty + 8 * s, p.nc);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+    // The producer warpgroup hands its registers to the consumers (the
+    // launch gives every thread 65536 / 384 = 168): 24 + 2 x 240 per lane.
+    if ((int)threadIdx.x >= nct) {
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 24;" ::: "memory");
+        if ((int)threadIdx.x == nct) produce(p, slots, full, empty);
+    } else {
+        asm volatile("setmaxnreg.inc.sync.aligned.u32 240;" ::: "memory");
+        Ring r = {slots, full, empty, p.slots, 0, 0u, (int)threadIdx.x >> 7, p.nc == 2};
+        if (r.pair && r.wg == 1) bar_arrive(1, 256);  // warpgroup 0 issues first
+        const int c = threadIdx.x;
+        consume<HEAD, SAVE>(p, r, act + c, xs + c, des + c);
+    }
+}
+
+// The forward's weight tiles, in the order the chain reads them.  Job j is
+// one product: W0 (rows0 x cols, leading dimension cols) on the first nb0 =
+// ceil(rows0 / 8) k-blocks, then W1 (rows1 x cols, may be empty) on the next
+// nb1, for nh = ceil(cols / FWD_N) column blocks.  Its tiles come per chunk
+// of FWD_CHUNK k-blocks, per column block, per k-block of the chunk, each
+// 2 x FWD_N x 8 floats: the hi plane (each weight rounded to TF32 as
+// split_tf32 rounds) then the lo plane (weight - hi), each in the wgmma
+// layout of tile_desc, zero past the rows and columns, the 8 input features
+// of k-block q in the order 8q + {0, 2, 4, 6, 1, 3, 5, 7} of the fragment
+// permutation.
+struct FwdPack {
+    const float* src0;
+    const float* src1;
+    int rows0, rows1, cols, off;
+};
+
+struct FwdPackParams {
+    int n_jobs, total;
+    float* dst;
+    FwdPack job[MAX_L + 2];
+};
+
+__global__ void fused_mlp_fwd_prep_kernel(const FwdPackParams pp) {
+    const int tile = FWD_TILE_BYTES / 4, plane_size = tile / 2;
+    for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < pp.total; i += gridDim.x * blockDim.x) {
+        int j = 0;
+        while (j + 1 < pp.n_jobs && pp.job[j + 1].off <= i) ++j;
+        const FwdPack jb = pp.job[j];
+        const int nb0 = (jb.rows0 + 7) / 8, nq = nb0 + (jb.rows1 + 7) / 8, nh = (jb.cols + FWD_N - 1) / FWD_N;
+        const int e = i - jb.off, u = e / tile, rem = e - u * tile;
+        // tile u -> (k-block q, column block h)
+        const int c = u / (FWD_CHUNK * nh), nk = min(FWD_CHUNK, nq - c * FWD_CHUNK), v = u - c * FWD_CHUNK * nh;
+        const int h = v / nk, q = c * FWD_CHUNK + v - h * nk;
+        const int plane = rem / plane_size, pos = rem - plane * plane_size;
+        const int n = FWD_N * h + (pos >> 6) * 8 + ((pos >> 2) & 7);
+        const int f = 8 * (q < nb0 ? q : q - nb0) + 2 * (pos & 3) + ((pos >> 5) & 1);
+        const float* src = q < nb0 ? jb.src0 : jb.src1;
+        const int rows = q < nb0 ? jb.rows0 : jb.rows1;
+        const float w = (n < jb.cols && f < rows) ? __ldg(src + (size_t)f * jb.cols + n) : 0.0f;
+        uint32_t hi, lo;
+        split_tf32(w, hi, lo);
+        pp.dst[i] = __uint_as_float(plane ? lo : hi);
+    }
+}
+
 
 // Row stride of the row pass's gradient tile: the widest layer rounded up
 // to 32, plus 4, so that A fragments are free of bank conflicts.
@@ -1059,13 +1332,77 @@ long long grads_floats(const Params& p, int head) {
     return (p.L * N * H + (head ? N * H + N * Hh : 0) + 63) / 64 * 64;
 }
 
+FwdParams fwd_fill(const int* dims, int head) {
+    FwdParams fp = {};
+    fp.N = dims[0];
+    fp.D = dims[1];
+    fp.Ddir = head ? dims[2] : 0;
+    fp.H = dims[3];
+    fp.Hh = head ? dims[4] : 0;
+    fp.L = dims[5];
+    fp.skips = (unsigned)dims[6];
+    fp.nbX = (fp.D + 7) / 8;
+    fp.nbH = (fp.H + 7) / 8;
+    fp.nbE = (fp.Ddir + 7) / 8;
+    return fp;
+}
+
+// The forward's pack jobs, one per product in the order the chain runs
+// them: layer 0 on x; each later layer on its hidden input and, at a skip,
+// x; with the head Wi, then [Wc1a; Wc1b] on [il, d_embed].  w and the head
+// weights may be null when only the size is wanted.  Returns the packed
+// floats.
+int fwd_pack_layout(FwdParams& fp, int head, const float* const* w, const float* wi, const float* wc1a,
+                    const float* wc1b, FwdPackParams* pp) {
+    const int H = fp.H;
+    int n = 0, off = 0;
+    auto job = [&](const float* w0, int rows0, const float* w1, int rows1, int cols) {
+        pp->job[n++] = {w0, w1, rows0, rows1, cols, off};
+        off += ((rows0 + 7) / 8 + (rows1 + 7) / 8) * ((cols + FWD_N - 1) / FWD_N) * (FWD_TILE_BYTES / 4);
+    };
+    for (int l = 0; l < fp.L; ++l) {
+        const float* wl = w ? w[l] : nullptr;
+        const bool skip = l > 0 && ((fp.skips >> l) & 1);
+        job(wl, l == 0 ? fp.D : H, skip && wl ? wl + (size_t)H * H : nullptr, skip ? fp.D : 0, H);
+    }
+    if (head) {
+        job(wi, H, nullptr, 0, H);
+        job(wc1a, H, wc1b, fp.Ddir, fp.Hh);
+    }
+    pp->n_jobs = n;
+    pp->total = off;
+    fp.n_tiles = off / (FWD_TILE_BYTES / 4);
+    return off;
+}
+
+// Consumer warpgroups and ring slots for the card's shared memory: two
+// warpgroups where they fit with at least two slots, up to FWD_MAX_SLOTS
+// (one where x and d_embed are so wide that two do not).
+int fwd_config(FwdParams& fp, int head, size_t* bytes) {
+    int dev = 0, optin = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    for (int nc = FWD_NC; nc >= 1; --nc)
+        for (int slots = FWD_MAX_SLOTS; slots >= 2; --slots) {
+            const size_t b = fwd_smem_bytes(nc, slots, fp.nbX, fp.nbH, head ? fp.nbE : 0);
+            if (b <= (size_t)optin) {
+                fp.nc = nc;
+                fp.slots = slots;
+                *bytes = b;
+                return 0;
+            }
+        }
+    return -2;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Sizes in floats: what a saving forward stores (`saved`) and the backward's
-// scratch (masked gradients, packed weights, the splits' partials).
-int fused_mlp_workspace(const int* dims, int head, long long* saved, long long* scratch) {
+// Sizes in floats: what a saving forward stores (`saved`), the backward's
+// scratch (masked gradients, packed weights, the splits' partials) and the
+// forward's packed weight tiles (`packed`).
+int fused_mlp_workspace(const int* dims, int head, long long* saved, long long* scratch, long long* packed) {
     int err = shape_error(dims, head);
     if (err) return err;
     Params p = fill(dims, head);
@@ -1074,39 +1411,71 @@ int fused_mlp_workspace(const int* dims, int head, long long* saved, long long* 
     *saved = saved_floats(p, head);
     const int splits = plan_products(p, dims, head, wp);
     *scratch = grads_floats(p, head) + pack_layout(p, head, nullptr, &pp) + (long long)splits * wp.total;
+    FwdParams fp = fwd_fill(dims, head);
+    FwdPackParams fpp;
+    *packed = fwd_pack_layout(fp, head, nullptr, nullptr, nullptr, nullptr, &fpp);
     return 0;
 }
 
-// ptrs: x, de, out, saved (0: serving, nothing saved), w[0..L), b[0..L), wd,
-// bd, wi, bi, wc1a, wc1b, bc1, wc2, bc2.
+// ptrs: x, de, out, saved (0: serving, nothing saved), packed (the
+// workspace's `packed` floats), w[0..L), b[0..L), wd, bd, wi, bi, wc1a,
+// wc1b, bc1, wc2, bc2.  Two launches: the weights' packing, then the chain.
 int fused_mlp_forward(const long long* ptrs, const int* dims, int head, long long stream) {
     int err = shape_error(dims, head);
     if (err) return err;
-    Params p = fill(dims, head);
-    if (p.N == 0) return 0;
-    p.x = (const float*)ptrs[0];
-    p.de = (const float*)ptrs[1];
-    p.out = (float*)ptrs[2];
+    FwdParams fp = fwd_fill(dims, head);
+    if (fp.N == 0) return 0;
+    fp.x = (const float*)ptrs[0];
+    fp.de = (const float*)ptrs[1];
+    fp.out = (float*)ptrs[2];
     float* saved = (float*)ptrs[3];
-    for (int l = 0; l < p.L; ++l) {
-        p.w[l] = (const float*)ptrs[4 + l];
-        p.b[l] = (const float*)ptrs[4 + p.L + l];
+    float* packed = (float*)ptrs[4];
+    const float* w[MAX_L];
+    for (int l = 0; l < fp.L; ++l) {
+        w[l] = (const float*)ptrs[5 + l];
+        fp.b[l] = (const float*)ptrs[5 + fp.L + l];
     }
-    if (head) fill_head(p, ptrs + 4 + 2 * p.L);
-    if (saved) point_saved(p, saved, head);
-    const size_t bytes = smem_floats(p.D, p.Ddir, p.H, p.Hh, head) * sizeof(float);
+    const long long* q = ptrs + 5 + 2 * fp.L;  // wd, bd, wi, bi, wc1a, wc1b, bc1, wc2, bc2
+    if (head) {
+        fp.wd = (const float*)q[0]; fp.bd = (const float*)q[1]; fp.bi = (const float*)q[3];
+        fp.bc1 = (const float*)q[6]; fp.wc2 = (const float*)q[7]; fp.bc2 = (const float*)q[8];
+    }
+    if (saved) {  // the layout of point_saved
+        const long long NH = (long long)fp.N * fp.H;
+        for (int l = 0; l < fp.L; ++l) fp.ys[l] = saved + l * NH;
+        if (head) {
+            fp.il = saved + fp.L * NH;
+            fp.hs = fp.il + NH;
+        }
+    }
+    FwdPackParams pp;
+    fwd_pack_layout(fp, head, w, head ? (const float*)q[2] : nullptr, head ? (const float*)q[4] : nullptr,
+                    head ? (const float*)q[5] : nullptr, &pp);
+    pp.dst = packed;
+    fp.packed = packed;
+    size_t bytes = 0;
+    err = fwd_config(fp, head, &bytes);
+    if (err) return err;
     const void* kernel = head ? (saved ? (const void*)fused_mlp_fwd_kernel<true, true>
                                        : (const void*)fused_mlp_fwd_kernel<true, false>)
                               : (saved ? (const void*)fused_mlp_fwd_kernel<false, true>
                                        : (const void*)fused_mlp_fwd_kernel<false, false>);
     err = launch_smem(kernel, bytes);
     if (err) return err;
-    const dim3 grid((p.N + BM - 1) / BM);
     cudaStream_t st = (cudaStream_t)stream;
-    if (head && saved) fused_mlp_fwd_kernel<true, true><<<grid, NT, bytes, st>>>(p);
-    else if (head) fused_mlp_fwd_kernel<true, false><<<grid, NT, bytes, st>>>(p);
-    else if (saved) fused_mlp_fwd_kernel<false, true><<<grid, NT, bytes, st>>>(p);
-    else fused_mlp_fwd_kernel<false, false><<<grid, NT, bytes, st>>>(p);
+    fused_mlp_fwd_prep_kernel<<<(pp.total + NT - 1) / NT, NT, 0, st>>>(pp);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+    // Persistent blocks, one per SM, each walking row blocks of nc * 64 rows.
+    int dev = 0, sms = 132;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const int rows = fp.nc * 64, blocks = (fp.N + rows - 1) / rows;
+    const dim3 grid(blocks < sms ? blocks : sms), threads((fp.nc + 1) * 128);
+    if (head && saved) fused_mlp_fwd_kernel<true, true><<<grid, threads, bytes, st>>>(fp);
+    else if (head) fused_mlp_fwd_kernel<true, false><<<grid, threads, bytes, st>>>(fp);
+    else if (saved) fused_mlp_fwd_kernel<false, true><<<grid, threads, bytes, st>>>(fp);
+    else fused_mlp_fwd_kernel<false, false><<<grid, threads, bytes, st>>>(fp);
     return (int)cudaGetLastError();
 }
 

@@ -11,6 +11,14 @@ says what bounds it on an H100 and how its design answers that:
   (N, 4) = [raw density, rgb logits];
 - #13 `_nerf_bwd_kernel` (:341) -> `nerf_field_grad_cuda`, its backward.
 
+The forward is warp-specialised `wgmma` on the tensor cores: per call a
+prep launch packs the weights into TF32 hi/lo tiles, then a persistent
+kernel streams them through a shared-memory ring to two warpgroups of 64
+rows each, which keep every layer's activations in the threads that
+computed them; each product is three TF32 passes with a fresh accumulator
+tile every 16 input features, as accurate as float32.  The backward runs
+the same three passes as `mma.sync`.
+
 Each wrapper launches its kernel for CUDA tensors (and counts the launch in
 its `launches`) and runs the plain PyTorch version for CPU tensors:
 `fused_mlp_plain`, `fused_nerf_field_plain` (mirrors of the JAX
@@ -22,9 +30,10 @@ kernel.  Under autograd the CUDA forward stores the activations the backward
 reads (`save=True`), so the backward does not recompute them; a backward
 wrapper called without them runs that saving forward first, inside its own
 launch (counted in `_backward.forwards_run`, not as a forward launch).  One
-launch of a backward wrapper runs four CUDA kernels in order (the weights'
-packing, the row chain, the weight-gradient products, the sum of their
-splits) and counts once.
+launch of a forward wrapper runs two CUDA kernels (the weights' packing,
+the chain), one of a backward wrapper four (the weights' packing, the row
+chain, the weight-gradient products, the sum of their splits); each counts
+once.
 
 The kernels take float32, contiguous tensors, hidden and colour widths up to
 256 and up to 12 trunk layers; they raise on anything else.  Layer 0 cannot
@@ -164,7 +173,7 @@ def _library() -> ctypes.CDLL:
         for fn in (lib.fused_mlp_forward, lib.fused_mlp_backward):
             fn.argtypes = [p, p, i, ll]
             fn.restype = i
-        lib.fused_mlp_workspace.argtypes = [p, i, p, p]
+        lib.fused_mlp_workspace.argtypes = [p, i, p, p, p]
         lib.fused_mlp_workspace.restype = i
     return lib
 
@@ -232,10 +241,19 @@ def _c_ptrs(tensors):
     return (ctypes.c_longlong * len(tensors))(*[0 if t is None else t.data_ptr() for t in tensors])
 
 
+def _workspace(what, lib, dims, head) -> Tuple[int, int, int]:
+    """Floats of (saved activations, backward scratch, the forward's packed
+    weight tiles) for these shapes."""
+    sizes = [ctypes.c_longlong(0) for _ in range(3)]
+    _raise_on(lib.fused_mlp_workspace(dims, int(head), *(ctypes.byref(v) for v in sizes)), what)
+    return tuple(v.value for v in sizes)
+
+
 def _forward(what, x, d_embed, weights, biases, head, skips, save=False):
     """out, or (out, saved) with save: the saving forward also stores every
     trunk layer's output (the trunk's last is out itself) and, with the
-    head, il and the colour hidden h, in one flat tensor for the backward."""
+    head, il and the colour hidden h, in one flat tensor for the backward.
+    The launch packs the weights into a scratch first (its own kernel)."""
     N, D, H, skip_bits = _trunk_dims(what, x, weights, biases, skips)
     Ddir = Hh = 0
     if head is not None:
@@ -244,14 +262,11 @@ def _forward(what, x, d_embed, weights, biases, head, skips, save=False):
     _check(what, x, tensors)
     lib = _library()
     dims = _c_dims(N, D, Ddir, H, Hh, len(weights), skip_bits)
-    saved = None
-    if save:
-        saved_n, scratch_n = ctypes.c_longlong(0), ctypes.c_longlong(0)
-        _raise_on(lib.fused_mlp_workspace(dims, int(head is not None), ctypes.byref(saved_n), ctypes.byref(scratch_n)),
-                  what)
-        saved = torch.empty(max(saved_n.value, 1), dtype=torch.float32, device=x.device)
+    saved_n, _, packed_n = _workspace(what, lib, dims, head is not None)
+    saved = torch.empty(max(saved_n, 1), dtype=torch.float32, device=x.device) if save else None
+    packed = torch.empty(packed_n, dtype=torch.float32, device=x.device)
     out = torch.empty((N, 4 if head is not None else H), dtype=torch.float32, device=x.device)
-    ptrs = _c_ptrs([x, d_embed, out, saved, *weights, *biases, *(head or ())])
+    ptrs = _c_ptrs([x, d_embed, out, saved, packed, *weights, *biases, *(head or ())])
     with torch.cuda.device(x.device):
         err = lib.fused_mlp_forward(ptrs, dims, int(head is not None), torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, what)
@@ -296,12 +311,11 @@ def _backward(what, x, d_embed, weights, biases, head, skips, g, saved=None):
     out, acts = saved
     lib = _library()
     dims = _c_dims(N, D, Ddir, H, Hh, L, skip_bits)
-    saved_n, scratch_n = ctypes.c_longlong(0), ctypes.c_longlong(0)
-    _raise_on(lib.fused_mlp_workspace(dims, int(head is not None), ctypes.byref(saved_n), ctypes.byref(scratch_n)), what)
-    if acts.numel() < saved_n.value or tuple(out.shape) != (N, 4 if head is not None else H):
+    saved_n, scratch_n, _ = _workspace(what, lib, dims, head is not None)
+    if acts.numel() < saved_n or tuple(out.shape) != (N, 4 if head is not None else H):
         raise ValueError(f"{what}: the saved tensors are not this forward's")
     dev = x.device
-    scratch = torch.empty(scratch_n.value, dtype=torch.float32, device=dev)
+    scratch = torch.empty(scratch_n, dtype=torch.float32, device=dev)
     shapes = _grad_shapes(D, H, Ddir, Hh, L, skips, head is not None)
     flat = torch.empty(sum(torch.Size(s).numel() for s in shapes), dtype=torch.float32, device=dev)
     dx = torch.empty_like(x)

@@ -390,6 +390,13 @@ _MLP_GRID = [
     (65, 39, 8, 1, (), 0, 0),  # the trunk at H = 8, L = 1
     (4096, 39, 256, 8, (7,), 0, 0),  # a skip at the last layer
     (100, 39, 33, 3, (1,), 15, 17),  # odd widths: the scalar paths of the vector loads and stores
+    # the forward's tiling edges: 128-row blocks (two warpgroups of 64),
+    # 8-feature k-blocks, 128-wide colour column blocks
+    (127, 39, 256, 8, (5,), 27, 128),  # N = block rows - 1
+    (129, 39, 256, 8, (5,), 0, 0),  # N = block rows + 1
+    (129, 5, 5, 2, (1,), 3, 3),  # widths below 8: one zero-padded k-block
+    (300, 39, 64, 2, (1,), 27, 200),  # a colour layer wider than 128: two column blocks
+    (200, 200, 256, 2, (1,), 100, 64),  # wide inputs: one consumer warpgroup of 64 rows a block
 ]
 
 
@@ -403,7 +410,8 @@ def test_fused_kernels_match_plain(cuda_device, N, D, H, L, skips, Ddir, Hh):
     fwd, bwd = (tfm.nerf_field_cuda, tfm.nerf_field_grad_cuda) if head else (tfm.fused_mlp_cuda, tfm.fused_mlp_grad_cuda)
     before = (fwd.launches, bwd.launches)
     result = _CHIP_SMOKE.compare_fused(x, de, ws, bs, head, skips, g)
-    assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+    # the serving forward, the saving forward and the backward on what it saved
+    assert (fwd.launches, bwd.launches) == (before[0] + 2, before[1] + 1)
     assert _CHIP_SMOKE.fused_ok(result), result
 
 
@@ -413,6 +421,61 @@ def test_fused_backward_gives_the_same_bits_twice(cuda_device, N, D, H, L, skips
     g = torch.randn((N, 4 if head else H), generator=torch.Generator(device=cuda_device).manual_seed(2),
                     device=cuda_device)
     assert _CHIP_SMOKE.fused_backward_repeats(x, de, ws, bs, head, skips, g)
+
+
+_FWD_SHAPES = [_MLP_GRID[1], _MLP_GRID[5], _MLP_GRID[9], _MLP_GRID[15], _MLP_GRID[16]]
+
+
+def _forward_fn(x, de, ws, bs, head, skips):
+    if head:
+        return lambda save=False: tfm.nerf_field_cuda(x, de, ws, bs, head, skips, save=save)
+    return lambda save=False: tfm.fused_mlp_cuda(x, ws, bs, skips, save=save)
+
+
+@pytest.mark.parametrize("N,D,H,L,skips,Ddir,Hh", _FWD_SHAPES)
+def test_fused_forward_serving_and_saving_give_the_same_bits(cuda_device, N, D, H, L, skips, Ddir, Hh):
+    """The saving forward (a training step's) differs from serving only in
+    its stores: the same `out` bits, and saved layer outputs equal to the
+    plain chain's within the forward gate."""
+    x, de, ws, bs, head = _mlp_inputs(cuda_device, N, D, H, L, skips, Ddir, Hh)
+    fwd = _forward_fn(x, de, ws, bs, head, skips)
+    out, saved = fwd(save=True)
+    assert torch.equal(fwd(), out)
+    _, _, outputs = tfm._trunk_chain(x, ws, bs, skips)
+    stored = outputs if head else outputs[:-1]
+    for li, want in enumerate(stored):
+        got = saved[li * N * H : (li + 1) * N * H].view(N, H)
+        assert float((got - want).abs().max()) <= _CHIP_SMOKE.FUSED_FWD_GATE * float(want.abs().max()), li
+
+
+@pytest.mark.parametrize("N,D,H,L,skips,Ddir,Hh", _FWD_SHAPES)
+def test_fused_forward_gives_the_same_bits_twice(cuda_device, N, D, H, L, skips, Ddir, Hh):
+    x, de, ws, bs, head = _mlp_inputs(cuda_device, N, D, H, L, skips, Ddir, Hh)
+    fwd = _forward_fn(x, de, ws, bs, head, skips)
+    assert torch.equal(fwd(), fwd())
+
+
+@pytest.mark.parametrize("N,D,H,L,skips,Ddir,Hh", [_MLP_GRID[1], _MLP_GRID[5], _MLP_GRID[9]])
+def test_fused_backward_on_the_forwards_saved_tensors_passes_the_gates(cuda_device, N, D, H, L, skips, Ddir, Hh):
+    """The backward reads what the tensor-core forward saved: with those
+    tensors handed in it gives the bits of a launch that ran its own saving
+    forward, and that launch passes the kernels' gates."""
+    x, de, ws, bs, head = _mlp_inputs(cuda_device, N, D, H, L, skips, Ddir, Hh)
+    g = torch.randn((N, 4 if head else H), generator=torch.Generator(device=cuda_device).manual_seed(3),
+                    device=cuda_device)
+    assert _CHIP_SMOKE.fused_ok(_CHIP_SMOKE.compare_fused(x, de, ws, bs, head, skips, g))
+    saved = _forward_fn(x, de, ws, bs, head, skips)(save=True)
+    if head:
+        given = tfm.nerf_field_grad_cuda(x, de, ws, bs, head, skips, g, saved=saved)
+        own = tfm.nerf_field_grad_cuda(x, de, ws, bs, head, skips, g)
+    else:
+        given = tfm.fused_mlp_grad_cuda(x, ws, bs, skips, g, saved=saved)
+        own = tfm.fused_mlp_grad_cuda(x, ws, bs, skips, g)
+
+    def flat(out):
+        return [t for part in out for t in (part if isinstance(part, (list, tuple)) else [part]) if t is not None]
+
+    assert all(torch.equal(a, b) for a, b in zip(flat(given), flat(own)))
 
 
 def test_fused_backward_through_autograd_launches_the_kernels(cuda_device):

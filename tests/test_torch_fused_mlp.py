@@ -159,3 +159,135 @@ def test_kernel_shape_checks(case):
             tfm._head_dims("t", de, head[:8], N, H)
         else:
             tfm._head_dims("t", de[:10], head, N, H)
+
+
+def _load_chip_smoke():
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_chip_smoke_mlp_bounds_count_the_function_work():
+    """#10/#12's bound counts each layer's input width times its output
+    width per row (the NeRF field: 581 120 multiply-adds, its trunk alone
+    478 720) at the three-pass TF32 rate; the serving launches (262 144 and
+    524 288 rows) are bound by operations at 2x and 4x the fine training
+    launch's 131 072."""
+    cs = _load_chip_smoke()
+    nerf = dict(D=39, H=256, L=8, skips=(5,), Ddir=27, Hh=128)
+    assert cs.mlp_macs_per_row(**nerf) == 581_120
+    assert cs.mlp_macs_per_row(39, 256, 8, (5,)) == 478_720
+    train, by, ops = cs.mlp_bound(131_072, **nerf)
+    assert by == "operations" and ops == 2 * 131_072 * 581_120
+    assert train == pytest.approx(1e3 * ops / cs.PEAK_TF32X3_OPS_PER_S)
+    coarse, by_c, _ = cs.mlp_bound(262_144, **nerf)
+    fine, by_f, _ = cs.mlp_bound(524_288, **nerf)
+    assert by_c == by_f == "operations"
+    assert coarse == pytest.approx(2 * train) and fine == pytest.approx(4 * train)
+
+
+@pytest.mark.parametrize("head", [False, True])
+def test_chip_smoke_saved_masks_read_the_saving_forwards_layout(head):
+    """chip_smoke.saved_masks reads the ReLU masks from a saving forward's
+    flat tensor as the backward kernel does (every trunk layer's output,
+    the trunk's last being out itself without a head; with it il, then the
+    colour hidden h): on the plain chain's values laid out so, it gives
+    relu_masks."""
+    cs = _load_chip_smoke()
+    rng = np.random.RandomState(3)
+    n, d, h, layers, skips, ddir, hh = 37, 6, 16, 3, (2,), 5, 8
+    t = lambda *shape: torch.tensor(rng.randn(*shape).astype(np.float32))
+    x, de = t(n, d), t(n, ddir)
+    ws = [t((d if li == 0 else h) + (d if li in skips else 0), h) for li in range(layers)]
+    bs = [t(h) for _ in range(layers)]
+    y, _, outputs = tfm._trunk_chain(x, ws, bs, skips)
+    if head:
+        params = (t(h, 1), t(1), t(h, h), t(h), t(h, hh), t(ddir, hh), t(hh), t(hh, 3), t(3))
+        out, il, hid = tfm._head_chain(y, de, params)
+        saved = (out, torch.cat([o.reshape(-1) for o in outputs] + [il.reshape(-1), hid.reshape(-1)]))
+        want = tfm.relu_masks(x, ws, bs, skips, de, params)
+    else:
+        saved = (y, torch.cat([o.reshape(-1) for o in outputs[:-1]]))
+        want = tfm.relu_masks(x, ws, bs, skips)
+    got = cs.saved_masks(saved, n, h, layers, hh if head else 0)
+    assert len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("kernel_flips,ok", [(33, True), (49, True), (50, False)])
+def test_chip_smoke_fused_ok_holds_the_forwards_mask_flips(kernel_flips, ok):
+    """chip_smoke.fused_ok fails a forward whose ReLU masks disagree with
+    float64's more often than FUSED_PLAIN_FACTOR times the float32 plain
+    forward's, plus FUSED_FLIP_SLACK (30 plain flips: at most 49), however
+    close its backward is on those masks."""
+    cs = _load_chip_smoke()
+    result = {"fwd": 1e-7, "fwd_diff": 1e-7, "same_bits": True, "worst": 0.0, "rows": {"dx": 1.0},
+              "grads": {"W0": (1e-6, 1e-3, 1e-3, 1e-3)},
+              "flips": {"kernel vs float64": kernel_flips, "float32 plain vs float64": 30,
+                        "kernel vs float32 plain": 40}}
+    assert cs.fused_ok(result) is ok
+
+
+def _tf32_split(a):
+    """(hi, lo) of float32 a as the forward kernel splits it (split_tf32 in
+    csrc/fused_mlp.cu): hi rounded to TF32's 10 mantissa bits on the bits,
+    lo = a - hi, and the tensor cores read only lo's top 19 bits."""
+    bits = a.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+    def as_float(b):
+        return torch.where(b >= 2**31, b - 2**32, b).to(torch.int32).view(torch.float32)
+
+    hi = as_float((bits + 0x1000) & 0xFFFFE000)
+    lo = a - hi
+    lo_bits = lo.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return hi, as_float(lo_bits & 0xFFFFE000)
+
+
+def _emulated_field(x, de, ws, bs, head, skips, passes):
+    """The NeRF field with every product of the kernel's chain (trunk, il,
+    the colour layer) taken as its TF32 passes, summed in float64 and
+    rounded to float32 per layer; the density and rgb dot products, which
+    the kernel sums on the CUDA cores, in float64."""
+    def product(a, w):
+        (ah, al), (wh, wl) = _tf32_split(a), _tf32_split(w)
+        terms = [(ah, wh)] if passes == 1 else [(al, wh), (ah, wl), (ah, wh)]
+        return sum(p.double() @ q.double() for p, q in terms)
+
+    y = x
+    for li, (w, b) in enumerate(zip(ws, bs)):
+        a = torch.cat([y, x], dim=-1) if li in skips else y
+        y = torch.relu(product(a, w) + b.double()).float()
+    wd, bd, wi, bi, wc1a, wc1b, bc1, wc2, bc2 = head
+    il = (product(y, wi) + bi.double()).float()
+    h = torch.relu(product(torch.cat([il, de], -1), torch.cat([wc1a, wc1b], 0)) + bc1.double())
+    return torch.cat([y.double() @ wd.double() + bd.double(), h @ wc2.double() + bc2.double()], dim=-1)
+
+
+def test_forward_three_tf32_passes_meet_the_forward_gate_and_one_does_not():
+    """The forward kernel's arithmetic on the CPU at the NeRF widths (8 x 256,
+    skip 5, head 128): three TF32 passes per product stay within the chip
+    check's FUSED_FWD_GATE of the float64 field; one pass is off by more."""
+    cs = _load_chip_smoke()
+    rng = np.random.RandomState(7)
+    n, d, h, layers, skips, ddir, hh = 512, 39, 256, 8, (5,), 27, 128
+
+    def dense(i, o):
+        lim = np.sqrt(6.0 / (i + o))
+        return (torch.tensor(rng.uniform(-lim, lim, (i, o)).astype(np.float32)),
+                torch.tensor((rng.randn(o) * 0.05).astype(np.float32)))
+
+    x = torch.tensor(rng.uniform(-1, 1, (n, d)).astype(np.float32))
+    de = torch.tensor(rng.uniform(-1, 1, (n, ddir)).astype(np.float32))
+    ws, bs = zip(*[dense((d if li == 0 else h) + (d if li in skips else 0), h) for li in range(layers)])
+    (wd, bd), (wi, bi), (wc1, bc1), (wc2, bc2) = dense(h, 1), dense(h, h), dense(h + ddir, hh), dense(hh, 3)
+    head = (wd, bd, wi, bi, wc1[:h], wc1[h:], bc1, wc2, bc2)
+    want = tfm.fused_nerf_field_plain(x.double(), de.double(), [w.double() for w in ws], [b.double() for b in bs],
+                                      [t.double() for t in head], skips)
+    scale = float(want.abs().max())
+    three = float((_emulated_field(x, de, ws, bs, head, skips, 3) - want).abs().max()) / scale
+    one = float((_emulated_field(x, de, ws, bs, head, skips, 1) - want).abs().max()) / scale
+    assert three <= cs.FUSED_FWD_GATE < one, (three, one)
