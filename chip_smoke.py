@@ -22,12 +22,15 @@ final result line:
    the fine rasterizer within bench.py:_row_ok's tolerances (dists within
    1e-6, tighter than there); its backward against the plain version in
    float64, within 1e-4 of the largest gradient or no further off than
-   1.5x the float32 plain version is (fp32 atomics add in a different order
-   on every run, and the float32 gradient is ill-conditioned at sliver
-   faces), and per face within 1e-4 of (the face's largest |g| + the median
-   of that) on >= 99.7 % of the faces; KNN with ids equal on >= 99.99 % of
-   queries and dists within
-   1e-6 relative;
+   1.5x the float32 plain version is (the kernel sums per tile, then per
+   face, in another order than the plain version, and the float32
+   gradient is ill-conditioned at sliver faces), and per face within 1e-4
+   of (the face's largest |g| + the median of that) on >= 99.7 % of the
+   faces, and, at the render-fit and headline shapes, bit-equal over two
+   launches; KNN with ids equal on >= 99.99 % of queries and dists within
+   1e-6 relative, at the chamfer and points fits' clouds, 16384^2 at K=16,
+   ties across the kernel's database ranges, a database shorter than a
+   range and D = 8 at norm 1;
 4. serving: `MeshRenderer(MeshRasterizer, SoftPhongShader)` renders a batch
    of two meshes of different face counts (ico_sphere(4) and a torus) at
    512^2, K=8, blur 1e-4, for 8 camera azimuths, as a server answering 8
@@ -72,8 +75,10 @@ final result line:
    `HardPhongShader` (#3) for the 8 azimuths against the same renderer
    with `rasterize_hard_plain` patched in for the kernel;
 9. times, after warm-up, with CUDA events: each kernel, its plain version
-   and its bound (the point kernels' launches are short, so their time is
-   the profiler's device time, beside the events'); the binning, a serving
+   and its bound (the point kernels' launches are short, and #4 and #9 run
+   two device kernels a call, so their time is the profiler's device time,
+   beside the events'; #9 at the chamfer fit's, the points fit's and a
+   K=16 shape, with the merge's share, #4 with pass 2's share); the binning, a serving
    frame, a training step split into forward and backward; torch.profiler
    breakdowns of 8 serving and 8 points-serving frames and of render-fit
    and points-fit steps by device kernel, with the device's idle share; the
@@ -118,6 +123,8 @@ PEAK_TF32X3_OPS_PER_S = 495e12 / 3
 KERNELS = ("rasterize_fine", "rasterize_grad", "knn", "rasterize_points", "rasterize_points_grad",
            "fused_mlp", "fused_mlp_grad", "nerf_field", "nerf_field_grad",
            "rasterize_topk", "rasterize_hard", "select_points", "pulsar_grad")
+# The device kernels of #4 (pass 1, pass 2), whose device times make its time.
+GRAD_KERNELS = ("rasterize_grad_tiles_kernel", "rasterize_grad_faces_kernel")
 SOURCES = ("rasterize_fine", "rasterize_grad", "knn", "rasterize_points", "rasterize_points_grad", "fused_mlp",
            "rasterize_hard", "pulsar_grad")
 
@@ -149,6 +156,10 @@ GRAD_PLAIN_FACTOR = 1.5
 # leave a few ill-conditioned sliver faces outside; PERF.md records the
 # shares this script reads.
 GRAD_FACE_SHARE = 0.997
+# List positions whose sums one pass of the backward's pass 1 holds
+# (csrc/rasterize_grad.cu's kListChunk): a longer tile list takes several
+# passes, which the long-list cases of phase_grad_kernel drive.
+GRAD_LIST_CHUNK = 128
 KNN_IDS_GATE = 0.9999  # share of queries whose K ids all agree
 KNN_DISTS_RTOL = 1e-6
 
@@ -433,6 +444,13 @@ def face_agreement(got, want, exact):
     return row_agreement(got, want, exact, 9, GRAD_GATE)
 
 
+def longest_list(bins):
+    """The longest tile list of a `bin_faces` binning, and the passes
+    pass 1 of the backward makes over it (GRAD_LIST_CHUNK positions each)."""
+    longest = int(bins[1].diff().max())
+    return longest, max(1, -(-longest // GRAD_LIST_CHUNK))
+
+
 def compare_grad(fv, valid, size, blur, k, persp, clip, cotangents):
     """The backward kernel against its plain version on the same ids and
     cotangents (seeded random, or the headline loss's).
@@ -440,7 +458,7 @@ def compare_grad(fv, valid, size, blur, k, persp, clip, cotangents):
     Returns (finite, max |g - g_plain|, the three ratios to the largest
     gradient: kernel vs plain, kernel vs the plain version in float64,
     plain vs the plain version in float64; `face_agreement`'s two shares;
-    the filled slots).  The float64 plain version is the reference of the
+    the filled slots; the longest tile list).  The float64 plain version is the reference of the
     gate: where the float32 gradient is ill-conditioned (sums over
     Sum(bary) = 1 that cancel at sliver faces) the float32 plain version
     itself is off it by more than 1e-4 of the largest gradient.
@@ -448,7 +466,7 @@ def compare_grad(fv, valid, size, blur, k, persp, clip, cotangents):
     import torch
 
     from pytorch3d_tpu_torch.renderer.mesh import rasterize_cuda as rc
-    from pytorch3d_tpu_torch.renderer.mesh.rasterize_meshes import rasterize_grad_plain
+    from pytorch3d_tpu_torch.renderer.mesh.rasterize_meshes import _face_culls, rasterize_grad_plain
 
     idx, zbuf, bary, dists = rc.rasterize_fragments_cuda(fv, valid, size, blur, k, persp, clip, False)
     if cotangents == "random":
@@ -456,7 +474,8 @@ def compare_grad(fv, valid, size, blur, k, persp, clip, cotangents):
         cots = tuple(torch.randn(t.shape, generator=gen, device=fv.device) for t in (zbuf, bary, dists))
     else:
         cots = headline_cotangents(zbuf, dists)
-    got = rc.rasterize_grad_cuda(fv, idx, *cots, size, persp, clip)
+    bins = rc.bin_faces(fv, _face_culls(fv, valid, False), size, blur)  # the forward's binning
+    got = rc.rasterize_grad_cuda(fv, idx, *cots, size, bins, persp, clip)
     torch.cuda.synchronize()
     want = rasterize_grad_plain(fv, idx, *cots, size, persp, clip)
     exact = rasterize_grad_plain(
@@ -466,7 +485,8 @@ def compare_grad(fv, valid, size, blur, k, persp, clip, cotangents):
     _, ratio_exact = grad_error(got.double(), exact)
     _, ratio_plain = grad_error(want.double(), exact)
     faces = face_agreement(got, want, exact)
-    return bool(torch.isfinite(got).all()), err, (ratio, ratio_exact, ratio_plain), faces, int((idx >= 0).sum())
+    return (bool(torch.isfinite(got).all()), err, (ratio, ratio_exact, ratio_plain), faces, int((idx >= 0).sum()),
+            longest_list(bins))
 
 
 def compare_knn(p1, p2, lengths2, k, norm=2):
@@ -673,8 +693,9 @@ def device_ms_by_kernel(fn, kernels, iters=20, warmup=3, launches=1):
     contains each of `kernels`, from one torch.profiler (CUPTI) window in
     which each of them recorded `launches` launches per call of fn.  The
     profiler sometimes drops a launch's record (a 1.9 ms launch once read
-    1.1 ms): a window with any other count is taken again, up to three
-    windows, and then fails."""
+    1.1 ms): a window with any other count is taken again, up to six
+    windows, and then fails (KNN's two 0.02 ms launches a call lost a
+    record in three windows running once)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -683,7 +704,7 @@ def device_ms_by_kernel(fn, kernels, iters=20, warmup=3, launches=1):
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(6):
         with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -693,7 +714,7 @@ def device_ms_by_kernel(fn, kernels, iters=20, warmup=3, launches=1):
         if all(n == iters * launches for n in counts.values()):
             return {k: sum(e.self_device_time_total for e in events if k in e.key) / 1e3 / iters for k in kernels}
         log(f"  profiler window of {iters} calls recorded {counts} launches, not {iters * launches} each: again")
-    check(False, f"the profiler did not record every launch of {tuple(kernels)} in three windows")
+    check(False, f"the profiler did not record every launch of {tuple(kernels)} in six windows")
 
 
 def device_ms(fn, kernel, iters=20, warmup=3, launches=1):
@@ -919,10 +940,94 @@ def phase_fine_kernel(device):
     return worst
 
 
+def grad_path_inputs(device, fit):
+    """The backward's inputs at its two path shapes, each with the forward's
+    binning: the render-fit step's own cotangents (8 views of 512^2, K=16)
+    and the headline loss's (ico4, K=8).
+
+    Returns [(label, fv, idx, cotangents, persp, clip, bins)]; the ids are
+    the fine kernel's on those bins (the render-fit ones equal the
+    renderer's own, which is logged)."""
+    import torch
+
+    from pytorch3d_tpu_torch.renderer.mesh import rasterize_cuda as rc
+    from pytorch3d_tpu_torch.renderer.mesh.rasterize_meshes import _face_culls
+    from pytorch3d_tpu_torch.utils import ico_sphere
+
+    size = (IMAGE, IMAGE)
+    mesh = fit.mesh().extend(FIT_VIEWS)
+    soft, cams = fit.soft_renderer(FIT_VIEWS)
+    fragments = soft.rasterizer(mesh, cameras=cams)
+    loss = fit.loss(soft.shader(fragments, mesh, cameras=cams), fit.mesh(), FIT_VIEWS)
+    cots = tuple(c.contiguous() for c in torch.autograd.grad(
+        loss, [fragments.zbuf, fragments.bary_coords, fragments.dists]))
+    fv_fit, valid_fit = face_inputs(mesh, cams, size)
+    F = fv_fit.shape[1]
+    bins_fit = rc.bin_faces(fv_fit, _face_culls(fv_fit, valid_fit, False), size, FIT_BLUR)
+    idx_fit = rc._run_kernel(fv_fit, bins_fit, size, FIT_BLUR, FIT_K, True, True)[0]
+    offsets = (torch.arange(FIT_VIEWS, device=device) * F)[:, None, None, None]
+    renderer_ids = torch.where(fragments.pix_to_face >= 0, fragments.pix_to_face - offsets, -1)
+    log(f"  render-fit backward inputs: the fine kernel's ids equal the renderer's on"
+        f" {float((idx_fit == renderer_ids).float().mean()):.6f} of slots")
+    fv_h, valid_h = face_inputs(ico_sphere(4, device=device), camera(30.0, device), size)
+    bins_h = rc.bin_faces(fv_h, _face_culls(fv_h, valid_h, False), size, BLUR)
+    idx_h, zbuf_h, _, dists_h = rc._run_kernel(fv_h, bins_h, size, BLUR, K, False, False)
+    return [
+        (f"render-fit step: N={FIT_VIEWS} F={F} {IMAGE}^2 K={FIT_K}", fv_fit, idx_fit, cots, True, True, bins_fit),
+        (f"headline: N=1 F={fv_h.shape[1]} {IMAGE}^2 K={K}", fv_h, idx_h, headline_cotangents(zbuf_h, dists_h),
+         False, False, bins_h),
+    ]
+
+
+def ico_grad_inputs(device, level, side, blur, k, persp, clip):
+    """The backward's inputs for ico_sphere(level) at side^2 (camera at
+    azimuth 30): (fv, idx, seeded random cotangents, the forward's
+    binning)."""
+    import torch
+
+    from pytorch3d_tpu_torch.renderer.mesh import rasterize_cuda as rc
+    from pytorch3d_tpu_torch.renderer.mesh.rasterize_meshes import _face_culls
+    from pytorch3d_tpu_torch.utils import ico_sphere
+
+    size = (side, side)
+    fv, valid = face_inputs(ico_sphere(level, device=device), camera(30.0, device), size)
+    bins = rc.bin_faces(fv, _face_culls(fv, valid, False), size, blur)
+    idx, zbuf, bary, dists = rc._run_kernel(fv, bins, size, blur, k, persp, clip)
+    gen = torch.Generator(device=device).manual_seed(level)
+    cots = tuple(torch.randn(t.shape, generator=gen, device=device) for t in (zbuf, bary, dists))
+    return fv, idx, cots, bins
+
+
+# Where tile lists run far past GRAD_LIST_CHUNK, so that pass 1 makes many
+# passes over one tile: (label, ico level, image side, blur, K, persp, clip).
+# The large blur runs without perspective correction and clipping (bench.py's
+# settings): with them, at blur 2e-2, a few ill-conditioned faces put the
+# float32 plain version itself at the face-share gate (grad_study.py
+# --conditioning reads both).
+LONG_LIST_CASES = (("dense mesh", 5, 64, BLUR, 8, True, True), ("large blur", 4, 128, 2e-2, 16, False, False))
+
+
+def long_list_inputs(device):
+    """[(label, fv, idx, cotangents, persp, clip, bins)] of LONG_LIST_CASES,
+    as `grad_path_inputs` returns its shapes."""
+    out = []
+    for label, level, side, blur, k, persp, clip in LONG_LIST_CASES:
+        fv, idx, cots, bins = ico_grad_inputs(device, level, side, blur, k, persp, clip)
+        out.append((f"{label}: N=1 F={fv.shape[1]} {side}^2 K={k} blur={blur:g}", fv, idx, cots, persp, clip, bins))
+    return out
+
+
 def phase_grad_kernel(device):
     """The backward kernel against its plain version at the serving batch
     and the headline ico4, with seeded random cotangents and with the
-    headline loss's."""
+    headline loss's; then, at the render-fit and headline shapes with their
+    own cotangents and at two shapes whose tile lists take many passes,
+    twice on the same inputs, which must give the same bits, and against
+    float64.  Every case runs on the forward's own binning."""
+    import torch
+
+    from pytorch3d_tpu_torch.renderer.mesh import rasterize_cuda as rc
+    from pytorch3d_tpu_torch.renderer.mesh.rasterize_meshes import rasterize_grad_plain
     from pytorch3d_tpu_torch.utils import ico_sphere
 
     size = (IMAGE, IMAGE)
@@ -934,7 +1039,7 @@ def phase_grad_kernel(device):
     ):
         fv, valid = face_inputs(meshes, cams, size)
         for cotangents in ("random", "headline loss"):
-            finite, err, (ratio, ratio_exact, ratio_plain), faces, filled = compare_grad(
+            finite, err, (ratio, ratio_exact, ratio_plain), faces, filled, (longest, passes) = compare_grad(
                 fv, valid, size, BLUR, K, persp, clip, cotangents
             )
             kernel_share, plain_share = faces
@@ -943,12 +1048,43 @@ def phase_grad_kernel(device):
             worst_err, worst_ratio = max(worst_err, err), max(worst_ratio, ratio_exact)
             log(f"kernel rasterize_grad vs plain [{label}, {cotangents} cotangents] N={fv.shape[0]}"
                 f" F={fv.shape[1]} {IMAGE}^2 K={K} persp={persp} clip={clip}: filled slots {filled},"
+                f" longest tile list {longest} ({passes} pass(es) of pass 1),"
                 f" max|diff| {err:.3e} = {ratio:.3e} of max|grad|; vs the float64 plain version:"
                 f" kernel {ratio_exact:.3e}, float32 plain version {ratio_plain:.3e} of max|grad|;"
                 f" faces within {GRAD_GATE:g} of their own scale: kernel {kernel_share:.6f},"
                 f" float32 plain version {plain_share:.6f} -> {'ok' if ok else 'FAIL'}")
             if not ok:
                 failed.append(f"{label}/{cotangents}")
+    # Deterministic: two launches on the same inputs give the same bits, at
+    # both path shapes and where tile lists take many passes of pass 1.
+    long_lists = long_list_inputs(device)
+    for label, fv, idx, cots, persp, clip, bins in grad_path_inputs(device, RenderFit(device)) + long_lists:
+        size_i = tuple(idx.shape[1:3])
+        first = rc.rasterize_grad_cuda(fv, idx, *cots, size_i, bins, persp, clip)
+        second = rc.rasterize_grad_cuda(fv, idx, *cots, size_i, bins, persp, clip)
+        same = torch.equal(first.view(torch.int32), second.view(torch.int32))
+        want = rasterize_grad_plain(fv, idx, *cots, size_i, persp, clip)
+        exact = rasterize_grad_plain(fv.double(), idx, *(None if c is None else c.double() for c in cots),
+                                     size_i, persp, clip)
+        _, ratio_exact = grad_error(first.double(), exact)
+        _, ratio_plain = grad_error(want.double(), exact)
+        kernel_share, plain_share = face_agreement(first, want, exact)
+        longest, passes = longest_list(bins)
+        many = int((bins[1].diff() > GRAD_LIST_CHUNK).sum())
+        ok = (same and bool(torch.isfinite(first).all())
+              and ratio_exact <= max(GRAD_GATE, GRAD_PLAIN_FACTOR * ratio_plain) and kernel_share >= GRAD_FACE_SHARE)
+        if any(label == case[0] for case in long_lists):  # the case must drive the many-pass path
+            ok = ok and passes >= 3
+        worst_ratio = max(worst_ratio, ratio_exact)
+        log(f"kernel rasterize_grad [{label}, persp={persp} clip={clip}]: longest tile list {longest}"
+            f" ({passes} pass(es) of pass 1; {many} of {bins[1].numel() - 1} tiles over {GRAD_LIST_CHUNK});"
+            f" filled slots {int((idx >= 0).sum())}; two launches bit-equal {same}; vs the float64 plain version:"
+            f" kernel {ratio_exact:.3e}, float32 plain version {ratio_plain:.3e} of max|grad|; faces within"
+            f" {GRAD_GATE:g}: kernel {kernel_share:.6f}, float32 plain version {plain_share:.6f}"
+            f" -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"{label}/bit-equal twice")
+    torch.cuda.empty_cache()
     log(f"kernel rasterize_grad: worst ratio to the float64 plain version {worst_ratio:.3e}"
         f" (gate max({GRAD_GATE:g}, {GRAD_PLAIN_FACTOR:g} x the float32 plain version's), and"
         f" >= {GRAD_FACE_SHARE:g} of the faces within {GRAD_GATE:g} x (the face's largest |g|"
@@ -957,33 +1093,130 @@ def phase_grad_kernel(device):
     return worst_err
 
 
-def phase_knn_kernel(device):
-    """The KNN kernel against its plain version at the chamfer fit's clouds
-    and at 16384 x 16384, K=16, with and without lengths2."""
+def points_fit_clouds(pfit):
+    """The points fit's two KNN calls' clouds: its 30 000 points and the
+    served scene's 30 000, each way round."""
+    src = pfit.cloud().points_padded().detach().contiguous()
+    tgt = pfit.target.points_padded().contiguous()
+    return src, tgt
+
+
+def knn_cut(p1, p2, k):
+    """(S, L) the wrapper plans for these clouds on this card."""
+    from pytorch3d_tpu_torch.ops import knn
+
+    return knn.kernel_ranges(p1.shape[0], p1.shape[1], p2.shape[1], k, p1.device)
+
+
+def range_tie_clouds(device):
+    """A database whose points repeat across range boundaries: point i + L
+    is point i (L the planned range length), and half the queries sit on
+    database points, so each of those has two points at distance 0 in
+    neighbouring ranges and the lower id must win."""
+    import torch
+
+    from pytorch3d_tpu_torch.ops import knn
+
+    N, P1, P2 = 1, 4096, 20_000
+    S, L = knn.kernel_ranges(N, P1, P2, 4, device)
+    gen = torch.Generator(device=device).manual_seed(2)
+    p2 = torch.rand((N, P2, 3), generator=gen, device=device)
+    p2[:, L:] = p2[:, : P2 - L].clone()
+    p2 = p2.contiguous()
+    p1 = torch.rand((N, P1, 3), generator=gen, device=device)
+    pick = torch.randint(0, P2, (P1 // 2,), generator=gen, device=device)
+    p1[:, : P1 // 2] = p2[:, pick]
+    return p1.contiguous(), p2, S
+
+
+def phase_knn_kernel(device, pfit):
+    """The KNN kernel against its plain version at the chamfer fit's clouds,
+    the points fit's clouds (30 000 x 30 000), 16384 x 16384 at K=16 with and
+    without lengths2, ties across range boundaries, a database shorter than
+    one range with K = P2, and D = 8 at norm 1."""
     import torch
 
     src, tgt = chamfer_clouds(device)
+    psrc, ptgt = points_fit_clouds(pfit)
     gen = torch.Generator(device=device).manual_seed(1)
     big1 = torch.rand((2, 16384, 3), generator=gen, device=device)
     big2 = torch.rand((2, 16384, 3), generator=gen, device=device)
+    tie1, tie2, tie_ranges = range_tie_clouds(device)
+    check(tie_ranges > 1, f"the tie case cuts its database into {tie_ranges} range(s), not several")
+    wide1 = torch.rand((1, 5000, 8), generator=gen, device=device)
+    wide2 = torch.rand((1, 20_000, 8), generator=gen, device=device)
     cases = [
-        ("chamfer 5000x5000", src, tgt, None, 1),
-        ("chamfer 5000x5000 reverse", tgt, src, None, 1),
-        ("16384x16384 K=16", big1[:1].contiguous(), big2[:1].contiguous(), None, 16),
+        # label, p1, p2, lengths2, K, norm
+        ("chamfer 5000x5000", src, tgt, None, 1, 2),
+        ("chamfer 5000x5000 reverse", tgt, src, None, 1, 2),
+        ("points-fit 30000x30000", psrc, ptgt, None, 1, 2),
+        ("points-fit 30000x30000 reverse", ptgt, psrc, None, 1, 2),
+        ("16384x16384 K=16", big1[:1].contiguous(), big2[:1].contiguous(), None, 16, 2),
         ("16384x16384 K=16 lengths2 [16384, 9000]", big1, big2,
-         torch.tensor([16384, 9000], device=device), 16),
+         torch.tensor([16384, 9000], device=device), 16, 2),
+        ("ties across ranges K=1", tie1, tie2, None, 1, 2),
+        ("ties across ranges K=4", tie1, tie2, None, 4, 2),
+        ("P2=12 shorter than a range, K=P2", src, tgt[:, :12].contiguous(), None, 12, 2),
+        ("D=8 norm 1 5000x20000 K=8", wide1, wide2, None, 8, 1),
     ]
     worst, failed = 0.0, []
-    for label, p1, p2, l2, k in cases:
-        frac, err, rel, both_empty = compare_knn(p1, p2, l2, k)
+    for label, p1, p2, l2, k, norm in cases:
+        frac, err, rel, both_empty = compare_knn(p1, p2, l2, k, norm)
         ok = frac >= KNN_IDS_GATE and rel <= KNN_DISTS_RTOL and both_empty
         worst = max(worst, err)
-        log(f"kernel knn vs plain [{label}] N={p1.shape[0]} K={k}: queries with equal ids {frac:.6f},"
+        S, L = knn_cut(p1, p2, k)
+        log(f"kernel knn vs plain [{label}] N={p1.shape[0]} K={k} norm={norm}: {S} range(s) of {L} points"
+            f" ({1 if S == 1 else 2} launches a call); queries with equal ids {frac:.6f},"
             f" max|diff| dists {err:.3e} (relative {rel:.3e}) -> {'ok' if ok else 'FAIL'}")
         if not ok:
             failed.append(label)
     check(not failed, f"KNN kernel disagrees with its plain version: {failed}")
     return worst
+
+
+def knn_device_ms(p1, p2, k):
+    """{stage: device time per call} of one knn_points_cuda call (profiler):
+    stage 1 and, where the database is cut into several ranges, the merge."""
+    from pytorch3d_tpu_torch.ops import knn
+
+    S, _ = knn_cut(p1, p2, k)
+    names = ("knn_ranges_kernel",) + (("knn_merge_kernel",) if S > 1 else ())
+    return device_ms_by_kernel(lambda: knn.knn_points_cuda(p1, p2, None, k), names)
+
+
+def knn_times(device, pfit):
+    """#9 at its paths' shapes (the chamfer fit's 5000 x 5000, the points
+    fit's 30 000 x 30 000, and 16384 x 16384 at K=16): device time split into
+    stage 1 and merge, CUDA events over back-to-back calls, the plain
+    version, the library yardstick and the bound."""
+    import torch
+
+    from pytorch3d_tpu_torch.ops import knn
+
+    src, tgt = chamfer_clouds(device)
+    psrc, ptgt = points_fit_clouds(pfit)
+    gen = torch.Generator(device=device).manual_seed(1)
+    big1 = torch.rand((1, 16384, 3), generator=gen, device=device)
+    big2 = torch.rand((1, 16384, 3), generator=gen, device=device)
+    knns = {}
+    for label, p1, p2, k in (("chamfer 5000x5000 K=1", src, tgt, 1), ("points-fit 30000x30000 K=1", psrc, ptgt, 1),
+                             ("16384x16384 K=16", big1, big2, 16)):
+        stages = knn_device_ms(p1, p2, k)
+        kernel = sum(stages.values())
+        events = cuda_ms(lambda: knn.knn_points_cuda(p1, p2, None, k), iters=50, warmup=5)
+        plain = cuda_ms(lambda: knn.knn_points_plain(p1, p2, None, k), iters=3, warmup=1)
+        # The yardstick is two library calls, cdist then topk; the port calls neither.
+        library = cuda_ms(lambda: torch.topk(torch.cdist(p1, p2), k, dim=-1, largest=False), iters=20, warmup=3)
+        bound, bound_by, pairs = knn_bound(p1, p2, k)
+        S, L = knn_cut(p1, p2, k)
+        merge = stages.get("knn_merge_kernel", 0.0)
+        knns[label] = dict(kernel=kernel, plain=plain, library=library, bound=bound, bound_by=bound_by)
+        log(f"times [knn, {label}] kernel {kernel:.4f} ms (device time, profiler: {len(stages)} launches a call,"
+            f" {S} range(s) of {L} points; stage 1 {stages['knn_ranges_kernel']:.4f} ms, merge {merge:.4f} ms ="
+            f" {merge / kernel:.3f} of it; CUDA events over back-to-back wrapper calls {events:.4f} ms),"
+            f" plain version {plain:.3f} ms, library yardstick (torch.cdist + torch.topk, two calls)"
+            f" {library:.4f} ms; bound {bound:.5f} ms by {bound_by} ({pairs / 1e6:.1f} M pairs)")
+    return knns
 
 
 def phase_serving(device):
@@ -1227,12 +1460,11 @@ def phase_chamfer_fit(device):
     return counts
 
 
-def phase_times(device, meshes, renderers, fit):
+def phase_times(device, meshes, renderers, fit, pfit):
     """Each kernel's time, its plain version's time and its bound at the
     shape of its path; the serving frame; profiles."""
     import torch
 
-    from pytorch3d_tpu_torch.ops import knn
     from pytorch3d_tpu_torch.renderer.mesh import rasterize_cuda as rc
     from pytorch3d_tpu_torch.renderer.mesh.rasterize_meshes import _face_culls, rasterize_grad_plain
     from pytorch3d_tpu_torch.utils import ico_sphere
@@ -1261,49 +1493,26 @@ def phase_times(device, meshes, renderers, fit):
             f" {len(bins[0])} tile-face pairs)")
 
     # The backward kernel on the render-fit step's own ids and cotangents,
-    # and on the headline loss's.
-    mesh = fit.mesh().extend(FIT_VIEWS)
-    soft, cams = fit.soft_renderer(FIT_VIEWS)
-    fragments = soft.rasterizer(mesh, cameras=cams)
-    loss = fit.loss(soft.shader(fragments, mesh, cameras=cams), fit.mesh(), FIT_VIEWS)
-    cots = torch.autograd.grad(loss, [fragments.zbuf, fragments.bary_coords, fragments.dists])
-    fv_fit, _ = face_inputs(mesh, cams, size)
-    F = fv_fit.shape[1]
-    offsets = (torch.arange(FIT_VIEWS, device=device) * F)[:, None, None, None]
-    idx_fit = torch.where(fragments.pix_to_face >= 0, fragments.pix_to_face - offsets, -1).int().contiguous()
-    cots = tuple(c.contiguous() for c in cots)
+    # and on the headline loss's, on the forward's binning.
     grads = {}
-    fv_h, valid_h = face_inputs(ico_sphere(4, device=device), camera(30.0, device), size)
-    idx_h, zbuf_h, _, dists_h = rc.rasterize_fragments_cuda(fv_h, valid_h, size, BLUR, K)
-    for label, fv, idx, c, persp, clip in (
-        (f"render-fit step: N={FIT_VIEWS} F={F} {IMAGE}^2 K={FIT_K}", fv_fit, idx_fit, cots, True, True),
-        (f"headline: N=1 F={fv_h.shape[1]} {IMAGE}^2 K={K}", fv_h, idx_h, headline_cotangents(zbuf_h, dists_h), False, False),
-    ):
-        kernel = cuda_ms(lambda: rc.rasterize_grad_cuda(fv, idx, *c, size, persp, clip), iters=20, warmup=3)
+    for label, fv, idx, c, persp, clip, bins in grad_path_inputs(device, fit):
+        stages = device_ms_by_kernel(lambda: rc.rasterize_grad_cuda(fv, idx, *c, size, bins, persp, clip), GRAD_KERNELS)
+        kernel = sum(stages.values())
+        events = cuda_ms(lambda: rc.rasterize_grad_cuda(fv, idx, *c, size, bins, persp, clip), iters=20, warmup=3)
         plain = cuda_ms(lambda: rasterize_grad_plain(fv, idx, *c, size, persp, clip), iters=2, warmup=1)
         bound, bound_by, filled, nbytes = grad_bound(fv, idx, c, persp, clip)
         grads[label] = dict(kernel=kernel, plain=plain, bound=bound, bound_by=bound_by)
-        log(f"times [rasterize_grad, {label}] kernel {kernel:.4f} ms, plain version {plain:.2f} ms;"
+        tiles_ms, faces_ms = (stages[k] for k in GRAD_KERNELS)
+        log(f"times [rasterize_grad, {label}] kernel {kernel:.4f} ms (device time, profiler: 2 launches a call,"
+            f" {len(bins[0])} tile-face pairs; pass 1 {tiles_ms:.4f} ms, pass 2 {faces_ms:.4f} ms ="
+            f" {faces_ms / kernel:.3f} of it; CUDA events over back-to-back wrapper calls, the pair CSR's"
+            f" torch ops and the error flag's host sync included, {events:.4f} ms), plain version {plain:.2f} ms;"
             f" bound {bound:.4f} ms by {bound_by} (bytes {nbytes / 1e6:.1f} MB ="
             f" {nbytes / PEAK_BYTES_PER_S * 1e3:.4f} ms, {filled / 1e6:.3f} M filled slots ="
             f" {filled * grad_ops_per_slot(persp, clip) / PEAK_FP32_OPS_PER_S * 1e3:.4f} ms)")
     torch.cuda.empty_cache()
 
-    src, tgt = chamfer_clouds(device)
-    gen = torch.Generator(device=device).manual_seed(1)
-    big1 = torch.rand((1, 16384, 3), generator=gen, device=device)
-    big2 = torch.rand((1, 16384, 3), generator=gen, device=device)
-    knns = {}
-    for label, p1, p2, k in (("chamfer 5000x5000 K=1", src, tgt, 1), ("16384x16384 K=16", big1, big2, 16)):
-        kernel = cuda_ms(lambda: knn.knn_points_cuda(p1, p2, None, k), iters=50, warmup=5)
-        plain = cuda_ms(lambda: knn.knn_points_plain(p1, p2, None, k), iters=3, warmup=1)
-        # The yardstick is two library calls, cdist then topk; the port calls neither.
-        library = cuda_ms(lambda: torch.topk(torch.cdist(p1, p2), k, dim=-1, largest=False), iters=20, warmup=3)
-        bound, bound_by, pairs = knn_bound(p1, p2, k)
-        knns[label] = dict(kernel=kernel, plain=plain, library=library, bound=bound, bound_by=bound_by)
-        log(f"times [knn, {label}] kernel {kernel:.4f} ms, plain version {plain:.3f} ms,"
-            f" library yardstick (torch.cdist + torch.topk, two calls) {library:.4f} ms;"
-            f" bound {bound:.5f} ms by {bound_by} ({pairs / 1e6:.1f} M pairs)")
+    knns = knn_times(device, pfit)
 
     with torch.no_grad():
         frame_ms = []
@@ -1328,7 +1537,7 @@ def phase_times(device, meshes, renderers, fit):
             fit.optimizer.step()
 
     profile("render-fit step", fit_steps, 3)
-    return out["main path batch"], grads[f"render-fit step: N={FIT_VIEWS} F={F} {IMAGE}^2 K={FIT_K}"], knns["chamfer 5000x5000 K=1"]
+    return out["main path batch"], next(iter(grads.values())), knns["chamfer 5000x5000 K=1"]
 
 
 def profile(label, fn, units):
@@ -3224,7 +3433,7 @@ def main() -> int:
         errors = {
             "rasterize_fine": phase_fine_kernel(device),
             "rasterize_grad": phase_grad_kernel(device),
-            "knn": phase_knn_kernel(device),
+            "knn": phase_knn_kernel(device, pfit),
             "rasterize_points": phase_points_kernel(device),
             "rasterize_points_grad": phase_points_grad_kernel(device, pfit),
             **phase_fused_kernels(device, nerf),
@@ -3273,7 +3482,7 @@ def main() -> int:
             check(launches[kernel] > 0, f"{kernel} was launched no time on the paths")
         log(f"launches by path: {paths}; summed {launches}")
         phase = "times"
-        fine, grad, knn_t = phase_times(device, meshes, renderers, fit)
+        fine, grad, knn_t = phase_times(device, meshes, renderers, fit, pfit)
         points_t, points_grad_t = phase_points_times(device, clouds, points_render, pfit)
         nerf_t = phase_nerf_times(device, nerf)
         slice5 = phase_slice5_times(device, serving5, fit5, topk_plain_ms, hard_plain_ms, {

@@ -8,25 +8,43 @@
 // :1283).  It computes the same function as the plain PyTorch version
 // `rasterize_grad_plain` (pytorch3d_tpu_torch/renderer/mesh/
 // rasterize_meshes.py): autograd's reverse of `_fragments_from_gathered`
-// at every filled slot, summed per face.  Empty slots (id < 0) add nothing.
+// at every filled slot, summed per face.  Empty slots (id < 0) add nothing,
+// nor does a slot whose cotangents are all zero.
 //
-// Design.  The TPU kernel walks each tile's whole face list, masks the K
-// slots of every pixel against each face, differentiates over the tile and
-// reduces per tile slot, then a segment_sum gathers the slots per face: a
-// sequential grid with no scatter.  On Hopper blocks run unordered and
-// fp32 atomics in L2 are cheap, so here one thread takes one (pixel, slot)
-// of the whole batch: it reads the slot's id and cotangents, loads the
-// face's 9 floats (L1/L2 hits: neighbouring pixels share faces),
-// recomputes the plain path's forward fragment math for that face at that
-// pixel, runs its reverse by hand and adds the 9 partials into an fp32
-// (N*F, 9) buffer that the wrapper zeroes.  A warp holds 32 neighbouring
-// pixels at one slot depth, which mostly hold the same few faces: the
-// lanes sum their partials per face with shuffles and one lane per face
-// issues the atomics, so atomics scale with (warp, face) pairs rather than
-// with slots.  Work is in proportion to the filled slots, not to the
-// (pixel, face) candidates the forward tests, and the backward needs no
-// bins.  A null cotangent pointer stands for zeros (an output the loss
-// does not use), and a slot whose cotangents are all zero adds nothing.
+// Design: per-tile face sums, then a fixed-order sum per face; no atomics,
+// so two runs give the same bits.  The TPU kernel reduces per tile slot
+// over a sequential grid and then takes a segment_sum; here the forward's
+// binning (16x16 pixel tiles, each with the exact list of the faces that
+// may cover it, ascending id: `bin_faces`) gives every (tile, face) pair a
+// row of a (pairs, 9) table.
+//
+// Pass 1 (`rasterize_grad_tiles_kernel`): one block of 256 threads per
+// tile, warp w on the tile's rows 2w and 2w + 1, one lane per pixel.  A
+// warp reads its pixels' ids 4 slot depths at a time, and the lanes whose
+// slot is filled append (lane, depth) to the warp's ring of slots in
+// shared memory, so that the ~60 % of empty slots cost no lane of
+// `slot_grad`.  Every 32 queued slots, one per lane, read their
+// cotangents (a slot whose cotangents are all zero adds nothing), find
+// their face's position in the tile's list (a binary search in shared
+// memory) and are differentiated by `slot_grad` (the plain version's
+// reverse, op for op).  The warp then sorts its lanes by (list position,
+// lane) with a bitonic network of shuffles and sums each run of one
+// position with a segmented scan: a fixed cost whatever the faces, where
+// summing face by face costs 45 shuffles per distinct face, and a batch
+// of mixed depths holds many.  The run's last lane adds the sum to the
+// warp's own accumulator row of that position.  After the walk the block
+// adds the 8 warps' rows in warp order and writes the tile's rows of the
+// table.  A list longer than 128 faces is summed 128 positions a pass,
+// each pass taking the slots whose face id falls in its part of the list
+// (the textured-mesh fit's longest list is 142; chip_smoke.py drives
+// lists of up to 3846 faces, 31 passes, and grad_study.py --conditioning
+// finds the sums the same, to rounding, with lists cut at other faces).
+// A slot whose face is not in its tile's list (or an id >= F) sets the
+// error flag, on which the wrapper raises.
+//
+// Pass 2 (`rasterize_grad_faces_kernel`): one thread per (face, component)
+// adds the face's rows in ascending tile order, through the face-major CSR
+// of the rows the wrapper builds (a stable sort of the pairs by face).
 //
 // The reverse mirrors autograd's on the plain version operation by
 // operation: division by (area + eps) rather than a reciprocal; the
@@ -39,23 +57,36 @@
 // between its two arguments, in the plain version's order
 // min(min(e01, e02), e12).
 //
-// What bounds it on an H100 (data sheet: 3.35 TB/s, 67 TFLOP/s fp32). Every
-// slot's id is read once (4 bytes), the cotangents only at the filled slots
-// (20 bytes a slot when all three are given; empty slots add nothing), and
-// each filled slot costs ~320 fp32 operations (forward recompute and
-// reverse, counted in chip_smoke.py's grad_ops_per_slot) at the 33.5 T
-// operations/s that --fmad=false leaves. At the textured-mesh fit's 8 views
-// of 512^2 with K=16, where 40 % of the slots are filled, the operations
-// bind (~0.13 ms, against ~0.12 ms for ~400 MB); chip_smoke.py computes both
-// per run. This kernel still reads the cotangents of empty slots too.
+// What bounds it on an H100 (data sheet: 3.35 TB/s, 67 TFLOP/s fp32, half
+// of that without FMA contraction).  Every slot's id is read once (4
+// bytes), the cotangents of the filled slots (20 bytes a slot when all
+// three are given), and each filled slot costs ~322 fp32 operations
+// (forward recompute and reverse, counted in chip_smoke.py's
+// grad_ops_per_slot).  At the textured-mesh fit's 8 views of 512^2 with
+// K=16, where ~40 % of the slots are filled, the operations bind: 0.13 ms,
+// against 0.12 ms for the bytes.  Measured (chip_smoke.py and
+// grad_study.py --breakdown, NVIDIA H100 80GB HBM3 at 700 W): 1.3-1.4 ms
+// there (pass 2 under 1 %), 0.06 ms at the headline's ico4 at K=8.  Of
+// pass 1, `slot_grad` takes ~65 % (its IEEE divisions are multi-
+// instruction sequences, kept so that the reverse is the plain version's
+// op for op), the walk, queue and batch loads ~30 %, the sort and scan
+// ~14 % (the parts overlap).
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 
 namespace {
 
 constexpr float kEpsilon = 1e-8f;
-constexpr int kThreads = 256;
+constexpr int kTileH = 16;
+constexpr int kTileW = 16;
+constexpr int kThreads = kTileH * kTileW;
+constexpr int kWarps = kThreads / 32;
+constexpr int kListChunk = 128;  // tile-list positions whose sums one pass holds
+constexpr int kQueue = 256;      // a warp's ring of queued slots (31 + 4 x 32 at most)
+constexpr int kDepths = 4;       // slot depths whose ids a warp loads at once
+constexpr unsigned kFull = 0xffffffffu;
 
 struct Seg {
   float vx, vy, qx, qy, num, L, traw, t, dx, dy;
@@ -301,91 +332,237 @@ __device__ __forceinline__ void slot_grad(const float* __restrict__ v, float px,
   out[8] = gz2;
 }
 
-// One thread per (pixel, slot).  A warp holds 32 consecutive pixels at
-// one slot depth k (the block's warps take the K depths of those pixels,
-// so together they read contiguous ids and cotangents), and neighbouring
-// pixels at one depth mostly hold the same face: the lanes sum their
-// partials per face with shuffles and one lane per face adds them to the
-// gradient with 9 atomics.
-__global__ void __launch_bounds__(kThreads)
-rasterize_grad_kernel(const float* __restrict__ face_verts,  // (N*F, 9)
-                      const int* __restrict__ idx,           // (N, H, W, K) local ids
-                      const float* __restrict__ gz,          // (N, H, W, K) or null
-                      const float* __restrict__ gbary,       // (N, H, W, K, 3) or null
-                      const float* __restrict__ gdists,      // (N, H, W, K) or null
-                      const float* __restrict__ xs,          // (W,) NDC x of columns
-                      const float* __restrict__ ys,          // (H,) NDC y of rows
-                      int F, int H, int W, int K, long long pixels,
-                      bool perspective_correct, bool clip_barycentric_coords,
-                      float* __restrict__ grad)  // (N*F, 9), zeroed
-{
-  constexpr unsigned kFull = 0xffffffffu;
-  const long long t = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  const int lane = threadIdx.x & 31;
-  const long long warp = t >> 5;
-  const int k = static_cast<int>(warp % K);
-  const long long pix = (warp / K) * 32 + lane;
-
-  // Every lane stays to the end: the shuffles below need the whole warp.
-  long long key = -1;  // global face id n*F + f of a slot with a cotangent
-  float g[9] = {};
-  if (pix < pixels) {
-    const long long o = pix * K + k;
-    const int f = idx[o];
-    const float g_z = gz != nullptr ? gz[o] : 0.0f;
-    const float gb0 = gbary != nullptr ? gbary[3 * o + 0] : 0.0f;
-    const float gb1 = gbary != nullptr ? gbary[3 * o + 1] : 0.0f;
-    const float gb2 = gbary != nullptr ? gbary[3 * o + 2] : 0.0f;
-    const float gd = gdists != nullptr ? gdists[o] : 0.0f;
-    if (f >= 0 && (g_z != 0.0f || gb0 != 0.0f || gb1 != 0.0f || gb2 != 0.0f || gd != 0.0f)) {
-      const long long hw = static_cast<long long>(H) * W;
-      const int n = static_cast<int>(pix / hw);
-      const int rem = static_cast<int>(pix - n * hw);
-      const int row = rem / W;
-      const int col = rem - row * W;
-      key = static_cast<long long>(n) * F + f;
-      slot_grad(face_verts + key * 9, xs[col], ys[row], g_z, gb0, gb1, gb2, gd,
-                perspective_correct, clip_barycentric_coords, g);
-    }
+// The position of `face` in the ascending list[0, m), or -1.
+__device__ __forceinline__ int find(const int* list, int m, int face) {
+  int lo = 0, hi = m;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (list[mid] < face) lo = mid + 1;
+    else hi = mid;
   }
+  return lo < m && list[lo] == face ? lo : -1;
+}
 
-  unsigned todo = __ballot_sync(kFull, key >= 0);
-  while (todo != 0) {  // warp-uniform: one face per pass
-    const int leader = __ffs(todo) - 1;
-    const long long face = __shfl_sync(kFull, key, leader);
-    const bool mine = key == face;
-    todo &= ~__ballot_sync(kFull, mine);
+struct Cots {
+  float z, b0, b1, b2, d;
+  __device__ bool any() const { return z != 0.0f || b0 != 0.0f || b1 != 0.0f || b2 != 0.0f || d != 0.0f; }
+};
+
+__device__ __forceinline__ Cots load_cots(const float* gz, const float* gbary, const float* gdists,
+                                          long long o) {
+  Cots c;
+  c.z = gz != nullptr ? gz[o] : 0.0f;
+  c.b0 = gbary != nullptr ? gbary[3 * o + 0] : 0.0f;
+  c.b1 = gbary != nullptr ? gbary[3 * o + 1] : 0.0f;
+  c.b2 = gbary != nullptr ? gbary[3 * o + 2] : 0.0f;
+  c.d = gdists != nullptr ? gdists[o] : 0.0f;
+  return c;
+}
+
+// Three blocks an SM: 85 registers, a few spilled, ~13 % faster than two at
+// the textured-mesh fit's shape (and ~7 % slower at the headline's).
+__global__ void __launch_bounds__(kThreads, 3)
+rasterize_grad_tiles_kernel(const float* __restrict__ face_verts,  // (N*F, 9)
+                            const int* __restrict__ tile_faces,    // (pairs,) local ids
+                            const int* __restrict__ tile_start,    // (N*n_ty*n_tx + 1,)
+                            const int* __restrict__ idx,           // (N, H, W, K) local ids
+                            const float* __restrict__ gz,          // (N, H, W, K) or null
+                            const float* __restrict__ gbary,       // (N, H, W, K, 3) or null
+                            const float* __restrict__ gdists,      // (N, H, W, K) or null
+                            const float* __restrict__ xs,          // (W,) NDC x of columns
+                            const float* __restrict__ ys,          // (H,) NDC y of rows
+                            int F, int H, int W, int K, int n_ty, int n_tx,
+                            bool perspective_correct, bool clip_barycentric_coords,
+                            float* __restrict__ gpair,  // (pairs, 9)
+                            int* __restrict__ error)    // set to 1 on a face missing from its list
+{
+  __shared__ int s_face[kListChunk];
+  __shared__ float s_acc[kWarps][kListChunk * 9];
+  __shared__ int s_queue[kWarps][kQueue];  // lane | depth << 5
+
+  const int tile = blockIdx.x;
+  const int n = tile / (n_ty * n_tx);
+  const int ty = (tile - n * n_ty * n_tx) / n_tx;
+  const int tx = tile - n * n_ty * n_tx - ty * n_tx;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const int row0 = ty * kTileH + 2 * warp;  // the warp's first row
+  const int col0 = tx * kTileW;
+  const bool live = row0 + (lane >> 4) < H && col0 + (lane & 15) < W;
+  const float* verts = face_verts + static_cast<long long>(n) * F * 9;
+  float* acc = s_acc[warp];
+  int* queue = s_queue[warp];
+  const int begin = tile_start[tile];
+  const int end = tile_start[tile + 1];
+
+  // The offset of lane l's slot at depth k into the (N, H, W, K) arrays.
+  auto slot = [&](int l, int k) -> long long {
+    return ((static_cast<long long>(n) * H + row0 + (l >> 4)) * W + col0 + (l & 15)) * K + k;
+  };
+
+  // Differentiate 32 queued slots from ring position `head` (the first
+  // `count` of them live), one per lane, and add their partials per face
+  // to the warp's rows of the list chunk s_face[0, m): the lanes are
+  // sorted by (list position, lane), then a segmented scan sums each run
+  // of one position, and the run's last lane adds it to the row.  Fixed
+  // shuffles whatever the faces, and a fixed order: two runs agree bit
+  // for bit.
+  auto sum_queued = [&](int head, int count, int m) {
+    int pos = -1;  // the slot's list position; -1: no work
+    float g[9] = {};
+    if (lane < count) {
+      const int e = queue[(head + lane) & (kQueue - 1)];
+      const int l = e & 31;
+      const long long o = slot(l, e >> 5);
+      const int f = idx[o];
+      const Cots c = load_cots(gz, gbary, gdists, o);
+      if (c.any()) {
+        pos = find(s_face, m, f);
+        if (pos < 0) {
+          *error = 1;
+        } else {
+          slot_grad(verts + static_cast<long long>(f) * 9, xs[col0 + (l & 15)], ys[row0 + (l >> 4)],
+                    c.z, c.b0, c.b1, c.b2, c.d, perspective_correct, clip_barycentric_coords, g);
+        }
+      }
+    }
+    // Bitonic sort of the keys (pos, lane) across the warp, ascending;
+    // lanes without work last.
+    int key = pos >= 0 ? (pos << 5) | lane : INT_MAX;
+#pragma unroll
+    for (int k = 2; k <= 32; k <<= 1) {
+#pragma unroll
+      for (int j = k >> 1; j > 0; j >>= 1) {
+        const int other = __shfl_xor_sync(kFull, key, j);
+        key = (((lane & j) == 0) == ((lane & k) == 0)) ? min(key, other) : max(key, other);
+      }
+    }
+    const int mine = key == INT_MAX ? -1 : key >> 5;
+    const int src = key & 31;
+    float v[9];
 #pragma unroll
     for (int c = 0; c < 9; ++c) {
-      float sum = mine ? g[c] : 0.0f;
-#pragma unroll
-      for (int offset = 16; offset > 0; offset >>= 1) sum += __shfl_xor_sync(kFull, sum, offset);
-      if (lane == leader) atomicAdd(grad + face * 9 + c, sum);
+      v[c] = __shfl_sync(kFull, g[c], src);
+      if (mine < 0) v[c] = 0.0f;
     }
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int up_pos = __shfl_up_sync(kFull, mine, d);  // every lane takes part
+      const bool join = lane >= d && up_pos == mine;
+#pragma unroll
+      for (int c = 0; c < 9; ++c) {
+        const float up = __shfl_up_sync(kFull, v[c], d);
+        if (join) v[c] += up;
+      }
+    }
+    const int next = __shfl_down_sync(kFull, mine, 1);
+    if (mine >= 0 && (lane == 31 || next != mine)) {
+#pragma unroll
+      for (int c = 0; c < 9; ++c) acc[mine * 9 + c] += v[c];
+    }
+    __syncwarp();
+  };
+
+  // One pass per chunk of up to kListChunk list positions (one pass for an
+  // empty list, whose slots can only be errors).  Pass c takes the slots
+  // whose face id lies in [its first id, the next chunk's first id), so
+  // every slot with work is taken by exactly one pass.
+  for (int c0 = begin;; c0 += kListChunk) {
+    const int m = max(0, min(kListChunk, end - c0));
+    __syncthreads();  // the previous pass's rows are written
+    for (int j = threadIdx.x; j < m; j += kThreads) s_face[j] = tile_faces[c0 + j];
+    for (int e = lane; e < m * 9; e += 32) acc[e] = 0.0f;
+    __syncthreads();
+    const int lo_face = c0 == begin ? INT_MIN : s_face[0];
+    const int hi_face = c0 + m < end ? tile_faces[c0 + m] : INT_MAX;  // exclusive
+    int head = 0, queued = 0;
+    for (int k0 = 0; k0 < K; k0 += kDepths) {
+      int f[kDepths];
+#pragma unroll
+      for (int u = 0; u < kDepths; ++u) f[u] = live && k0 + u < K ? idx[slot(lane, k0 + u)] : -1;
+#pragma unroll
+      for (int u = 0; u < kDepths; ++u) {
+        if (f[u] >= F) *error = 1;  // no such face
+        const bool take = f[u] >= 0 && f[u] < F && f[u] >= lo_face && f[u] < hi_face;
+        const unsigned took = __ballot_sync(kFull, take);
+        if (take) queue[(head + queued + __popc(took & below)) & (kQueue - 1)] = lane | (k0 + u) << 5;
+        queued += __popc(took);
+      }
+      __syncwarp();
+      while (queued >= 32) {
+        sum_queued(head, 32, m);
+        head += 32;
+        queued -= 32;
+      }
+    }
+    if (queued > 0) sum_queued(head, queued, m);
+    __syncthreads();
+    // The tile's rows: the warps' sums in warp order.
+    for (int e = threadIdx.x; e < m * 9; e += kThreads) {
+      float sum = 0.0f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) sum += s_acc[w][e];
+      gpair[static_cast<long long>(c0) * 9 + e] = sum;
+    }
+    if (c0 + kListChunk >= end) break;
   }
+}
+
+// One thread per (face, component): the face's rows in ascending tile order.
+__global__ void __launch_bounds__(kThreads)
+rasterize_grad_faces_kernel(const float* __restrict__ gpair,      // (pairs, 9)
+                            const int* __restrict__ pair_rows,    // (pairs,) face-major
+                            const int* __restrict__ face_start,   // (N*F + 1,)
+                            long long faces,
+                            float* __restrict__ grad)             // (N*F, 9)
+{
+  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= faces * 9) return;
+  const long long face = i / 9;
+  const int c = static_cast<int>(i - face * 9);
+  float sum = 0.0f;
+  for (int q = face_start[face]; q < face_start[face + 1]; ++q) {
+    sum += gpair[static_cast<long long>(pair_rows[q]) * 9 + c];
+  }
+  grad[i] = sum;
 }
 
 }  // namespace
 
-// Adds the gradient into `grad` (N*F*9 floats, zeroed by the caller).
-// Returns cudaGetLastError() after the launch (0 on success), or
+// The pixel tile (rows, cols) of one block of pass 1, which the binning
+// must use.
+extern "C" void rasterize_grad_tile(int* rows, int* cols) {
+  *rows = kTileH;
+  *cols = kTileW;
+}
+
+// Both passes on `stream`: writes every entry of `grad` (N*F*9 floats) and
+// sets *error (zeroed by the caller) where a slot's face is missing from its
+// tile's list.  gpair is the wrapper's (max(pairs, 1), 9) scratch.  Returns
+// cudaGetLastError() after the launches (0 on success), or
 // cudaErrorInvalidValue for a shape this build does not take.
-extern "C" int rasterize_grad(const float* face_verts, const int* idx, const float* gz,
-                              const float* gbary, const float* gdists, const float* xs,
-                              const float* ys, int N, int F, int H, int W, int K,
-                              int perspective_correct, int clip_barycentric_coords,
-                              float* grad, void* stream) {
-  if (N < 1 || F < 1 || H < 1 || W < 1 || K < 1) {
+extern "C" int rasterize_grad(const float* face_verts, const int* tile_faces, const int* tile_start,
+                              const int* pair_rows, const int* face_start, const int* idx,
+                              const float* gz, const float* gbary, const float* gdists,
+                              const float* xs, const float* ys, int N, int F, int H, int W, int K,
+                              int n_ty, int n_tx, int perspective_correct,
+                              int clip_barycentric_coords, float* gpair, int* error, float* grad,
+                              void* stream) {
+  const long long n_tiles = static_cast<long long>(N) * n_ty * n_tx;
+  if (N < 1 || F < 1 || H < 1 || W < 1 || K < 1 ||
+      n_ty != (H + kTileH - 1) / kTileH || n_tx != (W + kTileW - 1) / kTileW ||
+      n_tiles > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // 32 pixels x K depths per group of K warps.
-  const long long pixels = static_cast<long long>(N) * H * W;
-  const long long threads = (pixels + 31) / 32 * 32 * K;
-  const long long blocks = (threads + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  rasterize_grad_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      face_verts, idx, gz, gbary, gdists, xs, ys, F, H, W, K, pixels,
-      perspective_correct != 0, clip_barycentric_coords != 0, grad);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  rasterize_grad_tiles_kernel<<<static_cast<unsigned>(n_tiles), kThreads, 0, s>>>(
+      face_verts, tile_faces, tile_start, idx, gz, gbary, gdists, xs, ys, F, H, W, K, n_ty, n_tx,
+      perspective_correct != 0, clip_barycentric_coords != 0, gpair, error);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long faces = static_cast<long long>(N) * F;
+  rasterize_grad_faces_kernel<<<static_cast<unsigned>((faces * 9 + kThreads - 1) / kThreads), kThreads,
+                                0, s>>>(gpair, pair_rows, face_start, faces, grad);
   return static_cast<int>(cudaGetLastError());
 }

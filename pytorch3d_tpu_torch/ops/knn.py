@@ -8,7 +8,9 @@ header says what bounds it on an H100; on CPU tensors it runs
 `knn_points_plain`, the plain PyTorch version of the same function, which
 the kernel is held against on the card.  Both sum distances directly over
 the coordinates, sum((q - p)^2), as the Pallas kernel does, and break ties
-to the lower database index.
+to the lower database index.  The kernel cuts the database into the
+ranges `knn_ranges` plans, walks each range in its own blocks and merges
+the ranges' lists in range order, a tie to the earlier range.
 
 `knn_points` dispatches as the JAX package does (knn.py:96-101): through
 `knn_points_cuda` wherever the kernel takes the shape (D <= 8, K <= 16),
@@ -20,7 +22,8 @@ plain torch: the JAX package has no backward kernel for KNN.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -29,6 +32,12 @@ from .. import _build
 MAX_D = 8  # largest point dimension the kernel takes
 MAX_K = 16  # largest K the kernel takes
 _PLAIN_CHUNK_PAIRS = 1 << 24  # (query, point) pairs the plain version holds at once
+MIN_RANGE = 128  # database points a range holds at least: two staged chunks
+# Blocks the planner aims for per SM, by K bucket.  Each range restarts its
+# K-deep list, and a warp runs the insertion whenever one lane's candidate
+# enters, which happens ~32 K / j times a point j points into a range: deep
+# lists want few long ranges, K = 1 as many blocks as fill the card.
+WAVES = {1: 16, 2: 16, 4: 4, 8: 2, 16: 2}
 
 
 class _KNN(NamedTuple):
@@ -76,13 +85,47 @@ def knn_points_plain(
     return torch.cat(dists, dim=1), torch.cat(idx, dim=1)
 
 
+def k_bucket(K: int) -> int:
+    """The kernel's template bucket for K (1, 2, 4, 8 or 16)."""
+    return next(b for b in (1, 2, 4, 8, 16) if K <= b)
+
+
+def knn_ranges(N: int, P1: int, P2: int, K: int, per_block: int, sms: int) -> Tuple[int, int]:
+    """(S, L): the database [0, P2) cut into S contiguous ranges, range s
+    [s * L, min((s + 1) * L, P2)) (the last one shorter, none empty), one
+    grid row of blocks each, for a stage 1 whose blocks hold `per_block`
+    queries on a card of `sms` SMs.
+
+    S grows until the (N x query blocks x S) grid holds WAVES[bucket of K]
+    blocks per SM, while every range keeps at least MIN_RANGE points (all of
+    P2 where it is shorter); S = 1 walks the whole database in one pass,
+    with no merge.
+    """
+    query_blocks = N * -(-P1 // per_block)
+    S = max(1, min(-(-WAVES[k_bucket(K)] * sms // query_blocks), P2 // MIN_RANGE, 65535))
+    L = -(-P2 // S)
+    return -(-P2 // L), L
+
+
 def _library() -> ctypes.CDLL:
     lib = _build.load("knn")
     if not lib.knn_points.argtypes:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.knn_points.argtypes = [p, p, p] + [i] * 6 + [p, p, p]
+        lib.knn_points.argtypes = [p, p, p] + [i] * 8 + [p] * 5
         lib.knn_points.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    """The card's streaming multiprocessors, for the range planner."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def kernel_ranges(N: int, P1: int, P2: int, K: int, device: torch.device) -> Tuple[int, int]:
+    """The (S, L) cut the kernel runs on `device`: `knn_ranges` with the
+    build's queries a block at K (`knn_block_queries`) and the card's SMs."""
+    return knn_ranges(N, P1, P2, K, _library().knn_block_queries(K), _sms(device))
 
 
 def knn_points_cuda(
@@ -92,7 +135,8 @@ def knn_points_cuda(
     K: int,
     norm: int = 2,
 ):
-    """(dists, idx) (N, P1, K) from the kernel for CUDA tensors (counted in
+    """(dists, idx) (N, P1, K) from the kernel for CUDA tensors (one call,
+    whether it runs one stage or two, counts one in
     `knn_points_cuda.launches`), from the plain version for CPU tensors.
     The kernel takes float32 contiguous clouds with D <= 8 and K <= 16;
     anything else raises."""
@@ -120,11 +164,17 @@ def knn_points_cuda(
         return dists, idx.long()
     l2 = None if lengths2 is None else lengths2.to(device=p1.device, dtype=torch.int32).contiguous()
     lib = _library()
+    S, L = kernel_ranges(N, P1, P2, K, p1.device)
+    part_d = part_i = None
+    if S > 1:  # stage 1's per-range lists, merged by stage 2
+        part_d = torch.empty((N, S, P1, K), dtype=torch.float32, device=p1.device)
+        part_i = torch.empty((N, S, P1, K), dtype=torch.int32, device=p1.device)
     with torch.cuda.device(p1.device):
         err = lib.knn_points(
             p1.data_ptr(), p2.data_ptr(), None if l2 is None else l2.data_ptr(),
-            N, P1, P2, D, K, norm, dists.data_ptr(), idx.data_ptr(),
-            torch.cuda.current_stream(p1.device).cuda_stream,
+            N, P1, P2, D, K, norm, S, L,
+            None if part_d is None else part_d.data_ptr(), None if part_i is None else part_i.data_ptr(),
+            dists.data_ptr(), idx.data_ptr(), torch.cuda.current_stream(p1.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"knn launch failed: CUDA error {err}")

@@ -15,8 +15,9 @@ function, which the kernel is held against on the card.
 Its backward, `rasterize_grad_cuda`, replaces the TPU kernel `_grad_kernel`
 (rasterize_pallas.py:809, its pallas_call at :1092 in
 `rasterize_grad_pallas`): on CUDA tensors it launches
-`csrc/rasterize_grad.cu`, one thread per (pixel, slot) with atomic adds
-per face; on CPU tensors it runs `rasterize_grad_plain`.  On CPU the
+`csrc/rasterize_grad.cu`, per-tile face sums over the forward's binning
+and then a fixed-order sum per face (`face_pair_rows`), so two runs give
+the same bits; on CPU tensors it runs `rasterize_grad_plain`.  On CPU the
 forward is the plain version, which autograd differentiates directly.
 
 Two more entry points share the binning.  `rasterize_topk_cuda` replaces
@@ -133,6 +134,28 @@ def bin_faces(
     )
 
 
+def face_pair_rows(tile_faces: torch.Tensor, tile_start: torch.Tensor, N: int, F: int):
+    """The face-major CSR of a binning's (tile, face) pairs: (pair_rows,
+    face_start).
+
+    Pair q is the q-th entry of the tile-major lists (`tile_faces`, with
+    `tile_start` over N images' tiles) and owns row q of the backward's
+    per-pair table.  Face f of image n owns
+    `pair_rows[face_start[n * F + f]:face_start[n * F + f + 1]]`, its pairs
+    in ascending tile order (a stable sort of the pairs by face).  Built on
+    the binning's device without a host sync."""
+    device = tile_faces.device
+    pairs = tile_faces.numel()
+    n_tiles = tile_start.numel() - 1
+    tile = torch.repeat_interleave(
+        torch.arange(n_tiles, device=device), tile_start.diff().long(), output_size=pairs
+    )
+    key = (tile // (n_tiles // N)) * F + tile_faces.long()
+    key, pair_rows = torch.sort(key, stable=True)
+    face_start = torch.searchsorted(key, torch.arange(N * F + 1, device=device))
+    return pair_rows.to(torch.int32), face_start.to(torch.int32)
+
+
 def rasterize_fragments_plain(
     face_verts: torch.Tensor,  # (N, F, 3, 3)
     valid: torch.Tensor,  # (N, F) bool
@@ -220,10 +243,25 @@ def _ptr(t: Optional[torch.Tensor]):
 def _grad_library() -> ctypes.CDLL:
     lib = _build.load("rasterize_grad")
     if not lib.rasterize_grad.argtypes:
+        rows, cols = ctypes.c_int(), ctypes.c_int()
+        lib.rasterize_grad_tile(ctypes.byref(rows), ctypes.byref(cols))
+        if (rows.value, cols.value) != TILE:
+            raise RuntimeError(
+                f"rasterize_grad.cu sums {rows.value}x{cols.value} tiles but"
+                f" the binning makes {TILE[0]}x{TILE[1]} tiles"
+            )
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rasterize_grad.argtypes = [p] * 7 + [i] * 7 + [p, p]
+        lib.rasterize_grad.argtypes = [p] * 11 + [i] * 9 + [p] * 4
         lib.rasterize_grad.restype = ctypes.c_int
     return lib
+
+
+def _raise_on_missing(error: torch.Tensor) -> None:
+    """Raise where pass 1 set its error flag: a filled slot whose face is
+    missing from its tile's list.  Reading the flag is the backward's one
+    host sync."""
+    if int(error.item()):
+        raise RuntimeError("rasterize_grad_cuda: a filled slot's face is missing from its tile's list in bins")
 
 
 def rasterize_grad_cuda(
@@ -233,16 +271,20 @@ def rasterize_grad_cuda(
     gbary: Optional[torch.Tensor],  # (N, H, W, K, 3) or None
     gdists: Optional[torch.Tensor],  # (N, H, W, K) or None
     image_size: Tuple[int, int],
+    bins,  # the forward's `bin_faces` (tile_faces, tile_start, n_ty, n_tx)
     perspective_correct: bool = False,
     clip_barycentric_coords: bool = False,
 ) -> torch.Tensor:
     """(N, F, 3, 3) gradient of (zbuf, bary, dists) w.r.t. `face_verts`.
 
     CUDA tensors launch the backward kernel (and count the launch in
-    `rasterize_grad_cuda.launches`); CPU tensors run the plain version.
-    The kernel takes float32 contiguous tensors and int32 ids; anything
-    else raises.  Its fp32 atomics add in an order that changes from run
-    to run, so two runs agree to rounding, not bit for bit.
+    `rasterize_grad_cuda.launches`); CPU tensors run the plain version,
+    which needs no binning.  The kernel takes float32 contiguous tensors
+    and int32 ids; anything else raises.  It sums per (tile, face) pair of
+    `bins`, the binning the forward rasterized `pix_to_face` with; a
+    filled slot whose face is missing from its tile's list raises (the
+    backward's one host sync reads that flag).  No atomics: two runs on
+    the same inputs give the same bits.
     """
     if face_verts.device.type == "cpu":
         return rasterize_grad_plain(
@@ -269,22 +311,34 @@ def rasterize_grad_cuda(
             raise ValueError(f"rasterize_grad_cuda: {name} must be contiguous")
     if not (face_verts.is_contiguous() and pix_to_face.is_contiguous()):
         raise ValueError("rasterize_grad_cuda: face_verts and pix_to_face must be contiguous")
-    grad = torch.zeros((N, F, 3, 3), dtype=torch.float32, device=face_verts.device)
     K = pix_to_face.shape[3]
-    if grad.numel() == 0 or pix_to_face.numel() == 0:
-        return grad
-    ys, xs = pixel_grid_ndc(H, W, face_verts.device)
+    if N * F == 0 or pix_to_face.numel() == 0:
+        return torch.zeros((N, F, 3, 3), dtype=torch.float32, device=face_verts.device)
+    tile_faces, tile_start, n_ty, n_tx = bins
+    if (n_ty, n_tx) != (-(-H // TILE[0]), -(-W // TILE[1])) or tile_start.numel() != N * n_ty * n_tx + 1:
+        raise ValueError(f"rasterize_grad_cuda: bins of {n_ty}x{n_tx} tiles are not of {N} {H}x{W} images")
+    if any(t.dtype != torch.int32 or t.device != face_verts.device or not t.is_contiguous()
+           for t in (tile_faces, tile_start)):
+        raise TypeError("rasterize_grad_cuda: bins must be contiguous int32 tensors on the faces' device")
+    device = face_verts.device
+    pair_rows, face_start = face_pair_rows(tile_faces, tile_start, N, F)
+    gpair = torch.empty((max(tile_faces.numel(), 1), 9), dtype=torch.float32, device=device)
+    error = torch.zeros((1,), dtype=torch.int32, device=device)
+    grad = torch.empty((N, F, 3, 3), dtype=torch.float32, device=device)
+    ys, xs = pixel_grid_ndc(H, W, device)
     lib = _grad_library()
-    with torch.cuda.device(face_verts.device):
+    with torch.cuda.device(device):
         err = lib.rasterize_grad(
-            face_verts.data_ptr(), pix_to_face.data_ptr(), _ptr(gz), _ptr(gbary), _ptr(gdists),
-            xs.data_ptr(), ys.data_ptr(), N, F, H, W, K, int(perspective_correct),
-            int(clip_barycentric_coords), grad.data_ptr(),
-            torch.cuda.current_stream(face_verts.device).cuda_stream,
+            face_verts.data_ptr(), tile_faces.data_ptr(), tile_start.data_ptr(), pair_rows.data_ptr(),
+            face_start.data_ptr(), pix_to_face.data_ptr(), _ptr(gz), _ptr(gbary), _ptr(gdists),
+            xs.data_ptr(), ys.data_ptr(), N, F, H, W, K, n_ty, n_tx, int(perspective_correct),
+            int(clip_barycentric_coords), gpair.data_ptr(), error.data_ptr(), grad.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"rasterize_grad launch failed: CUDA error {err}")
     rasterize_grad_cuda.launches += 1
+    _raise_on_missing(error)
     return grad
 
 
@@ -306,18 +360,18 @@ class _RasterizeFine(torch.autograd.Function):
         )
         ctx.mark_non_differentiable(idx)
         ctx.set_materialize_grads(False)  # an unused output's cotangent stays None
-        ctx.save_for_backward(fv, idx)
-        ctx.raster = (image_size, perspective_correct, clip_barycentric_coords)
+        ctx.save_for_backward(fv, idx, bins[0], bins[1])  # the backward sums over the same tiles
+        ctx.raster = (image_size, perspective_correct, clip_barycentric_coords, bins[2], bins[3])
         return idx, zbuf, bary, dists
 
     @staticmethod
     @once_differentiable
     def backward(ctx, _gidx, gz, gbary, gdists):
-        fv, idx = ctx.saved_tensors
-        image_size, perspective_correct, clip_barycentric_coords = ctx.raster
+        fv, idx, tile_faces, tile_start = ctx.saved_tensors
+        image_size, perspective_correct, clip_barycentric_coords, n_ty, n_tx = ctx.raster
         gz, gbary, gdists = (None if g is None else g.float().contiguous() for g in (gz, gbary, gdists))
         grad = rasterize_grad_cuda(
-            fv, idx, gz, gbary, gdists, image_size,
+            fv, idx, gz, gbary, gdists, image_size, (tile_faces, tile_start, n_ty, n_tx),
             perspective_correct, clip_barycentric_coords,
         )
         return grad, None, None, None, None, None, None, None

@@ -101,9 +101,9 @@ def _exact_grad(fv, idx, cots, size, persp, clip):
 
 
 def _grad_close(got, want, exact):
-    # fp32 atomics (kernel) and index_add_ (plain, atomics on the card too)
-    # sum per-pixel terms in orders that change from run to run: within 1e-4
-    # of the largest gradient, as in chip_smoke.py.
+    # The kernel (per tile, then per face) and index_add_ (plain, atomics on
+    # the card) sum per-pixel terms in different orders: within 1e-4 of the
+    # largest gradient, as in chip_smoke.py.
     assert torch.isfinite(got).all()
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
@@ -118,16 +118,17 @@ def _grad_close(got, want, exact):
 def test_grad_kernel_matches_plain(cuda_device, size, blur, K, persp, clip, cull):
     fv, valid = _batch_faces(cuda_device, size, aspect_ratio=size[1] / size[0])
     idx, zbuf, bary, _ = trc.rasterize_fragments_cuda(fv, valid, size, blur, K, persp, clip, cull)
+    bins = trc.bin_faces(fv, trm._face_culls(fv, valid, cull), size, blur)  # the forward's binning
     gz, gbary, gdists = _cotangents(zbuf, bary)
     before = trc.rasterize_grad_cuda.launches
-    got = trc.rasterize_grad_cuda(fv, idx, gz, gbary, gdists, size, persp, clip)
+    got = trc.rasterize_grad_cuda(fv, idx, gz, gbary, gdists, size, bins, persp, clip)
     torch.cuda.synchronize()
     assert trc.rasterize_grad_cuda.launches == before + 1
     want = trm.rasterize_grad_plain(fv, idx, gz, gbary, gdists, size, persp, clip)
     _grad_close(got, want, _exact_grad(fv, idx, (gz, gbary, gdists), size, persp, clip))
     # A missing cotangent is zero.
     _grad_close(
-        trc.rasterize_grad_cuda(fv, idx, None, None, gdists, size, persp, clip),
+        trc.rasterize_grad_cuda(fv, idx, None, None, gdists, size, bins, persp, clip),
         trm.rasterize_grad_plain(fv, idx, None, None, gdists, size, persp, clip),
         _exact_grad(fv, idx, (None, None, gdists), size, persp, clip),
     )
@@ -177,12 +178,87 @@ def test_knn_kernel_matches_plain(cuda_device, K, norm, lengths):
         assert (out.dists[1, :, 10:] == 0).all() and (out.idx[1, :, 10:] == 0).all()
 
 
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("K", [1, 2, 4, 8, 16])
+def test_knn_kernel_splits_and_merges_as_one_walk(cuda_device, K, split):
+    """One range (S = 1, no merge) or several, with every database point
+    repeated one range length on and half the queries on database points:
+    the lower id must win each tie, as in the plain version."""
+    P1, P2 = 3000, (6000 if split else 100)
+    S, L = tknn.kernel_ranges(1, P1, P2, K, cuda_device)
+    assert (S > 1) == split
+    gen = torch.Generator(device=cuda_device).manual_seed(K)
+    p2 = torch.rand((1, P2, 3), generator=gen, device=cuda_device)
+    if split:
+        p2[:, L:] = p2[:, : P2 - L].clone()
+    p1 = torch.rand((1, P1, 3), generator=gen, device=cuda_device)
+    p1[:, : P1 // 2] = p2[:, torch.randint(0, P2, (P1 // 2,), generator=gen, device=cuda_device)]
+    before = tknn.knn_points_cuda.launches
+    d, i = tknn.knn_points_cuda(p1, p2.contiguous(), None, K)
+    torch.cuda.synchronize()
+    assert tknn.knn_points_cuda.launches == before + 1  # one call, one count, one stage or two
+    dp, ip = tknn.knn_points_plain(p1, p2, None, K)
+    assert torch.equal(i, ip)
+    assert torch.equal(d, dp)
+
+
+def _grad_inputs(device, size=(128, 128), blur=1e-4, K=8, fv_valid=None):
+    fv, valid = _batch_faces(device, size) if fv_valid is None else fv_valid
+    idx, zbuf, bary, _ = trc.rasterize_fragments_cuda(fv, valid, size, blur, K, True, True)
+    bins = trc.bin_faces(fv, trm._face_culls(fv, valid, False), size, blur)  # the forward's binning
+    return fv, idx, _cotangents(zbuf, bary), bins
+
+
+def test_grad_kernel_gives_the_same_bits_twice(cuda_device):
+    fv, idx, cots, bins = _grad_inputs(cuda_device)
+    first = trc.rasterize_grad_cuda(fv, idx, *cots, (128, 128), bins, True, True)
+    second = trc.rasterize_grad_cuda(fv, idx, *cots, (128, 128), bins, True, True)
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+
+
+def _dense_faces(device, size, level):
+    """(1, F, 3, 3) NDC face verts of ico_sphere(level) filling a small image."""
+    mesh = ico_sphere(level, device=device)
+    R, T = look_at_view_transform(2.7, 20.0, 30.0, device=device)
+    ndc = MeshRasterizer(FoVPerspectiveCameras.create(R=R, T=T, device=device)).transform(mesh)
+    F = ndc.max_faces
+    return ndc.verts_packed()[ndc.faces_packed()].reshape(1, F, 3, 3).contiguous(), torch.ones(
+        (1, F), dtype=torch.bool, device=device)
+
+
+@pytest.mark.parametrize("level,size,blur,K", [(4, (32, 32), 1e-4, 8), (3, (64, 64), 2e-2, 16)])
+def test_grad_kernel_sums_tile_lists_longer_than_one_pass(cuda_device, level, size, blur, K):
+    """A dense mesh at a small image, and a large blur: tile lists several
+    times GRAD_LIST_CHUNK long, which pass 1 sums in several passes."""
+    fv, idx, cots, bins = _grad_inputs(cuda_device, size, blur, K, _dense_faces(cuda_device, size, level))
+    longest, passes = _CHIP_SMOKE.longest_list(bins)
+    assert passes >= 3, longest
+    first = trc.rasterize_grad_cuda(fv, idx, *cots, size, bins, True, True)
+    second = trc.rasterize_grad_cuda(fv, idx, *cots, size, bins, True, True)
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+    want = trm.rasterize_grad_plain(fv, idx, *cots, size, True, True)
+    _grad_close(first, want, _exact_grad(fv, idx, cots, size, True, True))
+
+
+def test_grad_kernel_raises_on_a_face_missing_from_its_tile_list(cuda_device):
+    fv, idx, cots, bins = _grad_inputs(cuda_device)
+    tile_faces, tile_start, n_ty, n_tx = bins
+    n, y, x, k = (int(v) for v in (idx >= 0).nonzero()[0])
+    tile = (n * n_ty + y // trc.TILE[0]) * n_tx + x // trc.TILE[1]
+    lo, hi = int(tile_start[tile]), int(tile_start[tile + 1])
+    drop = lo + int((tile_faces[lo:hi] == idx[n, y, x, k]).nonzero()[0])
+    faces = torch.cat([tile_faces[:drop], tile_faces[drop + 1:]])
+    start = torch.where(torch.arange(tile_start.numel(), device=cuda_device) > tile, tile_start - 1, tile_start)
+    with pytest.raises(RuntimeError, match="missing from its tile's list"):
+        trc.rasterize_grad_cuda(fv, idx, *cots, (128, 128), (faces, start.int(), n_ty, n_tx), True, True)
+
+
 def test_each_cuda_call_counts_its_launch(cuda_device):
     fv, valid = _batch_faces(cuda_device, (32, 32))
     counters = (trc.rasterize_fragments_cuda, trc.rasterize_grad_cuda, tknn.knn_points_cuda)
     before = [c.launches for c in counters]
     idx, zbuf, bary, dists = trc.rasterize_fragments_cuda(fv, valid, (32, 32), 1e-4, 4)
-    trc.rasterize_grad_cuda(fv, idx, zbuf, bary, dists, (32, 32))
+    trc.rasterize_grad_cuda(fv, idx, zbuf, bary, dists, (32, 32), trc.bin_faces(fv, valid, (32, 32), 1e-4))
     tknn.knn_points_cuda(fv[:, :, 0].contiguous(), fv[:, :, 1].contiguous(), None, 2)
     assert [c.launches for c in counters] == [b + 1 for b in before]
 
@@ -197,12 +273,15 @@ def test_fine_kernel_refuses_what_it_does_not_take(cuda_device):
         trc.rasterize_fragments_cuda(fv.transpose(2, 3), valid, (32, 32), 1e-4, 4)  # not contiguous
 
     idx, zbuf, bary, dists = trc.rasterize_fragments_cuda(fv, valid, (32, 32), 1e-4, 4)
+    bins = trc.bin_faces(fv, valid, (32, 32), 1e-4)
     with pytest.raises(TypeError):
-        trc.rasterize_grad_cuda(fv.double(), idx, zbuf, bary, dists, (32, 32))
+        trc.rasterize_grad_cuda(fv.double(), idx, zbuf, bary, dists, (32, 32), bins)
     with pytest.raises(TypeError):
-        trc.rasterize_grad_cuda(fv, idx.long(), zbuf, bary, dists, (32, 32))
+        trc.rasterize_grad_cuda(fv, idx.long(), zbuf, bary, dists, (32, 32), bins)
     with pytest.raises(ValueError):
-        trc.rasterize_grad_cuda(fv, idx, zbuf.transpose(1, 2), bary, dists, (32, 32))  # not contiguous
+        trc.rasterize_grad_cuda(fv, idx, zbuf.transpose(1, 2), bary, dists, (32, 32), bins)  # not contiguous
+    with pytest.raises(ValueError):
+        trc.rasterize_grad_cuda(fv, idx, zbuf, bary, dists, (32, 32), trc.bin_faces(fv, valid, (64, 64), 1e-4))
 
 
 def test_knn_kernel_refuses_what_it_does_not_take(cuda_device):

@@ -180,6 +180,7 @@ def test_cpu_wrapper_gradient_is_the_plain_backward(K, blur, persp, clip):
     )
     cots = [_batch(c) for c in _cotangents(K, seed=3)]
     torch.autograd.backward([zbuf, bary, dists], cots)
-    want = trc.rasterize_grad_cuda(verts.detach(), idx.int(), *cots, SIZE, persp, clip)
+    bins = trc.bin_faces(verts.detach(), trm._face_culls(verts.detach(), _batch(valid), False), SIZE, blur)
+    want = trc.rasterize_grad_cuda(verts.detach(), idx.int(), *cots, SIZE, bins, persp, clip)
     assert (trc.rasterize_fragments_cuda.launches, trc.rasterize_grad_cuda.launches) == before
     _close(verts.grad.numpy(), want.numpy())
