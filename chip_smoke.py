@@ -20,7 +20,9 @@ final result line:
    `phase_select_kernel` and `compare_pulsar_grad` say, at the serving
    batch, pulsar-serving's request 0 and pulsar-fit's step 0):
    the fine rasterizer within bench.py:_row_ok's tolerances (dists within
-   1e-6, tighter than there); its backward against the plain version in
+   1e-6, tighter than there); #8 also bit-equal over two launches at
+   pulsar-fit's step 0 and, in the times, at 10^6 spheres; its backward
+   against the plain version in
    float64, within 1e-4 of the largest gradient or no further off than
    1.5x the float32 plain version is (the kernel sums per tile, then per
    face, in another order than the plain version, and the float32
@@ -77,7 +79,10 @@ final result line:
 9. times, after warm-up, with CUDA events: each kernel, its plain version
    and its bound (the point kernels' launches are short, and #4 and #9 run
    two device kernels a call, so their time is the profiler's device time,
-   beside the events'; #9 at the chamfer fit's, the points fit's and a
+   beside the events'; #1 by the profiler's device time at the serving
+   batch, the headline and the render-fit shape, with the (pixel, face)
+   tests it makes beside those of its tile lists; #9 at the chamfer
+   fit's, the points fit's and a
    K=16 shape, with the merge's share, #4 with pass 2's share); the binning, a serving
    frame, a training step split into forward and backward; torch.profiler
    breakdowns of 8 serving and 8 points-serving frames and of render-fit
@@ -160,6 +165,7 @@ GRAD_FACE_SHARE = 0.997
 # (csrc/rasterize_grad.cu's kListChunk): a longer tile list takes several
 # passes, which the long-list cases of phase_grad_kernel drive.
 GRAD_LIST_CHUNK = 128
+FINE_RECT = (4, 8)  # rows x columns of a warp's rectangle in csrc/rasterize_fine.cu
 KNN_IDS_GATE = 0.9999  # share of queries whose K ids all agree
 KNN_DISTS_RTOL = 1e-6
 
@@ -704,8 +710,14 @@ def device_ms_by_kernel(fn, kernels, iters=20, warmup=3, launches=1):
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    opener = torch.zeros(1, device="cuda")
     for _ in range(6):
         with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            # A window can lose its first launch's record (KNN's stage 1,
+            # the first launch of its call, read 19 of 20 in every window):
+            # open it with a launch that is not timed.
+            opener.add_(1.0)
+            torch.cuda.synchronize()
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
@@ -751,6 +763,75 @@ def tile_candidates(tile_start, N, n_ty, n_tx, size):
     cols = [min(TW, W - TW * t) for t in range(n_tx)]
     pix = [[r * c for c in cols] for r in rows]  # live pixels of each tile
     return float((per_tile * per_tile.new_tensor(pix)).sum())
+
+
+def face_pixel_boxes(face_verts, image_size, blur_radius, perspective_correct):
+    """(N * F, 4) int32 pixel boxes (first row, last row, first column,
+    last column) of the fine kernel's cull for (N, F, 3, 3) `face_verts`.
+    The kernel (csrc/rasterize_fine.cu) makes them for itself by the same
+    float ops and comparisons; here they are the reference for
+    `fine_tests` and the CPU tests: the pixels whose center lies in the
+    face's `rasterize_cuda.face_boxes` box, found by a search over the
+    pixel centers (first > last where none does, as where a bound is NaN:
+    such a face covers nothing).  The binning's tiles hold them: it is the binning
+    at one-pixel tiles without the binning's rounding slack.  Under
+    perspective correction a face with a vertex at z < 0 can cover pixels
+    far outside its box (the kernel's header says where), so its box is
+    the whole image."""
+    import torch
+
+    from pytorch3d_tpu_torch.renderer.mesh.rasterize_cuda import face_boxes, pixel_grid_ndc
+
+    H, W = image_size
+    xmin, xmax, ymin, ymax = face_boxes(face_verts, image_size, blur_radius)
+    ys, xs = pixel_grid_ndc(H, W, face_verts.device)
+    bounds = []
+    for lo, hi, centers in ((ymin, ymax, ys), (xmin, xmax, xs)):
+        # Centers fall as the index grows: the first pixel inside is the
+        # count of centers above hi, the last one below the count of those
+        # at or above lo.
+        n, rising = centers.numel(), centers.flip(0)
+        bounds += [n - torch.searchsorted(rising, hi, right=True, out_int32=True),
+                   (n - 1) - torch.searchsorted(rising, lo, out_int32=True)]
+    boxes = torch.stack(bounds, dim=-1)
+    if perspective_correct:
+        behind = face_verts[..., 2].amin(-1) < 0
+        boxes = torch.where(behind[..., None], boxes.new_tensor([0, H - 1, 0, W - 1]), boxes)
+    return boxes.view(-1, 4)
+
+
+def fine_tests(bins, boxes, N, F, size):
+    """(the (pixel, face) tests the fine kernel makes, the lanes its warps
+    walk): per (tile, face) pair of the binning, the tile's pixels inside
+    the face's pixel box (`face_pixel_boxes`), and 32 lanes for each warp
+    rectangle of the tile (FINE_RECT rows x columns) that the box meets."""
+    import torch
+
+    from pytorch3d_tpu_torch.renderer.mesh.rasterize_cuda import TILE
+
+    tile_faces, tile_start, n_ty, n_tx = bins
+    H, W = size
+    TH, TW = TILE
+    RH, RW = FINE_RECT
+    tiles = tile_start.numel() - 1
+    tile = torch.repeat_interleave(torch.arange(tiles, device=tile_faces.device), tile_start.diff().long())
+    t = tile % (n_ty * n_tx)
+    r0, c0 = (t // n_tx) * TH, (t % n_tx) * TW
+    b = boxes.view(N, F, 4).long()[tile // (n_ty * n_tx), tile_faces.long()]
+    rows = (torch.minimum(b[:, 1], (r0 + TH - 1).clamp(max=H - 1)) - torch.maximum(b[:, 0], r0) + 1).clamp(min=0)
+    cols = (torch.minimum(b[:, 3], (c0 + TW - 1).clamp(max=W - 1)) - torch.maximum(b[:, 2], c0) + 1).clamp(min=0)
+    lanes = 0
+    for dr in range(0, TH, RH):
+        for dc in range(0, TW, RW):
+            meets = ((b[:, 0] <= b[:, 1]) & (b[:, 2] <= b[:, 3]) & (b[:, 0] < r0 + dr + RH)
+                     & (b[:, 1] >= r0 + dr) & (b[:, 2] < c0 + dc + RW) & (b[:, 3] >= c0 + dc))
+            lanes += 32 * int(meets.sum())
+    return float((rows * cols).double().sum()), float(lanes)
+
+
+def fine_bucket(k):
+    """The K bucket of csrc/rasterize_fine.cu's template that runs K."""
+    return next(b for b in (1, 2, 4, 8, 16, 32, 64) if k <= b)
 
 
 def fine_bound(fv, valid, bins, size, blur, k, persp, clip):
@@ -1471,26 +1552,42 @@ def phase_times(device, meshes, renderers, fit, pfit):
 
     size = (IMAGE, IMAGE)
     out = {}
-    for label, m in (("main path batch", meshes), ("headline ico4", ico_sphere(4, device=device))):
-        fv, valid = face_inputs(m, camera(30.0, device), size)
-        ok = _face_culls(fv, valid, False)
-        bins = rc.bin_faces(fv, ok, size, BLUR)
-        kernel = cuda_ms(lambda: rc._run_kernel(fv, bins, size, BLUR, K, True, True), iters=50, warmup=5)
-        binning = cuda_ms(lambda: rc.bin_faces(fv, ok, size, BLUR), iters=20)
+    fit_mesh = fit.mesh().extend(FIT_VIEWS)
+    shapes = (
+        # label, meshes, cameras, blur, K; the plain version is timed at the first two
+        ("main path batch", meshes, camera(30.0, device), BLUR, K),
+        ("headline ico4", ico_sphere(4, device=device), camera(30.0, device), BLUR, K),
+        ("render-fit", fit_mesh, fit.soft_renderer(FIT_VIEWS)[1], FIT_BLUR, FIT_K),
+    )
+    for label, m, cams, blur, k in shapes:
         with torch.no_grad():
-            plain = cuda_ms(
-                lambda: rc.rasterize_fragments_plain(fv, valid, size, BLUR, K, True, True, False),
-                iters=3, warmup=1,
-            )
-        bound, bound_by, tests, nbytes = fine_bound(fv, valid, bins, size, BLUR, K, True, True)
+            fv, valid = face_inputs(m, cams, size)
+        ok = _face_culls(fv, valid, False)
+        bins = rc.bin_faces(fv, ok, size, blur)
+        kernel = device_ms(lambda: rc._run_kernel(fv, bins, size, blur, k, True, True),
+                           f"rasterize_fine_kernel<{fine_bucket(k)}, false>", iters=20, warmup=5)
+        events = cuda_ms(lambda: rc._run_kernel(fv, bins, size, blur, k, True, True), iters=50, warmup=5)
+        binning = cuda_ms(lambda: rc.bin_faces(fv, ok, size, blur), iters=20)
+        plain = None
+        if label != "render-fit":
+            with torch.no_grad():
+                plain = cuda_ms(
+                    lambda: rc.rasterize_fragments_plain(fv, valid, size, blur, k, True, True, False),
+                    iters=3, warmup=1,
+                )
+        bound, bound_by, tests, nbytes = fine_bound(fv, valid, bins, size, blur, k, True, True)
+        made, walked = fine_tests(bins, face_pixel_boxes(fv, size, blur, True), *fv.shape[:2], size)
         out[label] = dict(kernel=kernel, binning=binning, plain=plain, bound=bound, bound_by=bound_by)
-        log(f"times [rasterize_fine, {label}] N={fv.shape[0]} F={fv.shape[1]} {IMAGE}^2 K={K}: kernel {kernel:.4f} ms,"
-            f" binning {binning:.4f} ms, plain version {plain:.2f} ms; bound {bound:.4f} ms by {bound_by}"
+        log(f"times [rasterize_fine, {label}] N={fv.shape[0]} F={fv.shape[1]} {IMAGE}^2 K={k} blur={blur:g}:"
+            f" kernel {kernel:.4f} ms (device time, profiler; CUDA events over back-to-back wrapper calls"
+            f" {events:.4f} ms), binning {binning:.4f} ms, plain version"
+            f" {'not timed' if plain is None else f'{plain:.2f} ms'}; bound {bound:.4f} ms by {bound_by}"
             f" (bytes {nbytes / 1e6:.1f} MB = {nbytes / PEAK_BYTES_PER_S * 1e3:.4f} ms,"
             f" {tests / 1e6:.3f} M box tests ="
-            f" {tests * fine_ops_per_candidate(True, True) / PEAK_FP32_OPS_PER_S * 1e3:.4f} ms; the kernel tests"
-            f" {tile_candidates(bins[1], fv.shape[0], bins[2], bins[3], size) / 1e6:.2f} M (pixel, face) pairs of"
-            f" {len(bins[0])} tile-face pairs)")
+            f" {tests * fine_ops_per_candidate(True, True) / PEAK_FP32_OPS_PER_S * 1e3:.4f} ms); tests made"
+            f" {made / 1e6:.3f} M in {walked / 1e6:.3f} M warp lanes walked, against"
+            f" {tile_candidates(bins[1], fv.shape[0], bins[2], bins[3], size) / 1e6:.3f} M (pixel, face) pairs of"
+            f" the {len(bins[0])} tile-face pairs")
 
     # The backward kernel on the render-fit step's own ids and cotangents,
     # and on the headline loss's, on the forward's binning.
@@ -2839,6 +2936,28 @@ def compare_pulsar_grad(table, idx, bins, ct, label, gamma=PULSAR_GAMMA, depth=P
     return ok, float(ratio.max()), float(ratio_plain.max()), err
 
 
+def pulsar_grad_twice(table, idx, bins, ct, label, gamma=PULSAR_GAMMA, depth=PULSAR_DEPTH):
+    """#8 launched twice on the same inputs must give the same bits, all
+    finite: the kernel sums in a fixed order, and a NaN row would mean a
+    hit whose sphere is missing from its tile's list."""
+    import torch
+
+    from pytorch3d_tpu_torch.renderer.points import rasterize_points_cuda as rpc
+    from pytorch3d_tpu_torch.renderer.points.pulsar.renderer import _blend_core
+
+    size = idx.shape[:2]
+    bg = torch.ones(table.shape[1] - 5, device=table.device)
+    args = (gamma, depth[0], depth[1])
+    with torch.no_grad():
+        _, denom, lm, _, _ = _blend_core(table, idx, bg, *args, 0.0, *size)
+    a, b = (rpc.pulsar_blend_grads_cuda(table, idx, ct, denom, lm, bg, size, *args, 0.0, bins) for _ in range(2))
+    same = torch.equal(a.view(torch.int32), b.view(torch.int32))
+    finite = bool(torch.isfinite(a).all())
+    log(f"kernel pulsar_grad twice [{label}] P={table.shape[0]} {size[0]}^2 K={idx.shape[2]}: bit-equal {same},"
+        f" finite {finite}")
+    check(same and finite, f"pulsar_grad [{label}]: two launches differ or give non-finite rows")
+
+
 class PulsarServing:
     """The pulsar-serving scene: 100 000 spheres, 1024^2, n_track 5, gamma
     0.1, depths 1-45, eight yaws; the plain selection of request 0, made
@@ -3042,9 +3161,11 @@ def phase_pulsar_grad_kernel(device, serving, fit):
     table, idx, bins = serving.inputs(PULSAR_YAWS[0])
     gen = torch.Generator(device=device).manual_seed(6)
     ct = torch.randn((PULSAR_IMAGE, PULSAR_IMAGE, 3), generator=gen, device=device)
+    fit_inputs = fit.blend_inputs()
+    pulsar_grad_twice(*fit_inputs, "pulsar-fit step 0")
     results = [
         compare_pulsar_grad(table.contiguous(), idx, bins, ct, "pulsar-serving request 0, random cotangent"),
-        compare_pulsar_grad(*fit.blend_inputs(), "pulsar-fit step 0, its loss's cotangent"),
+        compare_pulsar_grad(*fit_inputs, "pulsar-fit step 0, its loss's cotangent"),
         compare_pulsar_grad(*pulsar_points_inputs(device), "pulsar-points cloud 0, random cotangent",
                             PULSAR_POINTS_GAMMA, PULSAR_POINTS_DEPTH),
     ]
@@ -3305,6 +3426,7 @@ def phase_slice5_times(device, serving, fit, topk_plain_ms, hard_plain_ms, state
         bones = torch.ones(3, device=device)
         benv = _blend_core(btable, bidx, bones, PULSAR_GAMMA, *PULSAR_DEPTH, 0.0, *psize)[1:3]
     bct = torch.randn((*psize, 3), generator=torch.Generator(device=device).manual_seed(8), device=device)
+    pulsar_grad_twice(btable.contiguous(), bidx, bbins, bct, f"{PULSAR_BIG} spheres, random cotangent")
     bk = device_ms(lambda: rpc.pulsar_blend_grads_cuda(btable, bidx, bct, *benv, bones, psize, PULSAR_GAMMA,
                                                        *PULSAR_DEPTH, 0.0, bbins),
                    ("pulsar_grad_tiles_kernel", "pulsar_grad_combine_kernel"), iters=5)

@@ -115,16 +115,7 @@ def breakdown_variants(text):
 def build(name, text, extra):
     from pytorch3d_tpu_torch import _build
 
-    OUT.mkdir(parents=True, exist_ok=True)
-    src, lib = OUT / f"{name}.cu", OUT / f"lib{name}.so"
-    src.write_text(text)
-    proc = subprocess.run(
-        [_build._nvcc(), *_build.nvcc_flags("rasterize_grad"), *extra, "-o", str(lib), str(src)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-    )
-    if proc.returncode != 0:
-        raise SystemExit(f"grad_study: {name} did not build:\n{proc.stdout}")
-    return lib, proc.stdout
+    return _build.build_copy("rasterize_grad", name, text, OUT, extra)
 
 
 def main() -> int:
@@ -189,8 +180,7 @@ def main() -> int:
     print(f"render-fit step: N={N} F={F} {H}x{W} K={K}, filled slots {int((idx >= 0).sum())}", flush=True)
 
     scratch = torch.empty((N * H * W * K * 9,), dtype=torch.float32, device=device)
-    for name, (lib_path, _) in built.items():
-        lib = ctypes.CDLL(str(lib_path))
+    for name, (lib, _) in built.items():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.rasterize_grad.argtypes = [p] * 7 + [i] * 7 + [p, p]
         lib.rasterize_grad.restype = ctypes.c_int
@@ -233,8 +223,7 @@ def breakdown(cs, rc, device, built):
     inputs = cs.grad_path_inputs(device, cs.RenderFit(device))
     package = rc._grad_library()
     libs = [("package", package)]
-    for name, (path, _) in built.items():
-        lib = ctypes.CDLL(str(path))
+    for name, (lib, _) in built.items():
         lib.rasterize_grad.argtypes = package.rasterize_grad.argtypes
         lib.rasterize_grad.restype = ctypes.c_int
         libs.append((name, lib))

@@ -45,15 +45,7 @@ def runtime_d_library():
     text = (REPO / "pytorch3d_tpu_torch" / "csrc" / "knn.cu").read_text()
     if D3_BRANCH not in text:
         raise SystemExit("knn_study: csrc/knn.cu has no D = 3 branch to take out")
-    out = REPO / "build" / "knn_study"
-    out.mkdir(parents=True, exist_ok=True)
-    src, lib = out / "knn_runtime_d.cu", out / "libknn_runtime_d.so"
-    src.write_text(text.replace(D3_BRANCH, ""))
-    proc = subprocess.run([_build._nvcc(), *_build.nvcc_flags("knn"), "-o", str(lib), str(src)],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise SystemExit(f"knn_study: the runtime-D copy did not build:\n{proc.stdout}")
-    return ctypes.CDLL(str(lib))
+    return _build.build_copy("knn", "knn_runtime_d", text.replace(D3_BRANCH, ""), REPO / "build" / "knn_study")[0]
 
 
 def main() -> int:

@@ -64,12 +64,25 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
+def _compile(source: Path, out: Path, flags) -> Tuple[float, str]:
+    """nvcc `source` into the shared library `out`: the seconds it took and
+    nvcc's output (ptxas registers and spills).  Raises RuntimeError with
+    that output if nvcc fails."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [_nvcc(), *flags, "-o", str(out), str(source)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"kernel build failed: {source.name}: nvcc exited {proc.returncode}\n{proc.stdout}")
+    return time.perf_counter() - t0, proc.stdout
+
+
 def build(name: str) -> Tuple[float, str]:
     """Compile `csrc/<name>.cu` unless its library is built already.
 
     Returns the seconds the build took (0.0 where the library existed) and
-    nvcc's output (ptxas registers and spills).  Raises RuntimeError with
-    that output if nvcc fails.
+    nvcc's output.  Raises RuntimeError with that output if nvcc fails.
     """
     out = library_path(name)
     if out.exists():
@@ -77,17 +90,25 @@ def build(name: str) -> Tuple[float, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *nvcc_flags(name), "-o", tmp, str(CSRC_DIR / f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-    )
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
+    try:
+        result = _compile(CSRC_DIR / f"{name}.cu", Path(tmp), nvcc_flags(name))
+    except RuntimeError:
         os.unlink(tmp)
-        raise RuntimeError(f"kernel build failed: {name}: nvcc exited {proc.returncode}\n{proc.stdout}")
+        raise
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-    return seconds, proc.stdout
+    return result
+
+
+def build_copy(name: str, label: str, text: str, out_dir: Path, extra: Tuple[str, ...] = ()):
+    """Build `text`, a changed copy of `csrc/<name>.cu`, with that source's
+    flags and `extra` into `out_dir/lib<label>.so` (the study scripts' copies
+    of a kernel); returns the loaded library and nvcc's output."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    source = out_dir / f"{label}.cu"
+    source.write_text(text)
+    lib = out_dir / f"lib{label}.so"
+    _, log = _compile(source, lib, nvcc_flags(name) + tuple(extra))
+    return ctypes.CDLL(str(lib)), log
 
 
 def load(name: str) -> ctypes.CDLL:

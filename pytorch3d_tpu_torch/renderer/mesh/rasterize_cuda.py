@@ -6,9 +6,10 @@ emit_fragments=True (rasterize_pallas.py:324, its pallas_call at :1235 in
 `_rfp_fwd_impl` behind `rasterize_fragments_pallas` :1121).  On CUDA
 tensors it bins the faces to 16x16 pixel tiles with plain torch (`bin_faces`)
 and launches the hand-written kernel `csrc/rasterize_fine.cu` once for the
-whole batch; that source's header says what bounds it on an H100 (the
-per-pixel arithmetic, with the bytes of the fragments it writes close
-behind) and how the design meets it.  On CPU tensors it
+whole batch; that source's header says what bounds it on an H100 (the bytes
+of the fragments it writes, the tests close behind), how the design meets
+it and why its cull to each face's pixel box, which the kernel computes
+for itself, is exact.  On CPU tensors it
 runs `rasterize_fragments_plain`, the plain PyTorch version of the same
 function, which the kernel is held against on the card.
 
@@ -33,6 +34,7 @@ in `rasterize_topk_pallas` :549): the ids-only build of
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -126,12 +128,30 @@ def bin_faces(
     """Per-tile face lists as CSR: (tile_faces, tile_start, n_ty, n_tx), from
     `bin_boxes` on each face's bounding box grown by sqrt(blur_radius) and
     half a pixel (as `_tile_overlap` at rasterize_pallas.py:148-173)."""
-    H, W = image_size
-    grow = (math.sqrt(blur_radius) if blur_radius > 0 else 0.0) + half_pixel(H, W)
-    x, y = face_verts[..., 0], face_verts[..., 1]  # (N, F, 3)
-    return bin_boxes(
-        x.amin(-1) - grow, x.amax(-1) + grow, y.amin(-1) - grow, y.amax(-1) + grow, ok, image_size
-    )
+    return bin_boxes(*face_boxes(face_verts, image_size, blur_radius), ok, image_size)
+
+
+def box_grow(image_size: Tuple[int, int], blur_radius: float) -> float:
+    """How far a face's bounding box is grown: sqrt(blur_radius) and half a
+    pixel, so that no pixel center outside it can be covered, rounding
+    included."""
+    return (math.sqrt(blur_radius) if blur_radius > 0 else 0.0) + half_pixel(*image_size)
+
+
+def face_boxes(face_verts: torch.Tensor, image_size: Tuple[int, int], blur_radius: float):
+    """(xmin, xmax, ymin, ymax) of each face's NDC bounding box grown by
+    `box_grow`."""
+    grow = box_grow(image_size, blur_radius)
+    xmin, xmax = torch.aminmax(face_verts[..., 0], dim=-1)  # (..., F)
+    ymin, ymax = torch.aminmax(face_verts[..., 1], dim=-1)
+    return xmin - grow, xmax + grow, ymin - grow, ymax + grow
+
+
+@functools.lru_cache(maxsize=16)
+def _pixel_grid(H: int, W: int, device: torch.device):
+    """`pixel_grid_ndc(H, W, device)`, made once per image size: the
+    kernels' calls are short, so the wrappers' host time counts."""
+    return pixel_grid_ndc(H, W, device)
 
 
 def face_pair_rows(tile_faces: torch.Tensor, tile_start: torch.Tensor, N: int, F: int):
@@ -199,9 +219,9 @@ def _library() -> ctypes.CDLL:
                 f" the binning makes {TILE[0]}x{TILE[1]} tiles"
             )
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rasterize_fine.argtypes = [p] * 5 + [i] * 6 + [ctypes.c_float, i, i, i] + [p] * 5
+        lib.rasterize_fine.argtypes = [p] * 5 + [i] * 6 + [ctypes.c_float, ctypes.c_float, i, i, i] + [p] * 5
         lib.rasterize_fine.restype = ctypes.c_int
-        lib.rasterize_topk.argtypes = [p] * 5 + [i] * 6 + [ctypes.c_float, i, i, i] + [p] * 2
+        lib.rasterize_topk.argtypes = [p] * 5 + [i] * 6 + [ctypes.c_float, ctypes.c_float, i, i, i] + [p] * 2
         lib.rasterize_topk.restype = ctypes.c_int
     return lib
 
@@ -213,7 +233,7 @@ def _run_kernel(face_verts, bins, image_size, blur_radius, K, perspective_correc
     N, F = face_verts.shape[:2]
     H, W = image_size
     device = face_verts.device
-    ys, xs = pixel_grid_ndc(H, W, device)
+    ys, xs = _pixel_grid(H, W, device)
     idx = torch.empty((N, H, W, K), dtype=torch.int32, device=device)
     zbuf = torch.empty((N, H, W, K), dtype=torch.float32, device=device)
     bary = torch.empty((N, H, W, K, 3), dtype=torch.float32, device=device)
@@ -224,8 +244,8 @@ def _run_kernel(face_verts, bins, image_size, blur_radius, K, perspective_correc
     with torch.cuda.device(device):  # launch in the tensors' context
         err = lib.rasterize_fine(
             face_verts.data_ptr(), tile_faces.data_ptr(), tile_start.data_ptr(),
-            xs.data_ptr(), ys.data_ptr(), N, F, H, W, n_ty, n_tx,
-            float(blur_radius), K, int(perspective_correct), int(clip_barycentric_coords),
+            xs.data_ptr(), ys.data_ptr(), N, F, H, W, n_ty, n_tx, float(blur_radius),
+            box_grow(image_size, blur_radius), K, int(perspective_correct), int(clip_barycentric_coords),
             idx.data_ptr(), zbuf.data_ptr(), bary.data_ptr(), dists.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream,
         )
@@ -325,7 +345,7 @@ def rasterize_grad_cuda(
     gpair = torch.empty((max(tile_faces.numel(), 1), 9), dtype=torch.float32, device=device)
     error = torch.zeros((1,), dtype=torch.int32, device=device)
     grad = torch.empty((N, F, 3, 3), dtype=torch.float32, device=device)
-    ys, xs = pixel_grid_ndc(H, W, device)
+    ys, xs = _pixel_grid(H, W, device)
     lib = _grad_library()
     with torch.cuda.device(device):
         err = lib.rasterize_grad(
@@ -472,12 +492,13 @@ def rasterize_topk_cuda(
         fv, _face_culls(fv, valid[None], cull_backfaces), (H, W), blur_radius
     )
     idx = torch.empty((H, W, K), dtype=torch.int32, device=fv.device)
-    ys, xs = pixel_grid_ndc(H, W, fv.device)
+    ys, xs = _pixel_grid(H, W, fv.device)
     lib = _library()
     with torch.cuda.device(fv.device):
         err = lib.rasterize_topk(
             fv.data_ptr(), tile_faces.data_ptr(), tile_start.data_ptr(), xs.data_ptr(), ys.data_ptr(),
-            1, fv.shape[1], H, W, n_ty, n_tx, float(blur_radius), K, int(perspective_correct),
+            1, fv.shape[1], H, W, n_ty, n_tx, float(blur_radius), box_grow((H, W), blur_radius), K,
+            int(perspective_correct),
             int(clip_barycentric_coords), idx.data_ptr(), torch.cuda.current_stream(fv.device).cuda_stream,
         )
     if err != 0:
@@ -554,7 +575,7 @@ def rasterize_hard_cuda(
     if N == 0:
         return idx, zbuf, bary
     tile_faces, tile_start, n_ty, n_tx = bin_faces(fv, _face_culls(fv, valid, False), (H, W), 0.0)
-    ys, xs = pixel_grid_ndc(H, W, device)
+    ys, xs = _pixel_grid(H, W, device)
     lib = _hard_library()
     with torch.cuda.device(device):
         err = lib.rasterize_hard(

@@ -429,7 +429,7 @@ def _pulsar_grad_library() -> ctypes.CDLL:
                 f"pulsar_grad.cu reduces {rows.value}x{cols.value} tiles but the binning makes {TILE[0]}x{TILE[1]} tiles"
             )
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.pulsar_grad.argtypes = [p] * 12 + [i] * 8 + [f] * 4 + [p] * 3
+        lib.pulsar_grad.argtypes = [p] * 12 + [i] * 8 + [f] * 4 + [p] * 4
         lib.pulsar_grad.restype = ctypes.c_int
     return lib
 
@@ -458,7 +458,9 @@ def pulsar_blend_grads_cuda(
     `bin_points_for_pulsar` binning the ids were selected on; CPU tensors
     run `pulsar_blend_grads_plain`.  The kernel takes float32 contiguous
     tensors and int32 ids; anything else raises.  Deterministic: per-tile
-    sums, then each sphere's slots in a fixed order.
+    sums, then each sphere's slots in a fixed order.  A hit whose sphere is
+    missing from its tile's list in `bins` (or an id >= P) makes that
+    sphere's row (every row) NaN: the fault shows without a host sync.
     """
     if table.device.type == "cpu":
         return pulsar_blend_grads_plain(
@@ -492,6 +494,7 @@ def pulsar_blend_grads_cuda(
         return dtable
     pairs = tile_points.numel()
     gslot = torch.empty((max(pairs, 1), F), dtype=torch.float32, device=table.device)
+    flagged = torch.zeros((P + 1,), dtype=torch.int32, device=table.device)
     ys, xs = pulsar_pixel_grid(H, W, torch.float32, table.device)
     lib = _pulsar_grad_library()
     with torch.cuda.device(table.device):
@@ -501,7 +504,8 @@ def pulsar_blend_grads_cuda(
             xs.data_ptr(), ys.data_ptr(), slot_rows.data_ptr(), sphere_start.data_ptr(),
             P, C, H, W, n_ty, n_tx, idx.shape[2], pairs,
             1.0 / gamma, float(min_depth), 1.0 / (max_depth - min_depth), bg_norm_depth / gamma,
-            gslot.data_ptr(), dtable.data_ptr(), torch.cuda.current_stream(table.device).cuda_stream,
+            gslot.data_ptr(), flagged.data_ptr(), dtable.data_ptr(),
+            torch.cuda.current_stream(table.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"pulsar_grad launch failed: CUDA error {err}")

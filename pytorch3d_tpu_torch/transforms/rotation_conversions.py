@@ -13,6 +13,8 @@ from typing import Optional
 
 import torch
 
+from ..common import DEFAULT_DEVICE
+
 
 def _sqrt_positive_part(x: torch.Tensor) -> torch.Tensor:
     """sqrt(max(0, x)) with a zero subgradient at x <= 0."""
@@ -205,12 +207,14 @@ def random_quaternions(
 ) -> torch.Tensor:
     """n random unit quaternions with non-negative real part, drawn from
     `generator` (a fresh one seeded 0 when None, as the JAX package's
-    default key)."""
+    default key).  They lie on `device`: by default the generator's, or
+    `DEFAULT_DEVICE` when no generator is given."""
     if generator is None:
-        generator = torch.Generator(device=device or "cpu").manual_seed(0)
+        generator = torch.Generator(device=DEFAULT_DEVICE if device is None else device).manual_seed(0)
     o = torch.randn((n, 4), generator=generator, dtype=dtype, device=generator.device)
     s = torch.sum(o * o, dim=1, keepdim=True)
-    return o / _copysign(torch.sqrt(s), o[:, 0:1])
+    q = o / _copysign(torch.sqrt(s), o[:, 0:1])
+    return q if device is None else q.to(device)
 
 
 def random_rotations(

@@ -1,0 +1,433 @@
+#!/usr/bin/env python3
+"""Study the fine mesh rasterizer (#1) and the pulsar blend backward (#8)
+on one CUDA card: each against an earlier build of it, its parts timed
+apart, and the end-to-end paths that run them.
+
+    git show b30e36d:pytorch3d_tpu_torch/csrc/rasterize_fine.cu > build/fine_parent.cu
+    python3 raster_study.py fine --source build/fine_parent.cu
+    git show b30e36d:pytorch3d_tpu_torch/csrc/pulsar_grad.cu > build/pulsar_parent.cu
+    python3 raster_study.py pulsar --source build/pulsar_parent.cu
+    python3 raster_study.py e2e [--tree DIR] [--reps N] [--paths NAME ...]
+
+`fine`: FILE is a `rasterize_fine.cu` without the box growth in its C
+interface, such as b30e36d's, where every pixel of a tile tests every
+face of the tile's list.  The script builds FILE and copies of the
+package's source that each change one thing (`fine_variants`):
+
+- `no_cull`: every warp walks every face of the chunk at every pixel;
+- `hoist`: the per-face terms (edge vectors, area + eps, the segments'
+  max(|v|^2, eps), v0z * v1z, the flags) computed once at staging and
+  staged beside the vertices, where the package recomputes them in every
+  test;
+- `thread_stores`: each thread stores its own run of K slots, lanes
+  K x 4 bytes apart, where the package's warps write their rectangle's
+  slots through shared memory;
+- `blocks_any`: `__launch_bounds__` asking for no number of blocks an SM
+  (the package asks for three at K <= 8);
+- `prec_div_false`: the package's source built with `--prec-div=false`
+  (approximate divisions, so other bits: timing only, its differing ids
+  counted).
+
+At every setting of `chip_smoke.phase_fine_kernel` and at the render-fit
+step's shape (8 views of ico_sphere(4) at 512^2, K=16), FILE's four
+outputs (ids, z, bary, dists) and those of the package and of each
+bit-exact copy must be equal bit for bit; the script exits non-zero
+otherwise.  Then it times each build by the profiler's device time
+(`chip_smoke.device_ms`) at the serving batch, the headline and the
+render-fit shape, in the order FILE, package, copies, package, FILE, and
+prints the tests each design makes (`chip_smoke.tile_candidates`,
+`chip_smoke.fine_tests`).
+
+`pulsar`: FILE is a `pulsar_grad.cu` without the flag array in its C
+interface, such as b30e36d's, where every pixel of a tile walks the
+tile's whole sphere list.  Copies of the package's source change pass 1's
+`__launch_bounds__`: `blocks_any` asks for no number of blocks an SM,
+`blocks3` for three at K <= 8 (the package asks for four there).  On the
+inputs of chip_smoke.py's pulsar-fit step 0 (10^5 spheres at 1024^2,
+K=5, C=3, its loss's cotangent) and of one request of 10^6 spheres (a
+seeded random cotangent) it prints the package's largest difference from
+FILE's result over each field's largest entry, whether two package
+launches and each copy give the package's bits, the package's device
+time by pass, and each build's device time (both passes) in the order
+FILE, package, copies, package, FILE.
+
+`e2e`: with the tree's own chip_smoke.py and port package (this checkout,
+or another commit unpacked with `git archive` into a directory
+.gitignore lists, such as `build/parent`), the serving frame (the mesh
+batch at one of chip_smoke's 8 azimuths), the render-fit step, the
+pulsar-serving request and the pulsar-fit step: each the host-clock
+median of N after warm-up (`chip_smoke.timed_ms`), printed as one JSON
+line; `--paths` times only the named ones, in the order given.  Host
+times vary up to 2x between calls, so compare two trees only in one
+call, in turns:
+
+    for t in build/parent . . build/parent; do python3 raster_study.py e2e --tree $t; done
+
+Copies are built into `build/raster_study/`; none of them is package
+code.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import statistics
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
+OUT = REPO / "build" / "raster_study"
+CSRC = REPO / "pytorch3d_tpu_torch" / "csrc"
+E2E_PATHS = ("serving frame", "render-fit step", "pulsar-serving request", "pulsar-fit step")
+
+FINE_BOUNDS = "__global__ void __launch_bounds__(kThreads, KB <= 8 ? 3 : 1)\nrasterize_fine_kernel("
+FINE_STORES_START = "  // Each warp writes its rectangle's slots through its buffer"
+FINE_STORES_END = "\ntemplate <int KB, bool kIdsOnly>\nvoid launch("
+THREAD_STORES = """  if (!live) return;
+  const size_t pix = (static_cast<size_t>(n) * H + row) * W + col;
+#pragma unroll
+  for (int k = 0; k < KB; ++k) {
+    if (k < K) {
+      const size_t o = pix * K + k;
+      const bool empty = bi[k] < 0;
+      out_idx[o] = bi[k];
+      if (kIdsOnly) continue;
+      out_z[o] = empty ? -1.0f : bz[k];
+      out_bary[3 * o + 0] = empty ? -1.0f : b0[k];
+      out_bary[3 * o + 1] = empty ? -1.0f : b1[k];
+      out_bary[3 * o + 2] = empty ? -1.0f : b2[k];
+      out_dist[o] = empty ? -1.0f : bd[k];
+    }
+  }
+}
+"""
+FINE_NO_CULL = (
+    ("!(face.flags & kZeroArea) && b.x <= b.y && b.z <= b.w", "!(face.flags & kZeroArea)"),
+    ("const bool meets = b.x < r0 + kRectH && b.y >= r0 && b.z < c0 + kRectW && b.w >= c0;",
+     "const bool meets = true;"),
+    ("const bool in_box = row >= b.x && row <= b.y && col >= b.z && col <= b.w;", "const bool in_box = true;"),
+)
+FINE_HOIST = (
+    ("constexpr int kStaged = 9;", "constexpr int kStaged = 21;"),
+    ("  const float v[kStaged] = {f.v0x, f.v0y, f.v0z, f.v1x, f.v1y, f.v1z, f.v2x, f.v2y, f.v2z};",
+     "  const float v[kStaged] = {f.v0x, f.v0y, f.v0z, f.v1x, f.v1y, f.v1z, f.v2x, f.v2y, f.v2z,\n"
+     "                            f.d01x, f.d01y, f.d12x, f.d12y, f.d02x, f.d02y, f.area_eps, f.z01,\n"
+     "                            f.l01, f.l12, f.l02, __uint_as_float(f.flags)};"),
+    ("  face_terms(f);\n  return f;",
+     "  f.d01x = s.f[9][j]; f.d01y = s.f[10][j]; f.d12x = s.f[11][j]; f.d12y = s.f[12][j];\n"
+     "  f.d02x = s.f[13][j]; f.d02y = s.f[14][j]; f.area_eps = s.f[15][j]; f.z01 = s.f[16][j];\n"
+     "  f.l01 = s.f[17][j]; f.l12 = s.f[18][j]; f.l02 = s.f[19][j]; f.flags = __float_as_uint(s.f[20][j]);\n"
+     "  return f;"),
+)
+PULSAR_BOUNDS = "__global__ void __launch_bounds__(kThreads, KB <= 8 ? 4 : 1)\npulsar_grad_tiles_kernel("
+
+
+def substitute(text, pairs, what):
+    """`text` with each (old, new) of `pairs` replaced; each old must occur once."""
+    for old, new in pairs:
+        if text.count(old) != 1:
+            raise SystemExit(f"raster_study: the package's source has {text.count(old)} of {old!r} ({what})")
+        text = text.replace(old, new)
+    return text
+
+
+def fine_variants(parent_text, text):
+    """{name: (source text, extra nvcc flags, takes the box growth, bit-exact)}."""
+    i = text.index(FINE_STORES_START) if FINE_STORES_START in text else -1
+    j = text.find(FINE_STORES_END, i)
+    if i < 0 or j < 0:
+        raise SystemExit("raster_study: the package's fine kernel has no staged stores to take out")
+    return {
+        "parent": (parent_text, (), False, True),
+        "no_cull": (substitute(text, FINE_NO_CULL, "no_cull"), (), True, True),
+        "hoist": (substitute(text, FINE_HOIST, "hoist"), (), True, True),
+        "thread_stores": (text[:i] + THREAD_STORES + text[j:], (), True, True),
+        "blocks_any": (substitute(text, ((FINE_BOUNDS, FINE_BOUNDS.replace("KB <= 8 ? 3 : 1", "1")),), "bounds"),
+                       (), True, True),
+        "prec_div_false": (text, ("--prec-div=false",), True, False),
+    }
+
+
+def build_all(kernel, sources):
+    """{name: (library, nvcc output)} of {name: (text, extra flags)}, one nvcc each, all at once."""
+    from pytorch3d_tpu_torch import _build
+
+    with ThreadPoolExecutor(len(sources)) as pool:
+        done = pool.map(lambda kv: _build.build_copy(kernel, kv[0], kv[1][0], OUT, kv[1][1]), sources.items())
+        return dict(zip(sources, done))
+
+
+def fine_settings(cs, device):
+    """[(label, fv, valid, size, blur, K, persp, clip, cull)]: the fine-kernel
+    phase's five and the render-fit step's shape."""
+    import torch
+
+    from pytorch3d_tpu_torch.utils import ico_sphere
+
+    batch = cs.main_path_meshes(device)
+    ico4 = ico_sphere(4, device=device)
+    square, wide = (cs.IMAGE, cs.IMAGE), (cs.IMAGE * 3 // 4, cs.IMAGE)
+    cams = cs.camera(30.0, device)
+    out = []
+    for label, meshes, size, blur, k, persp, clip, cull in (
+        ("main path batch", batch, square, cs.BLUR, cs.K, True, True, False),
+        ("headline ico4", ico4, square, cs.BLUR, cs.K, True, True, False),
+        ("K=1 blur 0", ico4, square, 0.0, 1, True, False, False),
+        ("cull_backfaces", ico4, square, cs.BLUR, cs.K, True, True, True),
+        ("non-square 384x512", ico4, wide, cs.BLUR, cs.K, True, True, False),
+    ):
+        c = cams if size[0] == size[1] else cs.camera(30.0, device, aspect_ratio=size[1] / size[0])
+        out.append((label, *cs.face_inputs(meshes, c, size), size, blur, k, persp, clip, cull))
+    fit = cs.RenderFit(device)
+    with torch.no_grad():
+        fv, valid = cs.face_inputs(fit.mesh().extend(cs.FIT_VIEWS), fit.soft_renderer(cs.FIT_VIEWS)[1], square)
+    out.append(("render-fit", fv, valid, square, cs.FIT_BLUR, cs.FIT_K, True, True, False))
+    return out
+
+
+def study_fine(cs, device, source):
+    import torch
+
+    from pytorch3d_tpu_torch.renderer.mesh import rasterize_cuda as rc
+    from pytorch3d_tpu_torch.renderer.mesh.rasterize_meshes import _face_culls
+
+    parent_text = source.read_text()
+    if "box_grow" in parent_text:
+        raise SystemExit("raster_study: the source takes the box growth: not the design without the cull")
+    sources = fine_variants(parent_text, (CSRC / "rasterize_fine.cu").read_text())
+    built = build_all("rasterize_fine", {name: v[:2] for name, v in sources.items()})
+    libs = {"package": (rc._library(), True, True)}
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for name, (lib, log) in built.items():
+        grow = sources[name][2]
+        lib.rasterize_fine.argtypes = [p] * 5 + [i] * 6 + [f] * (2 if grow else 1) + [i] * 3 + [p] * 5
+        lib.rasterize_fine.restype = ctypes.c_int
+        libs[name] = (lib, grow, sources[name][3])
+        for kernel, figures in cs.ptxas_figures(log).items():
+            if "ILi8ELb0E" in kernel or "ILi16ELb0E" in kernel:  # the K buckets of the timed shapes
+                print(f"ptxas {name}: {kernel}: {figures}", flush=True)
+
+    def runner(lib, grow_arg, fv, bins, size, blur, k, persp, clip):
+        tile_faces, tile_start, n_ty, n_tx = bins
+        N, F = fv.shape[:2]
+        H, W = size
+        ys, xs = rc.pixel_grid_ndc(H, W, device)
+        outs = (torch.empty((N, H, W, k), dtype=torch.int32, device=device),
+                torch.empty((N, H, W, k), device=device), torch.empty((N, H, W, k, 3), device=device),
+                torch.empty((N, H, W, k), device=device))
+        grow = (rc.box_grow(size, blur),) if grow_arg else ()
+
+        def run():
+            err = lib.rasterize_fine(
+                fv.data_ptr(), tile_faces.data_ptr(), tile_start.data_ptr(), xs.data_ptr(), ys.data_ptr(),
+                N, F, H, W, n_ty, n_tx, float(blur), *grow, k, int(persp), int(clip),
+                *(t.data_ptr() for t in outs), torch.cuda.current_stream().cuda_stream,
+            )
+            assert err == 0, err
+            return outs
+
+        return run
+
+    bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t  # noqa: E731
+    failed, timed = [], {}
+    for label, fv, valid, size, blur, k, persp, clip, cull in fine_settings(cs, device):
+        bins = rc.bin_faces(fv, _face_culls(fv, valid, cull), size, blur)
+        want = [t.clone() for t in runner(*libs["parent"][:2], fv, bins, size, blur, k, persp, clip)()]
+        notes = []
+        for name, (lib, grow_arg, exact) in libs.items():
+            if name == "parent":
+                continue
+            got = runner(lib, grow_arg, fv, bins, size, blur, k, persp, clip)()
+            torch.cuda.synchronize()
+            same = [torch.equal(bits(g), bits(w)) for g, w in zip(got, want)]
+            if exact:
+                notes.append(f"{name} {'equal' if all(same) else 'DIFFERS ' + str(same)}")
+                if not all(same):
+                    failed.append((label, name))
+            else:
+                notes.append(f"{name} ids differ at {int((got[0] != want[0]).sum())} slots")
+        made, walked = cs.fine_tests(bins, cs.face_pixel_boxes(fv, size, blur, persp), *fv.shape[:2], size)
+        print(f"bits [{label}] N={fv.shape[0]} F={fv.shape[1]} {size[0]}x{size[1]} K={k} blur={blur:g}"
+              f" persp={persp} clip={clip} cull={cull}: against the parent's four outputs: {'; '.join(notes)};"
+              f" tests: parent {cs.tile_candidates(bins[1], fv.shape[0], bins[2], bins[3], size) / 1e6:.3f} M,"
+              f" package {made / 1e6:.3f} M in {walked / 1e6:.3f} M warp lanes", flush=True)
+        if label in ("main path batch", "headline ico4", "render-fit"):
+            timed[label] = (fv, bins, size, blur, k, persp, clip)
+    if failed:
+        print(f"raster_study: outputs differ from the parent's: {failed}", file=sys.stderr)
+        return 1
+
+    order = ["parent", "package", *[n for n in libs if n not in ("parent", "package")], "package", "parent"]
+    for label, (fv, bins, size, blur, k, persp, clip) in timed.items():
+        kernel = f"rasterize_fine_kernel<{cs.fine_bucket(k)}, false>"
+        times = []
+        for name in order:
+            lib, grow_arg, _ = libs[name]
+            ms = cs.device_ms(runner(lib, grow_arg, fv, bins, size, blur, k, persp, clip), kernel)
+            times.append(f"{name} {ms:.4f}")
+        print(f"times [{label}] device ms: {', '.join(times)}", flush=True)
+    return 0
+
+
+def study_pulsar(cs, device, source):
+    import torch
+
+    from pytorch3d_tpu_torch.renderer.points import rasterize_points_cuda as rpc
+    from pytorch3d_tpu_torch.renderer.points.pulsar.renderer import _blend_core
+
+    kernels = ("pulsar_grad_tiles_kernel", "pulsar_grad_combine_kernel")
+    text = source.read_text()
+    if "flagged" in text:
+        raise SystemExit("raster_study: the source takes the flag array: not the earlier design")
+    package_text = (CSRC / "pulsar_grad.cu").read_text()
+    bounds = lambda b: substitute(package_text, ((PULSAR_BOUNDS, PULSAR_BOUNDS.replace("KB <= 8 ? 4 : 1", b)),),  # noqa: E731
+                                  "bounds")
+    sources = {
+        "parent": (text, ()),
+        "package": (package_text, ()),  # built for its ptxas figures; the runs use the package's own build
+        "blocks_any": (bounds("1"), ()),
+        "blocks3": (bounds("KB <= 8 ? 3 : 1"), ()),
+    }
+    package = rpc._pulsar_grad_library()
+    libs = {}
+    for name, (lib, log) in build_all("pulsar_grad", sources).items():
+        for kernel, figures in cs.ptxas_figures(log).items():
+            if "tiles_kernelILi8E" in kernel:  # the K bucket of both cases
+                print(f"ptxas {name}: {kernel}: {figures}", flush=True)
+        lib.pulsar_grad.argtypes = package.pulsar_grad.argtypes
+        lib.pulsar_grad.restype = ctypes.c_int
+        libs[name] = lib
+    parent = libs.pop("parent")
+    del libs["package"]
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    parent.pulsar_grad.argtypes = [p] * 12 + [i] * 8 + [f] * 4 + [p] * 3
+
+    cases = [("pulsar-fit step 0", *cs.PulsarFit(device).blend_inputs())]
+    big, big_ren = cs.pulsar_scene(device, cs.PULSAR_BIG), cs.pulsar_renderer(cs.PULSAR_BIG)
+    with torch.no_grad():
+        table, idx, bins = big_ren._prepare(big[0], big[1], big[2], cs.pulsar_cam(0.0, device), *cs.PULSAR_DEPTH)
+    ct = torch.randn((cs.PULSAR_IMAGE, cs.PULSAR_IMAGE, 3), generator=torch.Generator(device=device).manual_seed(8),
+                     device=device)
+    cases.append((f"{cs.PULSAR_BIG} spheres, random cotangent", table.contiguous(), idx, bins, ct))
+
+    args_ = (cs.PULSAR_GAMMA, *cs.PULSAR_DEPTH)
+    library = rpc._pulsar_grad_library
+    for label, t, ids, b, ct in cases:
+        size = ids.shape[:2]
+        H, W = size
+        bg = torch.ones(3, device=device)
+        with torch.no_grad():
+            _, denom, lm, _, _ = _blend_core(t, ids, bg, *args_, 0.0, *size)
+        tile_points, tile_start, n_ty, n_tx, slot_rows, sphere_start = b
+        P, F = t.shape
+        gslot = torch.empty((max(tile_points.numel(), 1), F), device=device)
+        old = torch.empty((P, F), device=device)
+        ys, xs = rpc.pulsar_pixel_grid(H, W, torch.float32, device)
+
+        def run_parent():
+            err = parent.pulsar_grad(
+                t.data_ptr(), tile_points.data_ptr(), tile_start.data_ptr(), ids.data_ptr(), ct.data_ptr(),
+                bg.data_ptr(), denom.data_ptr(), lm.data_ptr(), xs.data_ptr(), ys.data_ptr(), slot_rows.data_ptr(),
+                sphere_start.data_ptr(), P, F - 5, H, W, n_ty, n_tx, ids.shape[2], tile_points.numel(),
+                1.0 / cs.PULSAR_GAMMA, float(cs.PULSAR_DEPTH[0]), 1.0 / (cs.PULSAR_DEPTH[1] - cs.PULSAR_DEPTH[0]),
+                0.0, gslot.data_ptr(), old.data_ptr(), torch.cuda.current_stream().cuda_stream,
+            )
+            assert err == 0, err
+
+        def run_package(lib=package):
+            rpc._pulsar_grad_library = lambda: lib
+            try:
+                return rpc.pulsar_blend_grads_cuda(t, ids, ct, denom, lm, bg, size, *args_, 0.0, b)
+            finally:
+                rpc._pulsar_grad_library = library
+
+        run_parent()
+        a, a2 = run_package(), run_package()
+        copies = {name: torch.equal(run_package(lib).view(torch.int32), a.view(torch.int32))
+                  for name, lib in libs.items()}
+        torch.cuda.synchronize()
+        scale = old.abs().amax(dim=0).clamp(min=1e-30)
+        ratio = (a - old).abs().amax(dim=0) / scale
+        same = torch.equal(a.view(torch.int32), a2.view(torch.int32))
+        passes = cs.device_ms_by_kernel(run_package, kernels, iters=10)
+        runs = [("parent", run_parent), ("package", run_package),
+                *((name, lambda lib=lib: run_package(lib)) for name, lib in libs.items()),
+                ("package", run_package), ("parent", run_parent)]
+        times = [(name, cs.device_ms(fn, kernels, iters=10)) for name, fn in runs]
+        print(f"[{label}] P={P} {H}x{W} K={ids.shape[2]} hits {int((ids >= 0).sum())} pairs {tile_points.numel()}"
+              f" longest list {int(tile_start.diff().max())}: package vs parent per field (of the field's"
+              f" max|grad|) {[float(f'{r:.3e}') for r in ratio]}; package twice bit-equal {same}, finite"
+              f" {bool(torch.isfinite(a).all())}; copies bit-equal to the package {copies}; package by pass"
+              f" {', '.join(f'{k} {v:.4f}' for k, v in passes.items())}; device ms:"
+              f" {', '.join(f'{n} {ms:.4f}' for n, ms in times)}", flush=True)
+    return 0
+
+
+def study_e2e(cs, device, tree, reps, names):
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cs.phase_build()
+    meshes = cs.main_path_meshes(device)
+    renderers = [cs.renderer(cs.camera(a, device), device) for a in cs.AZIMUTHS]
+    fit, serving, pfit = cs.RenderFit(device), cs.PulsarServing(device), cs.PulsarFit(device)
+
+    def step(f):
+        f.optimizer.zero_grad()
+        f.forward().backward()
+        f.optimizer.step()
+
+    paths = {
+        "serving frame": lambda i: renderers[i % len(renderers)](meshes),
+        "render-fit step": lambda i: step(fit),
+        "pulsar-serving request": lambda i: cs.pulsar_render(
+            serving.renderer, serving.scene, cs.PULSAR_YAWS[i % len(cs.PULSAR_YAWS)], device),
+        "pulsar-fit step": lambda i: step(pfit),
+    }
+    out = {"tree": tree}
+    for name in names:
+        fn = paths[name]
+        with torch.set_grad_enabled(name.endswith("step")):
+            for i in range(3):  # warm-up
+                fn(i)
+            ms = [cs.timed_ms(lambda: fn(i))[1] for i in range(reps)]
+        out[name] = {"median_ms": statistics.median(ms), "min_ms": min(ms), "max_ms": max(ms)}
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    sub = parser.add_subparsers(dest="study", required=True)
+    sub.add_parser("fine").add_argument("--source", type=Path, required=True,
+                                        help="a rasterize_fine.cu without the box growth")
+    sub.add_parser("pulsar").add_argument("--source", type=Path, required=True,
+                                          help="a pulsar_grad.cu without the flag array")
+    e2e = sub.add_parser("e2e")
+    e2e.add_argument("--tree", default=str(REPO))
+    e2e.add_argument("--reps", type=int, default=16)
+    e2e.add_argument("--paths", nargs="+", choices=E2E_PATHS, default=list(E2E_PATHS))
+    args = parser.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("raster_study: needs a CUDA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(args.tree).resolve() if args.study == "e2e" else REPO))
+    import chip_smoke as cs
+
+    device = torch.device("cuda")
+    if args.study == "e2e":
+        return study_e2e(cs, device, args.tree, args.reps, args.paths)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True)
+    print(smi.stdout.strip(), flush=True)
+    return (study_fine if args.study == "fine" else study_pulsar)(cs, device, args.source)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -253,6 +253,19 @@ def test_grad_kernel_raises_on_a_face_missing_from_its_tile_list(cuda_device):
         trc.rasterize_grad_cuda(fv, idx, *cots, (128, 128), (faces, start.int(), n_ty, n_tx), True, True)
 
 
+@pytest.mark.parametrize("level,size,blur,K", [(5, (64, 64), 1e-4, 8), (4, (128, 128), 2e-2, 16)])
+def test_fine_kernel_walks_tile_lists_of_several_staging_chunks(cuda_device, level, size, blur, K):
+    """A dense mesh at a small image, and a large blur: tile lists longer
+    than the 256 faces a block of the fine kernel stages at once."""
+    fv, valid = _dense_faces(cuda_device, size, level)
+    bins = trc.bin_faces(fv, trm._face_culls(fv, valid, False), size, blur)
+    assert int(bins[1].diff().max()) > 2 * 256
+    frac, err, covered = _CHIP_SMOKE.compare_fine(fv, valid, size, blur, K, True, True, False)
+    assert _CHIP_SMOKE.row_ok(frac, err) and covered > 0, (frac, err)
+    got = trc.rasterize_fragments_cuda(fv, valid, size, blur, K, True, True)
+    assert torch.equal(trc.rasterize_topk_cuda(fv[0], valid[0], size, blur, K, True, True), got[0][0])
+
+
 def test_each_cuda_call_counts_its_launch(cuda_device):
     fv, valid = _batch_faces(cuda_device, (32, 32))
     counters = (trc.rasterize_fragments_cuda, trc.rasterize_grad_cuda, tknn.knn_points_cuda)
@@ -661,10 +674,10 @@ def test_select_kernel_matches_plain(cuda_device, size, K):
     assert torch.equal(got, tpc._run_kernel(pts[None], rad[None], bins[:4], size, K)[0][0])
 
 
-def _pulsar_case(device, size, K, seed=0, C=3, gamma=0.1):
+def _pulsar_case(device, size, K, seed=0, C=3, gamma=0.1, P=3000):
     from pytorch3d_tpu_torch.renderer.points.pulsar.renderer import _blend_core
 
-    pts, rad, valid = _spheres(device, seed=seed)
+    pts, rad, valid = _spheres(device, P=P, seed=seed)
     P = pts.shape[0]
     gen = torch.Generator(device=device).manual_seed(seed + 1)
     table = torch.cat([pts, rad[:, None], torch.rand((P, 1), generator=gen, device=device) * 0.7 + 0.3,
@@ -693,6 +706,43 @@ def test_pulsar_grad_kernel_matches_plain(cuda_device, size, K, C, gamma):
     a = tpc.pulsar_blend_grads_cuda(table, idx, ct, *env, size, gamma, 0.5, 3.5, 0.0, bins)
     b = tpc.pulsar_blend_grads_cuda(table, idx, ct, *env, size, gamma, 0.5, 3.5, 0.0, bins)
     assert torch.equal(a, b)  # no atomics: two runs give the same bits
+
+
+@pytest.mark.parametrize("P,size,K", [(30000, (64, 64), 5), (3000, (128, 128), 12)])
+def test_pulsar_grad_kernel_gives_the_same_bits_twice(cuda_device, P, size, K):
+    """Also where tile lists run to several passes of the kernel's pass 1
+    (128 list positions each)."""
+    table, idx, bins, ct, env = _pulsar_case(cuda_device, size, K, P=P)
+    if P == 30000:
+        assert int(bins[1].diff().max()) > 3 * 128
+    a, b = (tpc.pulsar_blend_grads_cuda(table, idx, ct, *env, size, 0.1, 0.5, 3.5, 0.0, bins) for _ in range(2))
+    assert bool(torch.isfinite(a).all()) and torch.equal(a.view(torch.int32), b.view(torch.int32))
+    ok, ratio, ratio_plain, _ = _CHIP_SMOKE.compare_pulsar_grad(table, idx, bins, ct, "card test", 0.1, (0.5, 3.5))
+    assert ok, (ratio, ratio_plain)
+
+
+def test_pulsar_grad_kernel_flags_a_sphere_missing_from_its_tile_list(cuda_device):
+    size = (128, 128)
+    table, idx, bins, ct, env = _pulsar_case(cuda_device, size, 5)
+    tile_points, tile_start, n_ty, n_tx, _, _ = bins
+    y, x, k = (int(v) for v in (idx >= 0).nonzero()[0])
+    j = int(idx[y, x, k])
+    tile = (y // trc.TILE[0]) * n_tx + x // trc.TILE[1]
+    lo, hi = int(tile_start[tile]), int(tile_start[tile + 1])
+    drop = lo + int((tile_points[lo:hi] == j).nonzero()[0])
+    points = torch.cat([tile_points[:drop], tile_points[drop + 1:]])
+    start = torch.where(torch.arange(tile_start.numel(), device=cuda_device) > tile, tile_start - 1, tile_start).int()
+    P = table.shape[0]
+    rows = torch.sort(points, stable=True).indices.int()  # as bin_points_for_pulsar builds them
+    sphere_start = torch.zeros(P + 1, dtype=torch.int64, device=cuda_device)
+    sphere_start[1:] = torch.cumsum(torch.bincount(points, minlength=P), 0)
+    cut = (points, start, n_ty, n_tx, rows, sphere_start.int())
+    got = tpc.pulsar_blend_grads_cuda(table, idx, ct, *env, size, 0.1, 0.5, 3.5, 0.0, cut)
+    others = torch.arange(P, device=cuda_device) != j
+    assert bool(torch.isnan(got[j]).all()) and bool(torch.isfinite(got[others]).all())
+    bad = idx.clone()
+    bad[y, x, k] = P  # no such sphere: every row
+    assert bool(torch.isnan(tpc.pulsar_blend_grads_cuda(table, bad, ct, *env, size, 0.1, 0.5, 3.5, 0.0, bins)).all())
 
 
 def test_pulsar_points_renderer_backward_at_its_default_gamma(cuda_device):

@@ -119,6 +119,32 @@ def test_random_rotations():
                                trc.random_rotations(3, torch.Generator().manual_seed(1)))
 
 
+def test_random_rotations_on_the_cpu_when_asked():
+    R = trc.random_rotations(4, device="cpu")
+    assert R.device.type == "cpu"
+    # an explicit device is honoured with a generator too
+    q = trc.random_quaternions(4, generator=torch.Generator().manual_seed(2), device="cpu")
+    assert q.device.type == "cpu"
+    assert trc.random_rotation(device=torch.device("cpu")).device.type == "cpu"
+
+
+def test_random_rotations_default_to_the_default_device(monkeypatch):
+    # With neither a generator nor a device the draw is made on DEFAULT_DEVICE:
+    # pointed at the CPU it is the seed-0 draw there ...
+    monkeypatch.setattr(trc, "DEFAULT_DEVICE", torch.device("cpu"))
+    R = trc.random_rotations(3)
+    assert R.device.type == "cpu"
+    torch.testing.assert_close(R, trc.random_rotations(3, torch.Generator().manual_seed(0)), atol=0, rtol=0)
+    # ... and, left at its value, the card (which a CPU-only torch refuses).
+    monkeypatch.undo()
+    assert trc.DEFAULT_DEVICE.type == "cuda"
+    if torch.cuda.is_available():
+        assert trc.random_rotations(3).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError):
+            trc.random_rotations(3)
+
+
 def test_gradients_are_finite_at_the_identity():
     aa = torch.zeros(2, 3, requires_grad=True)
     (trc.axis_angle_to_matrix(aa).sum() + trc.axis_angle_to_quaternion(aa).sum()).backward()
