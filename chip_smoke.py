@@ -165,7 +165,7 @@ GRAD_FACE_SHARE = 0.997
 # (csrc/rasterize_grad.cu's kListChunk): a longer tile list takes several
 # passes, which the long-list cases of phase_grad_kernel drive.
 GRAD_LIST_CHUNK = 128
-FINE_RECT = (4, 8)  # rows x columns of a warp's rectangle in csrc/rasterize_fine.cu
+FINE_RECT = (4, 8)  # rows x columns of a warp's rectangle in csrc/rasterize_fine.cu and rasterize_points.cu
 KNN_IDS_GATE = 0.9999  # share of queries whose K ids all agree
 KNN_DISTS_RTOL = 1e-6
 
@@ -827,6 +827,51 @@ def fine_tests(bins, boxes, N, F, size):
                      & (b[:, 1] >= r0 + dr) & (b[:, 2] < c0 + dc + RW) & (b[:, 3] >= c0 + dc))
             lanes += 32 * int(meets.sum())
     return float((rows * cols).double().sum()), float(lanes)
+
+
+def point_pixel_boxes(points, radius, image_size):
+    """(N * P, 4) int32 pixel boxes (first row, last row, first column,
+    last column) of the points kernel's cull for (N, P, 3) NDC `points`
+    and (N, P) `radius`: on each axis the pixel centres c whose own test
+    fl(c - v)^2 < fl(r * r) passes (first > last where none does).  The
+    kernel (csrc/rasterize_points.cu) tests the 16 centres of each tile
+    for itself; here a binary search finds the same run over the image.
+    The centres fall as the index grows, so fl(c - v) does not rise and
+    fl(d * d) does not fall as |d| grows: the passing centres are one run,
+    from the count of leading centres with !(d <= 0 or d * d < r2) to one
+    short of the count of those with d >= 0 or d * d < r2.  Those counts
+    hold the centre at d == 0 where no centre can pass, r2 <= 0 or NaN:
+    such a box is emptied."""
+    import torch
+
+    from pytorch3d_tpu_torch.renderer.mesh.rasterize_meshes import pixel_grid_ndc
+
+    ys, xs = pixel_grid_ndc(*image_size, points.device)
+    r2 = (radius * radius).reshape(-1)
+    bounds = []
+    for centres, v in ((ys, points[..., 1].reshape(-1)), (xs, points[..., 0].reshape(-1))):
+        n = centres.numel()
+
+        def leading(pred):
+            pos = torch.zeros(v.shape, dtype=torch.int64, device=v.device)
+            step = 1 << (n.bit_length() - 1)
+            while step:
+                d = centres[(pos + step - 1).clamp(max=n - 1)] - v
+                pos = torch.where((pos + step <= n) & pred(d), pos + step, pos)
+                step >>= 1
+            return pos
+
+        bounds += [leading(lambda d: ~((d <= 0) | (d * d < r2))), leading(lambda d: (d >= 0) | (d * d < r2)) - 1]
+    boxes = torch.stack(bounds, dim=-1)
+    return torch.where((r2 > 0)[:, None], boxes, boxes.new_tensor([0, -1, 0, -1])).int()
+
+
+def points_tests(points, radius, bins, size):
+    """(the (pixel, point) pairs in the points' boxes, the lanes the
+    points kernel's warps walk, each of which tests) over `bin_points`'
+    binning: `fine_tests` with `point_pixel_boxes`."""
+    N, P = points.shape[:2]
+    return fine_tests(bins, point_pixel_boxes(points, radius, size), N, P, size)
 
 
 def fine_bucket(k):
@@ -1746,6 +1791,76 @@ def hetero_points(device):
     return pts, radius, valid
 
 
+CULL_EDGE_IMAGE = (120, 200)  # neither side a multiple of the 16-pixel tile
+
+
+def cull_edge_points(size, seed, n):
+    """Points on the edges of the points kernel's pixel-box cull for an
+    (H, W) image, as numpy float32 (points (P, 3) NDC xy + view z, radius
+    (P,)) and a bool valid mask (P,), from np.random.default_rng(seed), in
+    a shuffled order, about n of each kind:
+    - a centre on a pixel centre with x +- r or y +- r exactly on another
+      pixel centre (the strict test fails there and the box ends there);
+    - radius 0, and negative radii (a disc of |r|);
+    - radii covering a whole tile (17 pixels) and several tiles (40);
+    - centres on the borders of warp rectangles and tiles (between
+      columns 7 | 8 and 15 | 16 of a tile, rows 3 | 4, 7 | 8 and 15 | 16);
+    - centres off the image whose discs reach into it;
+    z in quarter steps (ties in z meet the cull), 5 % behind the camera,
+    5 % not valid."""
+    import numpy as np
+    import torch
+
+    from pytorch3d_tpu_torch.renderer.mesh.rasterize_meshes import pixel_grid_ndc
+
+    H, W = size
+    ys, xs = (t.numpy() for t in pixel_grid_ndc(H, W, torch.device("cpu")))
+    rng = np.random.default_rng(seed)
+    pitch = np.float32(xs[0] - xs[1])
+    u = lambda lo, hi, m=n: rng.uniform(lo, hi, m).astype(np.float32)  # noqa: E731
+    parts = []
+    for centres, other, m in ((xs, ys, W), (ys, xs, H)):  # exact ends along x, then along y
+        c, k = rng.integers(0, m - 3, 8 * n), rng.integers(1, 4, 8 * n)
+        r = (centres[c] - centres[c + k]).astype(np.float32)
+        exact = (centres[c + k] - centres[c]) == -r  # fl(c' - v) is -r exactly: d * d == r * r
+        on, rr = centres[c][exact][:n], (r * rng.choice(np.float32([-1.0, 1.0]), r.shape))[exact][:n]
+        off = other[rng.integers(0, other.size, on.size)]
+        parts.append((on, off, rr) if centres is xs else (off, on, rr))
+    xr, yr = u(xs[-1], xs[0]), u(ys[-1], ys[0])
+    parts.append((xr, yr, np.where(rng.random(n) < 0.5, 0.0, -u(0.5, 3.0) * pitch).astype(np.float32)))
+    m = max(n // 8, 1)
+    parts.append((u(xs[-1], xs[0], m), u(ys[-1], ys[0], m), np.where(rng.random(m) < 0.5, 17, 40) * pitch))
+    cols = np.array([c for c in range(W - 1) if c % 16 in (7, 15)])
+    rows = np.array([r for r in range(H - 1) if r % 16 in (3, 7, 15)])
+    c, r = cols[rng.integers(0, cols.size, n)], rows[rng.integers(0, rows.size, n)]
+    parts.append(((xs[c] + xs[c + 1]) / 2, (ys[r] + ys[r + 1]) / 2, u(0.4, 1.6) * pitch))
+    side = rng.choice(np.float32([-1.0, 1.0]), n)
+    parts.append((side * (xs[0] + u(0.0, 3.0) * pitch), u(ys[-1], ys[0]), u(1.0, 4.0) * pitch))
+    x, y, r = (np.concatenate([p[i] for p in parts]).astype(np.float32) for i in range(3))
+    P = x.size
+    z = (rng.integers(2, 12, P) * 0.25).astype(np.float32)
+    z[rng.random(P) < 0.05] *= -1.0
+    order = rng.permutation(P)
+    return np.stack([x, y, z], -1)[order], r[order], (rng.random(P) >= 0.05)[order]
+
+
+def cull_edge_batch(device, size=CULL_EDGE_IMAGE, n=None):
+    """Two clouds of `cull_edge_points` (seeds 0 and 1, n of each kind, by
+    default one for 60 pixels; padded to one P with points that are not
+    valid) as (N, P, 3), (N, P) and (N, P) tensors on `device`."""
+    import numpy as np
+    import torch
+
+    n = n or max(size[0] * size[1] // 60, 20)
+    clouds = [cull_edge_points(size, seed, n) for seed in (0, 1)]
+    P = max(c[0].shape[0] for c in clouds)
+    out = [np.zeros((2, P, 3), np.float32), np.zeros((2, P), np.float32), np.zeros((2, P), bool)]
+    for i, cloud in enumerate(clouds):
+        for o, a in zip(out, cloud):
+            o[i, :a.shape[0]] = a
+    return tuple(torch.tensor(a, device=device) for a in out)
+
+
 def compare_points(points, radius, valid, size, k):
     """The points kernel against its plain version on the same inputs: the
     share of slots with equal ids, the largest |diff| of zbuf and of dists
@@ -1930,21 +2045,28 @@ class PointsFit:
         return ndc.detach().contiguous(), idx, (None, gdists.contiguous())
 
 
-def phase_points_kernel(device):
-    """The points kernel against its plain version at points-bench, the
-    points-serving batch, a hetero batch with per-point radius and counts,
-    and the K=1 and K=64 corners."""
+def points_kernel_cases(device):
+    """[(label, points, radius, valid, size, K)] of `phase_points_kernel`:
+    points-bench, the points-serving batch, a hetero batch with per-point
+    radius and counts, the K=1 and K=64 corners and the cull's edge cases
+    (`cull_edge_batch`) at a 120x200 image."""
     bench, served = bench_points(device), served_points_ndc(device)
     size = (PTS_IMAGE, PTS_IMAGE)
-    cases = [
+    return [
         ("points-bench", bench, *uniform_radius(bench, BENCH_RADIUS), size, BENCH_K),
         ("points-serving batch", served, *uniform_radius(served, PTS_RADIUS), size, PTS_K),
         ("hetero batch, per-point radius, counts 40000/25000/5000", *hetero_points(device), (PTS_IMAGE, 192), 16),
         ("K=1 corner (points-bench)", bench, *uniform_radius(bench, BENCH_RADIUS), size, 1),
         ("K=64 corner (points-bench, radius 0.05)", bench, *uniform_radius(bench, 0.05), size, 64),
+        ("cull edges: exact ends, radius 0 and < 0, tile-wide discs, rectangle and tile borders,"
+         " off-image centres, z ties", *cull_edge_batch(device), CULL_EDGE_IMAGE, 8),
     ]
+
+
+def phase_points_kernel(device):
+    """The points kernel against its plain version at `points_kernel_cases`."""
     worst, failed = 0.0, []
-    for label, pts, rad, valid, sz, k in cases:
+    for label, pts, rad, valid, sz, k in points_kernel_cases(device):
         frac, zerr, derr, filled = compare_points(pts, rad, valid, sz, k)
         ok = frac >= POINT_IDS_GATE and zerr <= DISTS_ATOL and derr <= DISTS_ATOL and filled > 0
         worst = max(worst, zerr, derr)
@@ -2140,6 +2262,7 @@ def phase_points_times(device, clouds, renderer, fit):
                 plain = cuda_ms(lambda: rasterize_points_plain(pts, rad, valid, sz, k), iters=2, warmup=1)
         filled = int((rpc._run_kernel(pts, rad, bins, sz, k)[0] >= 0).sum())
         bound, bound_by, tests, nbytes = points_fine_bound(pts, rad, valid, sz, k, filled)
+        made, walked = points_tests(pts, rad, bins, sz)
         fine[label] = dict(kernel=kernel, binning=binning, plain=plain, bound=bound, bound_by=bound_by)
         log(f"times [rasterize_points, {label}] N={pts.shape[0]} P={pts.shape[1]} {sz[0]}^2 K={k} radius {r}:"
             f" kernel {kernel:.4f} ms (device time, profiler;"
@@ -2147,8 +2270,9 @@ def phase_points_times(device, clouds, renderer, fit):
             f" {'not run' if plain is None else f'{plain:.2f} ms'}; bound {bound:.5f} ms by {bound_by} (bytes"
             f" {nbytes / 1e6:.2f} MB = {nbytes / PEAK_BYTES_PER_S * 1e3:.5f} ms, {tests / 1e6:.3f} M tests in the"
             f" points' boxes, {filled} filled slots = {(tests * POINTS_OPS_PER_CANDIDATE + filled * k) / PEAK_FP32_OPS_PER_S * 1e3:.5f}"
-            f" ms; the kernel tests {tile_candidates(bins[1], pts.shape[0], bins[2], bins[3], sz) / 1e6:.2f} M"
-            f" (pixel, point) pairs of {len(bins[0])} tile-point pairs)")
+            f" ms; the kernel's warps test {walked / 1e6:.3f} M (pixel, point) lanes, {made / 1e6:.3f} M of them"
+            f" in the points' boxes, of {len(bins[0])} tile-point pairs, where every pixel of a tile would test"
+            f" its whole list {tile_candidates(bins[1], pts.shape[0], bins[2], bins[3], sz) / 1e6:.3f} M)")
 
     grads = {}
     idx_b, _, _ = rpc.rasterize_points_cuda(bench, *uniform_radius(bench, BENCH_RADIUS), size, BENCH_K)
@@ -3083,34 +3207,44 @@ def phase_hard_kernel(device):
     return worst, plain_ms
 
 
-def phase_select_kernel(device, serving):
-    """#6 on request 0 of pulsar-serving against the plain selection
-    (>= PULSAR_IDS_GATE of slots; expected: all) and against #5 on the
-    same binning (equal), and on an NDC scene with spheres on both sides
-    of both depth bounds and of z = 0.  Keeps request 0's plain ids for
-    the pulsar-serving path.  Returns the share of slots off the plain
-    version."""
+def select_kernel_cases(device, serving):
+    """[(label, points, radius, valid, size)] of `phase_select_kernel`:
+    request 0 of pulsar-serving as its renderer projects it, 20 000
+    spheres across z = 0 and both depth bounds, and cloud 0 of
+    `cull_edge_batch`."""
     import torch
 
-    from pytorch3d_tpu_torch.renderer.points import rasterize_points_cuda as rpc
-    from pytorch3d_tpu_torch.renderer.points.rasterize_points import rasterize_points_topk
-
-    size = (PULSAR_IMAGE, PULSAR_IMAGE)
-    ren = serving.renderer
-    pos, col, rad = serving.scene
-    pts, r, valid = ren._project_ndc(pos, rad, pulsar_cam(PULSAR_YAWS[0], device), *PULSAR_DEPTH)
-    pts, r = pts.contiguous(), r.contiguous()
+    pos, _, rad = serving.scene
+    pts, r, valid = serving.renderer._project_ndc(pos, rad, pulsar_cam(PULSAR_YAWS[0], device), *PULSAR_DEPTH)
     gen = torch.Generator(device=device).manual_seed(5)
     mixed = torch.cat([torch.rand((20_000, 2), generator=gen, device=device) * 2.2 - 1.1,
                        torch.rand((20_000, 1), generator=gen, device=device) * 4.5 - 0.5], -1)
     mixed_r = torch.rand(20_000, generator=gen, device=device) * 0.02 + 0.002
     mixed_valid = (mixed[:, 2] > 0.5) & (mixed[:, 2] < 3.5)
-    worst, failed = 0.0, []
-    for label, p, rr, v, sz in (
-        (f"pulsar-serving request 0, P={PULSAR_SPHERES}", pts, r, valid, size),
+    edge = [t[0].contiguous() for t in cull_edge_batch(device)]
+    return [
+        (f"pulsar-serving request 0, P={PULSAR_SPHERES}", pts.contiguous(), r.contiguous(), valid,
+         (PULSAR_IMAGE, PULSAR_IMAGE)),
         ("20 000 spheres across z = 0 and the depth bounds 0.5 / 3.5, 512^2", mixed, mixed_r, mixed_valid,
          (512, 512)),
-    ):
+        (f"cull edges (cull_edge_points, seed 0), {CULL_EDGE_IMAGE[0]}x{CULL_EDGE_IMAGE[1]}", *edge, CULL_EDGE_IMAGE),
+    ]
+
+
+def phase_select_kernel(device, serving):
+    """#6 on request 0 of pulsar-serving against the plain selection
+    (>= PULSAR_IDS_GATE of slots; expected: all) and against #5 on the
+    same binning (equal), and on an NDC scene with spheres on both sides
+    of both depth bounds and of z = 0, and on the cull's edge cases.
+    Keeps request 0's plain ids for the pulsar-serving path.  Returns the
+    share of slots off the plain version."""
+    import torch
+
+    from pytorch3d_tpu_torch.renderer.points import rasterize_points_cuda as rpc
+    from pytorch3d_tpu_torch.renderer.points.rasterize_points import rasterize_points_topk
+
+    worst, failed = 0.0, []
+    for label, p, rr, v, sz in select_kernel_cases(device, serving):
         bins = rpc.bin_points_for_pulsar(p, rr, v, sz)
         got = rpc.select_points_cuda(p, rr, v, sz, PULSAR_TRACK, bins)
         five = rpc._run_kernel(p[None], rr[None], bins[:4], sz, PULSAR_TRACK)[0][0]

@@ -7,7 +7,12 @@ behind `rasterize_points_fragments_pallas` :428).  On CUDA tensors it bins
 the points to 16x16 pixel tiles with plain torch (`bin_points`) and
 launches the hand-written kernel `csrc/rasterize_points.cu` once for the
 whole batch; on CPU tensors it runs `rasterize_points_plain`, the plain
-PyTorch version the kernel is held against on the card.
+PyTorch version the kernel is held against on the card.  The kernel tests
+a point only in the warps whose 4x8 pixel rectangle its pixel box meets,
+the box it finds for itself from the point's own test on each axis (its
+header says why that cull is exact); its outputs equal, bit for bit, those
+of the design before the cull, which tested every pixel of a tile against
+the tile's whole list.
 
 Its backward, `rasterize_points_grad_cuda`, replaces the TPU kernel
 `_grad_kernel` (rasterize_points_pallas.py:365, its pallas_call at :562 in
@@ -19,8 +24,9 @@ it on an H100 and how its design meets that.
 Pulsar's two kernels sit here too.  `select_points_cuda` replaces the
 select-only `_fine_kernel` (rasterize_points_pallas.py:285, its pallas_call
 at :791 in `select_from_binned` :766): the ids-only build of
-`csrc/rasterize_points.cu` over `bin_points_for_pulsar`'s binning, with
-`rasterize_points_topk` as its plain version.  `pulsar_blend_grads_cuda`
+`csrc/rasterize_points.cu` (the same walk, storing ids only) over
+`bin_points_for_pulsar`'s binning, with `rasterize_points_topk` as its
+plain version.  `pulsar_blend_grads_cuda`
 replaces `_pulsar_grad_kernel` (:618, its pallas_call at :905 in
 `pulsar_blend_grads` :830): `csrc/pulsar_grad.cu` over the same binning,
 with `pulsar_blend_grads_plain` as its plain version.

@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""Study the fine mesh rasterizer (#1) and the pulsar blend backward (#8)
-on one CUDA card: each against an earlier build of it, its parts timed
-apart, and the end-to-end paths that run them.
+"""Study the fine mesh rasterizer (#1), the pulsar blend backward (#8) and
+the points rasterizer (#5, with its select-only build #6) on one CUDA
+card: each against an earlier build of it, its parts timed apart, and the
+end-to-end paths that run them.
 
     git show b30e36d:pytorch3d_tpu_torch/csrc/rasterize_fine.cu > build/fine_parent.cu
     python3 raster_study.py fine --source build/fine_parent.cu
     git show b30e36d:pytorch3d_tpu_torch/csrc/pulsar_grad.cu > build/pulsar_parent.cu
     python3 raster_study.py pulsar --source build/pulsar_parent.cu
+    git show febf1cf:pytorch3d_tpu_torch/csrc/rasterize_points.cu > build/points_parent.cu
+    python3 raster_study.py points --source build/points_parent.cu
     python3 raster_study.py e2e [--tree DIR] [--reps N] [--paths NAME ...]
 
 `fine`: FILE is a `rasterize_fine.cu` without the box growth in its C
@@ -51,11 +54,47 @@ launches and each copy give the package's bits, the package's device
 time by pass, and each build's device time (both passes) in the order
 FILE, package, copies, package, FILE.
 
+`points`: FILE is a `rasterize_points.cu` with the same C interface,
+such as febf1cf's, where every pixel of a tile tests every point of the
+tile's list.  The script builds FILE, the package's source (for its
+ptxas figures; the runs use the package's own build) and copies of it
+that each change one thing (`points_variants`):
+
+- `no_cull`: every warp walks every point of the chunk at every pixel;
+- `lane_box`: a lane whose pixel lies outside the point's box skips the
+  point's test, where the package's lanes all test it;
+- `walk2`: a warp loads and tests two points of its list before it
+  inserts either, where the package takes one at a time;
+- `thread_stores`: each thread stores its own run of K slots, lanes
+  K x 4 bytes apart, where the package's warps write their rectangle's
+  slots through shared memory;
+- `wide_buckets`: K = 5 runs the K bucket of 8 and K = 10 that of 16
+  (FILE's buckets), where the package has buckets of 5 and 10;
+- `buckets_6_12`: K = 5 runs a bucket of 6 and K = 10 one of 12;
+- `blocks3`, `blocks4`: `__launch_bounds__` asking for three or four
+  blocks an SM at K <= 16 (the package asks for none);
+- `double_buffer`: each chunk's points gathered with `cp.async` into a
+  second buffer while the warps walk the chunk before it.
+
+At every case of `chip_smoke.points_kernel_cases` and at the 10^6-point
+row (#5), and at every case of `chip_smoke.select_kernel_cases` and at
+one request of 10^6 spheres (#6), FILE's outputs (ids, zbuf and dists;
+ids for #6) and those of the package and of each copy must be equal bit
+for bit; the script exits non-zero otherwise.  Then it times each build
+by the profiler's device time (`chip_smoke.device_ms`) at the
+points-serving batch, points-bench and 10^6 points (#5) and at
+pulsar-serving request 0 and 10^6 spheres (#6), in the order FILE,
+package, copies, package, FILE, and prints the (pixel, point) tests each
+design makes (`chip_smoke.tile_candidates` for FILE; for the package
+the lanes its warps walk, each of which tests, and the pixel centres in
+the points' boxes among them, `chip_smoke.points_tests`).
+
 `e2e`: with the tree's own chip_smoke.py and port package (this checkout,
 or another commit unpacked with `git archive` into a directory
 .gitignore lists, such as `build/parent`), the serving frame (the mesh
 batch at one of chip_smoke's 8 azimuths), the render-fit step, the
-pulsar-serving request and the pulsar-fit step: each the host-clock
+pulsar-serving request, the pulsar-fit step, the points-serving frame
+(the 8 requests in one render) and the points-fit step: each the host-clock
 median of N after warm-up (`chip_smoke.timed_ms`), printed as one JSON
 line; `--paths` times only the named ones, in the order given.  Host
 times vary up to 2x between calls, so compare two trees only in one
@@ -81,7 +120,8 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 OUT = REPO / "build" / "raster_study"
 CSRC = REPO / "pytorch3d_tpu_torch" / "csrc"
-E2E_PATHS = ("serving frame", "render-fit step", "pulsar-serving request", "pulsar-fit step")
+E2E_PATHS = ("serving frame", "render-fit step", "pulsar-serving request", "pulsar-fit step", "points-serving frame",
+             "points-fit step")
 
 FINE_BOUNDS = "__global__ void __launch_bounds__(kThreads, KB <= 8 ? 3 : 1)\nrasterize_fine_kernel("
 FINE_STORES_START = "  // Each warp writes its rectangle's slots through its buffer"
@@ -122,6 +162,98 @@ FINE_HOIST = (
      "  f.l01 = s.f[17][j]; f.l12 = s.f[18][j]; f.l02 = s.f[19][j]; f.flags = __float_as_uint(s.f[20][j]);\n"
      "  return f;"),
 )
+POINTS_BOUNDS = "__global__ void __launch_bounds__(kThreads)\nrasterize_points_kernel("
+POINTS_STORES_START = "  // Each warp writes its rectangle's slots through its buffer"
+POINTS_STORES_END = "\ntemplate <int KB, bool kIdsOnly>\nvoid launch("
+POINTS_THREAD_STORES = """  if (!live) return;
+  const size_t pix = (static_cast<size_t>(n) * H + row0 + tr) * W + col0 + tc;
+#pragma unroll
+  for (int k = 0; k < KB; ++k) {
+    if (k < K) {
+      const size_t o = pix * K + k;
+      const bool empty = bi[k] < 0;
+      out_idx[o] = bi[k];
+      if (kIdsOnly) continue;
+      out_z[o] = empty ? -1.0f : bz[k];
+      out_dist[o] = empty ? -1.0f : bd[k];
+    }
+  }
+}
+"""
+POINTS_NO_CULL = (
+    ("      const unsigned rows = axis_bits(s.cy, y, r2);", "      const unsigned rows = 0xffffu;"),
+    ("      const unsigned cols = axis_bits(s.cx, x, r2);", "      const unsigned cols = 0xffffu;"),
+)
+POINTS_LANE_BOX = (
+    ("  int id[kThreads];\n", "  int id[kThreads];\n  unsigned box[kThreads];\n"),
+    ("      s.id[tid] = p;\n", "      s.id[tid] = p;\n      s.box[tid] = rows | (cols << 16);\n"),
+    ("      if (d2 < q.z) insert(", "      if (((s.box[j] >> tr) & (s.box[j] >> (16 + tc)) & 1u) && d2 < q.z) insert("),
+)
+# Two points of the warp's list loaded and tested before either is inserted.
+POINTS_WALK2 = (("""    for (int i = 0; i < count; ++i) {
+      const int j = s.list[warp][i];""", """    int i = 0;
+    for (; i + 1 < count; i += 2) {
+      const int ja = s.list[warp][i], jb = s.list[warp][i + 1];
+      const float4 qa = s.pt[ja], qb = s.pt[jb];
+      const float dxa = px - qa.x, dya = py - qa.y, dxb = px - qb.x, dyb = py - qb.y;
+      const float d2a = dxa * dxa + dya * dya, d2b = dxb * dxb + dyb * dyb;
+      if (d2a < qa.z) insert(bz, bd, bi, qa.w, d2a, s.id[ja]);
+      if (d2b < qb.z) insert(bz, bd, bi, qb.w, d2b, s.id[jb]);
+    }
+    for (; i < count; ++i) {
+      const int j = s.list[warp][i];"""),)
+POINTS_WIDE_BUCKETS = (("  else if (K <= 5) P3D_LAUNCH(5);\n", ""), ("  else if (K <= 10) P3D_LAUNCH(10);\n", ""))
+POINTS_BUCKETS_6_12 = (("  else if (K <= 5) P3D_LAUNCH(5);", "  else if (K <= 6) P3D_LAUNCH(6);"),
+                       ("  else if (K <= 10) P3D_LAUNCH(10);", "  else if (K <= 12) P3D_LAUNCH(12);"))
+# The double-buffered gather: chunk c + 1's x, y, z and r go by cp.async
+# into the other half of a second buffer while the warps walk chunk c.
+POINTS_DOUBLE_BUFFER = (
+    ("template <int KB, bool kIdsOnly>\n__global__",
+     "__device__ __forceinline__ void cp_async4(float* dst, const float* src) {\n"
+     "  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));\n"
+     "  asm volatile(\"cp.async.ca.shared.global [%0], [%1], 4;\\n\" :: \"r\"(d), \"l\"(src) : \"memory\");\n"
+     "}\n\n"
+     "template <int KB, bool kIdsOnly>\n__global__"),
+    ("""  for (int base = begin; base < end; base += kThreads) {
+    const int m = min(kThreads, end - base);
+    __syncthreads();  // the previous chunk has been consumed
+    if (tid < m) {
+      const int p = tile_points[base + tid];
+      const size_t g = first + p;
+      const float x = points[3 * g + 0];
+      const float y = points[3 * g + 1];
+      const float r = radius[g];
+      const float r2 = r * r;
+      const unsigned rows = axis_bits(s.cy, y, r2);
+      const unsigned cols = axis_bits(s.cx, x, r2);
+      s.pt[tid] = make_float4(x, y, r2, points[3 * g + 2]);""",
+     """  __shared__ float raw[2][4][kThreads];
+  auto gather = [&](int from, int to) {
+    if (from + tid < end) {
+      const size_t g = first + tile_points[from + tid];
+      cp_async4(&raw[to][0][tid], points + 3 * g + 0);
+      cp_async4(&raw[to][1][tid], points + 3 * g + 1);
+      cp_async4(&raw[to][2][tid], points + 3 * g + 2);
+      cp_async4(&raw[to][3][tid], radius + g);
+    }
+    asm volatile("cp.async.commit_group;\\n" ::: "memory");
+  };
+  if (begin < end) gather(begin, 0);
+  for (int base = begin, half = 0; base < end; base += kThreads, half ^= 1) {
+    const int m = min(kThreads, end - base);
+    asm volatile("cp.async.wait_group 0;\\n" ::: "memory");
+    __syncthreads();  // this chunk has landed; the previous chunk has been consumed
+    if (base + kThreads < end) gather(base + kThreads, half ^ 1);
+    if (tid < m) {
+      const int p = tile_points[base + tid];
+      const float x = raw[half][0][tid];
+      const float y = raw[half][1][tid];
+      const float r = raw[half][3][tid];
+      const float r2 = r * r;
+      const unsigned rows = axis_bits(s.cy, y, r2);
+      const unsigned cols = axis_bits(s.cx, x, r2);
+      s.pt[tid] = make_float4(x, y, r2, raw[half][2][tid]);"""),
+)
 PULSAR_BOUNDS = "__global__ void __launch_bounds__(kThreads, KB <= 8 ? 4 : 1)\npulsar_grad_tiles_kernel("
 
 
@@ -148,6 +280,27 @@ def fine_variants(parent_text, text):
         "blocks_any": (substitute(text, ((FINE_BOUNDS, FINE_BOUNDS.replace("KB <= 8 ? 3 : 1", "1")),), "bounds"),
                        (), True, True),
         "prec_div_false": (text, ("--prec-div=false",), True, False),
+    }
+
+
+def points_variants(text):
+    """{name: source text} of the package's points kernel and its copies."""
+    i = text.index(POINTS_STORES_START) if POINTS_STORES_START in text else -1
+    j = text.find(POINTS_STORES_END, i)
+    if i < 0 or j < 0:
+        raise SystemExit("raster_study: the package's points kernel has no staged stores to take out")
+    bounds = lambda b: substitute(text, ((POINTS_BOUNDS, POINTS_BOUNDS.replace("(kThreads)", b)),), "bounds")  # noqa: E731
+    return {
+        "package": text,
+        "no_cull": substitute(text, POINTS_NO_CULL, "no_cull"),
+        "lane_box": substitute(text, POINTS_LANE_BOX, "lane_box"),
+        "walk2": substitute(text, POINTS_WALK2, "walk2"),
+        "thread_stores": text[:i] + POINTS_THREAD_STORES + text[j:],
+        "wide_buckets": substitute(text, POINTS_WIDE_BUCKETS, "wide_buckets"),
+        "buckets_6_12": substitute(text, POINTS_BUCKETS_6_12, "buckets_6_12"),
+        "blocks3": bounds("(kThreads, KB <= 16 ? 3 : 1)"),
+        "blocks4": bounds("(kThreads, KB <= 16 ? 4 : 1)"),
+        "double_buffer": substitute(text, POINTS_DOUBLE_BUFFER, "double_buffer"),
     }
 
 
@@ -366,6 +519,107 @@ def study_pulsar(cs, device, source):
     return 0
 
 
+def points_settings(cs, device):
+    """([(label, points, radius, valid, size, K, ids only)] checked bit for
+    bit, {label: index into it} of the timed ones): #5 at
+    `points_kernel_cases` and 10^6 points, #6 at `select_kernel_cases`
+    and 10^6 spheres (clouds of one, (1, P, 3))."""
+    out = [(label, pts, rad, valid, size, k, False) for label, pts, rad, valid, size, k in cs.points_kernel_cases(device)]
+    big_label = f"{cs.BIG_POINTS} points at {cs.BIG_IMAGE}^2"
+    big = cs.bench_points(device, cs.BIG_POINTS)
+    out.append((big_label, big, *cs.uniform_radius(big, cs.BIG_RADIUS),
+                (cs.BIG_IMAGE, cs.BIG_IMAGE), cs.BENCH_K, False))
+    serving = cs.PulsarServing(device)
+    selects = [(f"#6 {label}", p[None], r[None], v[None], size) for label, p, r, v, size in
+               cs.select_kernel_cases(device, serving)]
+    pos, _, rad = cs.pulsar_scene(device, cs.PULSAR_BIG)
+    p, r, v = cs.pulsar_renderer(cs.PULSAR_BIG)._project_ndc(pos, rad, cs.pulsar_cam(0.0, device), *cs.PULSAR_DEPTH)
+    selects.append((f"#6 {cs.PULSAR_BIG} spheres at {cs.PULSAR_IMAGE}^2", p.contiguous()[None], r.contiguous()[None],
+                    v[None], (cs.PULSAR_IMAGE, cs.PULSAR_IMAGE)))
+    out += [(*case, cs.PULSAR_TRACK, True) for case in selects]
+    labels = [case[0] for case in out]
+    timed = {name: labels.index(label) for name, label in (
+        ("points-serving batch", "points-serving batch"), ("points-bench", "points-bench"),
+        (f"{cs.BIG_POINTS} points", big_label),
+        ("pulsar-serving request 0", selects[0][0]), (f"{cs.PULSAR_BIG} spheres", selects[-1][0]))}
+    return out, timed
+
+
+def study_points(cs, device, source):
+    import torch
+
+    from pytorch3d_tpu_torch.renderer.points import rasterize_points_cuda as rpc
+
+    parent_text = source.read_text()
+    if "axis_bits" in parent_text:
+        raise SystemExit("raster_study: the source has the pixel-box cull: not the design without it")
+    sources = {"parent": parent_text, **points_variants((CSRC / "rasterize_points.cu").read_text())}
+    built = build_all("rasterize_points", {name: (text, ()) for name, text in sources.items()})
+    package = rpc._library()
+    libs = {}
+    for name, (lib, log) in built.items():
+        for kernel, figures in cs.ptxas_figures(log).items():
+            if any(f"ILi{b}ELb" in kernel for b in (5, 6, 8, 10, 12, 16)):  # the K buckets of the timed shapes
+                print(f"ptxas {name}: {kernel}: {figures}", flush=True)
+        for fn in ("rasterize_points", "select_points"):
+            getattr(lib, fn).argtypes = getattr(package, fn).argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[name] = lib
+    libs["package"] = package  # the runs use the package's own build
+
+    def runner(lib, pts, rad, bins, size, k, ids_only):
+        tile_points, tile_start, n_ty, n_tx = bins[:4]
+        N, P = pts.shape[:2]
+        H, W = size
+        ys, xs = rpc.pixel_grid_ndc(H, W, device)
+        outs = tuple(torch.empty((N, H, W, k), dtype=dt, device=device)
+                     for dt in ((torch.int32,) if ids_only else (torch.int32, torch.float32, torch.float32)))
+        args = (pts.data_ptr(), rad.data_ptr(), tile_points.data_ptr(), tile_start.data_ptr(), xs.data_ptr(),
+                ys.data_ptr(), N, P, H, W, n_ty, n_tx, k, *(t.data_ptr() for t in outs))
+
+        def run():
+            fn = lib.select_points if ids_only else lib.rasterize_points
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+            assert err == 0, err
+            return outs
+
+        return run
+
+    bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t  # noqa: E731
+    cases, timed = points_settings(cs, device)
+    failed, inputs = [], []
+    for label, pts, rad, valid, size, k, ids_only in cases:
+        bins = rpc.bin_points(pts, rad, valid, size)
+        inputs.append((pts, rad, bins, size, k, ids_only))
+        want = [t.clone() for t in runner(libs["parent"], *inputs[-1])()]
+        notes = []
+        for name, lib in libs.items():
+            if name == "parent":
+                continue
+            got = runner(lib, *inputs[-1])()
+            torch.cuda.synchronize()
+            same = all(torch.equal(bits(g), bits(w)) for g, w in zip(got, want))
+            notes.append(f"{name} {'equal' if same else 'DIFFERS'}")
+            if not same:
+                failed.append((label, name))
+        made, walked = cs.points_tests(pts, rad, bins, size)
+        print(f"bits [{label}] N={pts.shape[0]} P={pts.shape[1]} {size[0]}x{size[1]} K={k}"
+              f" {'ids only' if ids_only else 'ids, zbuf, dists'}, filled {int((want[0] >= 0).sum())}: against the"
+              f" parent: {'; '.join(notes)}; tests: parent"
+              f" {cs.tile_candidates(bins[1], pts.shape[0], bins[2], bins[3], size) / 1e6:.3f} M, package"
+              f" {walked / 1e6:.3f} M lanes walked, {made / 1e6:.3f} M of them in the points' boxes", flush=True)
+    if failed:
+        print(f"raster_study: outputs differ from the parent's: {failed}", file=sys.stderr)
+        return 1
+
+    order = ["parent", "package", *[n for n in libs if n not in ("parent", "package")], "package", "parent"]
+    for label, i in timed.items():
+        times = [f"{name} {cs.device_ms(runner(libs[name], *inputs[i]), 'rasterize_points_kernel'):.4f}"
+                 for name in order]
+        print(f"times [{label}] K={inputs[i][4]} device ms: {', '.join(times)}", flush=True)
+    return 0
+
+
 def study_e2e(cs, device, tree, reps, names):
     import torch
 
@@ -375,6 +629,11 @@ def study_e2e(cs, device, tree, reps, names):
     meshes = cs.main_path_meshes(device)
     renderers = [cs.renderer(cs.camera(a, device), device) for a in cs.AZIMUTHS]
     fit, serving, pfit = cs.RenderFit(device), cs.PulsarServing(device), cs.PulsarFit(device)
+    from pytorch3d_tpu_torch.renderer import AlphaCompositor
+
+    cloud, cams = cs.colored_points_scene(device)
+    clouds, points_render, points_fit = cloud.extend(cs.PTS_REQUESTS), cs.points_renderer(cams, AlphaCompositor()), \
+        cs.PointsFit(device)
 
     def step(f):
         f.optimizer.zero_grad()
@@ -387,6 +646,8 @@ def study_e2e(cs, device, tree, reps, names):
         "pulsar-serving request": lambda i: cs.pulsar_render(
             serving.renderer, serving.scene, cs.PULSAR_YAWS[i % len(cs.PULSAR_YAWS)], device),
         "pulsar-fit step": lambda i: step(pfit),
+        "points-serving frame": lambda i: points_render(clouds),
+        "points-fit step": lambda i: step(points_fit),
     }
     out = {"tree": tree}
     for name in names:
@@ -407,6 +668,8 @@ def main() -> int:
                                         help="a rasterize_fine.cu without the box growth")
     sub.add_parser("pulsar").add_argument("--source", type=Path, required=True,
                                           help="a pulsar_grad.cu without the flag array")
+    sub.add_parser("points").add_argument("--source", type=Path, required=True,
+                                          help="a rasterize_points.cu without the pixel-box cull")
     e2e = sub.add_parser("e2e")
     e2e.add_argument("--tree", default=str(REPO))
     e2e.add_argument("--reps", type=int, default=16)
@@ -426,7 +689,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True)
     print(smi.stdout.strip(), flush=True)
-    return (study_fine if args.study == "fine" else study_pulsar)(cs, device, args.source)
+    return {"fine": study_fine, "pulsar": study_pulsar, "points": study_points}[args.study](cs, device, args.source)
 
 
 if __name__ == "__main__":

@@ -353,6 +353,24 @@ def test_points_kernel_matches_plain(cuda_device, size, radius, K):
         assert (got[0] == -1).all()
 
 
+@pytest.mark.parametrize("size,K", [((120, 200), 8), ((120, 200), 16), ((40, 56), 5), ((37, 70), 1)])
+def test_points_kernels_match_plain_at_the_cull_edges(cuda_device, size, K):
+    # chip_smoke.cull_edge_points: centre +- r exactly on a pixel centre,
+    # radius 0 and < 0, discs over tiles, centres on warp-rectangle and tile
+    # borders, off-image centres, ties in z, sides not multiples of 16.
+    pts, rad, valid = _CHIP_SMOKE.cull_edge_batch(cuda_device, size)
+    before = (tpc.rasterize_points_cuda.launches, tpc.select_points_cuda.launches)
+    got = tpc.rasterize_points_cuda(pts, rad, valid, size, K)
+    ids = tpc.select_points_cuda(pts[0].contiguous(), rad[0].contiguous(), valid[0].contiguous(), size, K)
+    torch.cuda.synchronize()
+    assert (tpc.rasterize_points_cuda.launches, tpc.select_points_cuda.launches) == (before[0] + 1, before[1] + 1)
+    want = trp.rasterize_points_plain(pts, rad, valid, size, K)
+    assert torch.equal(got[0].long(), want[0]) and torch.equal(ids.long(), want[0][0])
+    assert (got[1] - want[1]).abs().max() <= 1e-6
+    assert (got[2] - want[2]).abs().max() <= 1e-6
+    assert (want[0] >= 0).sum() > 1000
+
+
 def _point_grad_close(got, want, exact):
     # fp32 atomics (kernel) and index_add_ (plain) sum per-pixel terms in
     # orders that change from run to run: per point within 1e-5 of its own
