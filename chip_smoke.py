@@ -102,6 +102,7 @@ the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import subprocess
@@ -128,8 +129,9 @@ PEAK_TF32X3_OPS_PER_S = 495e12 / 3
 KERNELS = ("rasterize_fine", "rasterize_grad", "knn", "rasterize_points", "rasterize_points_grad",
            "fused_mlp", "fused_mlp_grad", "nerf_field", "nerf_field_grad",
            "rasterize_topk", "rasterize_hard", "select_points", "pulsar_grad")
-# The device kernels of #4 (pass 1, pass 2), whose device times make its time.
+# The device kernels of #4 and #7 (pass 1, pass 2), whose device times make their times.
 GRAD_KERNELS = ("rasterize_grad_tiles_kernel", "rasterize_grad_faces_kernel")
+POINTS_GRAD_KERNELS = ("rasterize_points_grad_tiles_kernel", "rasterize_points_grad_points_kernel")
 SOURCES = ("rasterize_fine", "rasterize_grad", "knn", "rasterize_points", "rasterize_points_grad", "fused_mlp",
            "rasterize_hard", "pulsar_grad")
 
@@ -165,6 +167,7 @@ GRAD_FACE_SHARE = 0.997
 # (csrc/rasterize_grad.cu's kListChunk): a longer tile list takes several
 # passes, which the long-list cases of phase_grad_kernel drive.
 GRAD_LIST_CHUNK = 128
+POINTS_GRAD_LIST_CHUNK = 256  # kListChunk of csrc/rasterize_points_grad.cu
 FINE_RECT = (4, 8)  # rows x columns of a warp's rectangle in csrc/rasterize_fine.cu and rasterize_points.cu
 KNN_IDS_GATE = 0.9999  # share of queries whose K ids all agree
 KNN_DISTS_RTOL = 1e-6
@@ -450,11 +453,12 @@ def face_agreement(got, want, exact):
     return row_agreement(got, want, exact, 9, GRAD_GATE)
 
 
-def longest_list(bins):
-    """The longest tile list of a `bin_faces` binning, and the passes
-    pass 1 of the backward makes over it (GRAD_LIST_CHUNK positions each)."""
+def longest_list(bins, chunk=GRAD_LIST_CHUNK):
+    """The longest tile list of a binning, and the passes pass 1 of a
+    backward makes over it (`chunk` positions each: GRAD_LIST_CHUNK for
+    #4 over `bin_faces`, POINTS_GRAD_LIST_CHUNK for #7 over `bin_points`)."""
     longest = int(bins[1].diff().max())
-    return longest, max(1, -(-longest // GRAD_LIST_CHUNK))
+    return longest, max(1, -(-longest // chunk))
 
 
 def compare_grad(fv, valid, size, blur, k, persp, clip, cotangents):
@@ -727,6 +731,26 @@ def device_ms_by_kernel(fn, kernels, iters=20, warmup=3, launches=1):
             return {k: sum(e.self_device_time_total for e in events if k in e.key) / 1e3 / iters for k in kernels}
         log(f"  profiler window of {iters} calls recorded {counts} launches, not {iters * launches} each: again")
     check(False, f"the profiler did not record every launch of {tuple(kernels)} in six windows")
+
+
+def call_device_ms(fn, iters=20, warmup=3):
+    """Device time per call of everything fn launches (kernels, copies and
+    fills), from one torch.profiler (CUPTI) window: a wrapper's whole
+    device work, torch ops around its kernels included."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return sum(e.self_device_time_total for e in events) / 1e3 / iters
 
 
 def device_ms(fn, kernel, iters=20, warmup=3, launches=1):
@@ -1882,18 +1906,18 @@ def compare_points(points, radius, valid, size, k):
     return float(same.float().mean()), errs[0], errs[1], int((want[0] >= 0).sum())
 
 
-def compare_points_grad(points, idx, cots, size):
+def compare_points_grad(points, idx, cots, size, bins):
     """The points backward kernel against its plain version on the kernel's
-    own ids and the cotangents (gz, gdists): finite, max |g - g_plain|, the
-    kernel's and the float32 plain version's largest error against the
-    float64 plain version over its largest |g|, and `row_agreement`'s two
-    shares per point."""
+    own ids, their binning and the cotangents (gz, gdists): finite, max
+    |g - g_plain|, the kernel's and the float32 plain version's largest
+    error against the float64 plain version over its largest |g|, and
+    `row_agreement`'s two shares per point."""
     import torch
 
     from pytorch3d_tpu_torch.renderer.points import rasterize_points_cuda as rpc
     from pytorch3d_tpu_torch.renderer.points.rasterize_points import rasterize_points_grad_plain
 
-    got = rpc.rasterize_points_grad_cuda(points, idx, *cots, size)
+    got = rpc.rasterize_points_grad_cuda(points, idx, *cots, size, bins)
     torch.cuda.synchronize()
     want = rasterize_points_grad_plain(points, idx, *cots, size)
     exact = rasterize_points_grad_plain(points.double(), idx, *(None if c is None else c.double() for c in cots), size)
@@ -1902,6 +1926,47 @@ def compare_points_grad(points, idx, cots, size):
     _, ratio_plain = grad_error(want.double(), exact)
     shares = row_agreement(got, want, exact, 3, POINT_GRAD_GATE)
     return bool(torch.isfinite(got).all()), err, (ratio_exact, ratio_plain), shares
+
+
+def points_grad_twice(points, idx, cots, size, bins, label):
+    """#7 launched twice on the same inputs must give the same bits, all
+    finite: the kernel sums in a fixed order, and a NaN row would mean a
+    filled slot whose point is missing from its tile's list."""
+    import torch
+
+    from pytorch3d_tpu_torch.renderer.points import rasterize_points_cuda as rpc
+
+    a, b = (rpc.rasterize_points_grad_cuda(points, idx, *cots, size, bins) for _ in range(2))
+    same = torch.equal(a.view(torch.int32), b.view(torch.int32))
+    finite = bool(torch.isfinite(a).all())
+    longest, passes = longest_list(bins, POINTS_GRAD_LIST_CHUNK)
+    log(f"kernel rasterize_points_grad twice [{label}] N={points.shape[0]} P={points.shape[1]}: bit-equal {same},"
+        f" finite {finite}; {bins[0].numel()} tile-point pairs, longest list {longest} ({passes} pass(es) of"
+        f" pass 1)")
+    return same and finite
+
+
+def points_grad_fault(points, idx, cots, size):
+    """#7 over a binning whose lists hold no point (every valid flag off):
+    every point that a filled slot holds with a nonzero cotangent must come
+    out NaN, every other point 0, without a host sync in the wrapper."""
+    import torch
+
+    from pytorch3d_tpu_torch.renderer.points import rasterize_points_cuda as rpc
+
+    N, P = points.shape[:2]
+    empty = rpc.bin_points(points, torch.ones((N, P), device=points.device),
+                           torch.zeros((N, P), dtype=torch.bool, device=points.device), size)
+    got = rpc.rasterize_points_grad_cuda(points, idx, *cots, size, empty)
+    work = (idx >= 0) & functools.reduce(torch.logical_or, [c != 0 for c in cots if c is not None])
+    flat = idx.long() + (torch.arange(N, device=idx.device) * P)[:, None, None, None]
+    held = torch.zeros(N * P, dtype=torch.bool, device=idx.device)
+    held[flat[work]] = True
+    rows = got.reshape(N * P, 3)
+    ok = bool(rows[held].isnan().all()) and bool((rows[~held] == 0).all()) and bool(held.any())
+    log(f"kernel rasterize_points_grad over empty tile lists: {int(held.sum())} points held by filled slots NaN,"
+        f" the rest 0 -> {'ok' if ok else 'FAIL'}")
+    return ok
 
 
 def point_grad_gate(got, ref):
@@ -1916,8 +1981,8 @@ def point_grad_gate(got, ref):
 
 # fp32 operations of csrc/rasterize_points.cu per (pixel, point) test: two
 # differences, two products, their sum and the compare with r^2; and of
-# csrc/rasterize_points_grad.cu per filled slot: two differences, two
-# products by gd, two by -2 and three atomic adds.
+# the points backward per filled slot: two differences, two products by
+# gd, two by -2 and three sums.
 POINTS_OPS_PER_CANDIDATE = 6
 POINTS_GRAD_OPS_PER_SLOT = 9
 
@@ -2030,10 +2095,12 @@ class PointsFit:
 
     def cotangents(self):
         """The kernel's inputs and the loss's cotangents at the current
-        parameters: (NDC points, local ids, (gz, gdists)); zbuf is unused."""
+        parameters: (NDC points, local ids, (gz, gdists), the forward's
+        `bin_points` binning); zbuf is unused."""
         import torch
 
         from pytorch3d_tpu_torch.renderer import PointsRasterizer
+        from pytorch3d_tpu_torch.renderer.points import rasterize_points_cuda as rpc
 
         keep = []
         loss = self.forward(keep=keep)
@@ -2042,7 +2109,9 @@ class PointsFit:
         P = ndc.shape[1]
         offsets = (torch.arange(PTS_REQUESTS, device=self.device) * P)[:, None, None, None]
         idx = torch.where(keep[0].idx >= 0, keep[0].idx - offsets, -1).int().contiguous()
-        return ndc.detach().contiguous(), idx, (None, gdists.contiguous())
+        ndc = ndc.detach().contiguous()
+        bins = rpc.bin_points(ndc, *uniform_radius(ndc, PTS_RADIUS), (PTS_IMAGE, PTS_IMAGE))
+        return ndc, idx, (None, gdists.contiguous()), bins
 
 
 def points_kernel_cases(device):
@@ -2081,8 +2150,9 @@ def phase_points_kernel(device):
 
 def phase_points_grad_kernel(device, fit):
     """The points backward kernel against the float64 plain version on the
-    kernel's own ids: seeded random cotangents at points-bench and the
-    points-serving batch, and points-fit's step-0 cotangents."""
+    kernel's own ids and their binning: seeded random cotangents at
+    points-bench and the points-serving batch, and points-fit's step-0
+    cotangents; at each, two launches must give the same bits."""
     import torch
 
     from pytorch3d_tpu_torch.renderer.points import rasterize_points_cuda as rpc
@@ -2092,14 +2162,19 @@ def phase_points_grad_kernel(device, fit):
     cases = []
     for label, pts, r, k in (("points-bench", bench_points(device), BENCH_RADIUS, BENCH_K),
                              ("points-serving batch", served_points_ndc(device), PTS_RADIUS, PTS_K)):
-        idx, zbuf, _ = rpc.rasterize_points_cuda(pts, *uniform_radius(pts, r), size, k)
+        rad, valid = uniform_radius(pts, r)
+        idx, zbuf, _ = rpc.rasterize_points_cuda(pts, rad, valid, size, k)
         cots = tuple(torch.randn(zbuf.shape, generator=gen, device=device) for _ in range(2))
-        cases.append((f"{label}, random cotangents", pts, idx, cots))
+        cases.append((f"{label}, random cotangents", pts, idx, cots, rpc.bin_points(pts, rad, valid, size)))
     cases.append(("points-fit step 0, its loss's cotangents", *fit.cotangents()))
     worst, failed = 0.0, []
-    for label, pts, idx, cots in cases:
-        finite, err, (ratio_exact, ratio_plain), (kernel_share, plain_share) = compare_points_grad(pts, idx, cots, size)
-        ok = finite and ratio_exact <= POINT_GRAD_GATE and kernel_share >= POINT_GRAD_SHARE
+    for label, pts, idx, cots, bins in cases:
+        finite, err, (ratio_exact, ratio_plain), (kernel_share, plain_share) = compare_points_grad(
+            pts, idx, cots, size, bins)
+        twice = points_grad_twice(pts, idx, cots, size, bins, label)
+        ok = finite and twice and ratio_exact <= POINT_GRAD_GATE and kernel_share >= POINT_GRAD_SHARE
+        if label.startswith("points-serving"):
+            ok = points_grad_fault(pts, idx, cots, size) and ok
         worst = max(worst, err)
         log(f"kernel rasterize_points_grad vs plain [{label}] N={pts.shape[0]} P={pts.shape[1]}"
             f" filled slots {int((idx >= 0).sum())}: max|diff| vs float32 plain {err:.3e}; vs the float64 plain"
@@ -2108,7 +2183,7 @@ def phase_points_grad_kernel(device, fit):
             f" {plain_share:.6f} -> {'ok' if ok else 'FAIL'}")
         if not ok:
             failed.append(label)
-    check(not failed, f"points backward kernel disagrees with its plain version: {failed}")
+    check(not failed, f"points backward kernel disagrees with its plain version or with itself: {failed}")
     return worst
 
 
@@ -2275,20 +2350,26 @@ def phase_points_times(device, clouds, renderer, fit):
             f" its whole list {tile_candidates(bins[1], pts.shape[0], bins[2], bins[3], sz) / 1e6:.3f} M)")
 
     grads = {}
-    idx_b, _, _ = rpc.rasterize_points_cuda(bench, *uniform_radius(bench, BENCH_RADIUS), size, BENCH_K)
+    rad_b, valid_b = uniform_radius(bench, BENCH_RADIUS)
+    idx_b, _, _ = rpc.rasterize_points_cuda(bench, rad_b, valid_b, size, BENCH_K)
     filled_b = (idx_b >= 0).float()  # the points-bench loss's cotangents: 1 at filled slots
-    for label, pts, idx, cots in (
+    for label, pts, idx, cots, bins in (
         ("points-fit step", *fit.cotangents()),
-        ("points-bench", bench, idx_b, (filled_b, filled_b)),
+        ("points-bench", bench, idx_b, (filled_b, filled_b), rpc.bin_points(bench, rad_b, valid_b, size)),
     ):
-        events = cuda_ms(lambda: rpc.rasterize_points_grad_cuda(pts, idx, *cots, size), iters=50, warmup=5)
-        kernel = device_ms(lambda: rpc.rasterize_points_grad_cuda(pts, idx, *cots, size), "rasterize_points_grad_kernel")
+        call = lambda: rpc.rasterize_points_grad_cuda(pts, idx, *cots, size, bins)  # noqa: E731
+        events = cuda_ms(call, iters=50, warmup=5)
+        passes = device_ms_by_kernel(call, POINTS_GRAD_KERNELS)
+        kernel = sum(passes.values())
+        whole = call_device_ms(call)
         plain = cuda_ms(lambda: rasterize_points_grad_plain(pts, idx, *cots, size), iters=5, warmup=1)
         bound, bound_by, filled, nbytes = points_grad_bound(pts, idx, cots)
         grads[label] = dict(kernel=kernel, plain=plain, bound=bound, bound_by=bound_by)
         log(f"times [rasterize_points_grad, {label}] N={pts.shape[0]} P={pts.shape[1]} K={idx.shape[3]}: kernel"
-            f" {kernel:.4f} ms (device time, profiler;"
-            f" CUDA events over back-to-back wrapper calls {events:.4f} ms), plain version {plain:.3f} ms; bound {bound:.5f} ms by {bound_by} (bytes"
+            f" {kernel:.4f} ms (device time, profiler; {', '.join(f'{k} {v:.4f}' for k, v in passes.items())};"
+            f" the wrapper's whole device work, pair CSR and flag fill included, {whole:.4f} ms;"
+            f" CUDA events over back-to-back wrapper calls {events:.4f} ms; {bins[0].numel()} tile-point pairs),"
+            f" plain version {plain:.3f} ms; bound {bound:.5f} ms by {bound_by} (bytes"
             f" {nbytes / 1e6:.2f} MB = {nbytes / PEAK_BYTES_PER_S * 1e3:.5f} ms, {filled / 1e6:.3f} M filled slots ="
             f" {filled * POINTS_GRAD_OPS_PER_SLOT / PEAK_FP32_OPS_PER_S * 1e3:.5f} ms)")
 
@@ -2988,6 +3069,152 @@ def hard_bound(fv, valid, size):
     return (*bound_of(N * F * 36 + N * size[0] * size[1] * 20, tests * HARD_OPS_PER_CANDIDATE), tests)
 
 
+def hard_tests(fv, valid, size):
+    """(the (pixel, face) tests #3 makes, the lanes its warps walk) over
+    its blur-0 binning: `fine_tests` with `face_pixel_boxes` at blur 0
+    without perspective correction (its inside test is screen-space)."""
+    from pytorch3d_tpu_torch.renderer.mesh.rasterize_cuda import bin_faces
+    from pytorch3d_tpu_torch.renderer.mesh.rasterize_meshes import _face_culls
+
+    bins = bin_faces(fv, _face_culls(fv, valid, False), size, 0.0)
+    return fine_tests(bins, face_pixel_boxes(fv, size, 0.0, False), *fv.shape[:2], size)
+
+
+def hard_cull_edge_faces(size, seed, n):
+    """Faces on the edges of #3's pixel-box cull for an (H, W) image, as
+    numpy float32 NDC face verts (F, 3, 3) (xy + view z) and a bool valid
+    mask (F,), from np.random.default_rng(seed), about n of each kind, in a
+    shuffled order:
+    - a grown box's edge exactly on a pixel centre (the box holds it), on
+      each side of each axis;
+    - vertices on pixel centres, so that edges run through centres (the
+      strict inside test fails there), each with its twin across the edge;
+    - duplicates, one z each (ties: the lower id wins);
+    - zero-area faces (collinear vertices) and faces within a pixel;
+    - faces over several tiles, and small faces across warp-rectangle and
+      tile borders (between columns 7 | 8 and 15 | 16, rows 3 | 4, 7 | 8
+      and 15 | 16 of a tile);
+    - faces reaching into the image from outside it;
+    - faces with one or two vertices behind the camera (z < 0), and faces
+      with a vertex far off the image (up to 1e4 in NDC, as a vertex near
+      z = 0 projects);
+    both windings, z in quarter steps, 5 % not valid."""
+    import numpy as np
+    import torch
+
+    from pytorch3d_tpu_torch.renderer.mesh.rasterize_cuda import box_grow
+    from pytorch3d_tpu_torch.renderer.mesh.rasterize_meshes import pixel_grid_ndc
+
+    H, W = size
+    ys, xs = (t.numpy() for t in pixel_grid_ndc(H, W, torch.device("cpu")))
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    grow = f32(box_grow(size, 0.0))
+    px, py = f32(xs[0] - xs[1]), f32(ys[0] - ys[1])
+    u = lambda lo, hi, m=n: rng.uniform(lo, hi, m).astype(f32)  # noqa: E731
+    inner = lambda m=n: (u(xs[-1], xs[0], m), u(ys[-1], ys[0], m))  # noqa: E731
+    tris = []  # (m, 3, 2) xy
+
+    def add(*corners):
+        tris.append(np.stack([np.stack(c, -1) for c in corners], 1).astype(f32))
+
+    for axis, centres, pitch in ((0, xs, px), (1, ys, py)):  # a grown box's edge on a centre
+        for side in (-1.0, 1.0):  # -1: the low bound v - grow, +1: the high bound v + grow
+            c = centres[rng.integers(0, centres.size, 8 * n)]
+            v = (c - f32(side) * grow).astype(f32)
+            v = v[(v + f32(side) * grow).astype(f32) == c][:n]
+            m = v.size
+            a, b = -side * u(0.5, 5.0, m) * pitch, -side * u(0.5, 5.0, m) * pitch
+            o = (ys if axis == 0 else xs)[rng.integers(0, H if axis == 0 else W, m)]
+            d = u(-3.0, 3.0, m) * (py if axis == 0 else px)
+            along = (v, v + a, v + b)
+            across = (o, o + d, o - d + u(-1.0, 1.0, m) * (py if axis == 0 else px))
+            add(*((p, q) if axis == 0 else (q, p) for p, q in zip(along, across)))
+    c, r = rng.integers(2, W - 6, n), rng.integers(2, H - 6, n)  # vertices on centres, twins across an edge
+    dc, dr = rng.integers(1, 4, n), rng.integers(1, 4, n)
+    a, b, t = (xs[c], ys[r]), (xs[c + dc], ys[r]), (xs[c], ys[r + dr])
+    add(a, b, t)
+    add(b, t, (xs[c + dc], ys[r + dr]))
+    x, y = inner()  # duplicates
+    e = u(1.0, 6.0) * px
+    dup = [(x, y), (x + e, y + u(-1.0, 1.0) * py), (x + u(-1.0, 1.0) * px, y + e)]
+    add(*dup)
+    add(*dup)
+    x, y = inner()  # zero area, within a pixel
+    e = u(0.5, 4.0) * px
+    add((x, y), (x + e, y + e), (x + e / 2, y + e / 2))
+    add((x, y), (x + u(0.05, 0.3) * px, y), (x, y + u(0.05, 0.3) * py))
+    m = max(n // 4, 1)
+    x, y = inner(m)  # over several tiles
+    e = u(17.0, 45.0, m) * px
+    add((x, y), (x + e, y + u(-0.5, 0.5, m) * e), (x + u(-0.5, 0.5, m) * e, y - e))
+    cols = np.array([q for q in range(W - 1) if q % 16 in (7, 15)])
+    rows = np.array([q for q in range(H - 1) if q % 16 in (3, 7, 15)])
+    cc, rr = cols[rng.integers(0, cols.size, n)], rows[rng.integers(0, rows.size, n)]
+    x, y = (xs[cc] + xs[cc + 1]) / 2, (ys[rr] + ys[rr + 1]) / 2
+    e = u(0.4, 2.0) * px
+    add((x - e, y - e), (x + e, y), (x, y + e))
+    side = rng.choice(f32([-1.0, 1.0]), n)  # from outside the image
+    x0 = side * (xs[0] + u(0.0, 4.0) * px)
+    y0 = u(ys[-1], ys[0])
+    add((x0, y0), (x0 - side * u(1.0, 6.0) * px, y0 + u(-3.0, 3.0) * py), (x0 + side * u(1.0, 6.0) * px, y0 - 2 * py))
+    x, y = inner()  # a vertex far off the image
+    far = rng.choice(f32([-1.0, 1.0]), (n, 2)) * (10.0 ** u(2.0, 4.0, (n, 2)))
+    add((x, y), (x + u(1.0, 8.0) * px, y + u(-2.0, 2.0) * py), (far[:, 0], far[:, 1]))
+    xy = np.concatenate(tris)
+    F = xy.shape[0]
+    flip = rng.random(F) < 0.5  # both windings
+    xy[flip] = xy[flip][:, [0, 2, 1]]
+    z = (rng.integers(2, 12, (F, 1)) * 0.25).astype(f32).repeat(3, 1)
+    tilt = rng.random(F) < 0.5
+    z[tilt] = (rng.integers(2, 12, (int(tilt.sum()), 3)) * 0.25).astype(f32)
+    behind = rng.random(F) < 0.1  # one or two vertices at z < 0
+    z[behind, 0] *= -1.0
+    z[behind & (rng.random(F) < 0.5), 1] *= -1.0
+    fv = np.concatenate([xy, z[..., None]], -1).astype(f32)
+    order = rng.permutation(F)
+    return fv[order], (rng.random(F) >= 0.05)[order]
+
+
+def hard_cull_edge_batch(device, size=CULL_EDGE_IMAGE, n=None):
+    """Two images of `hard_cull_edge_faces` (seeds 0 and 1, n of each kind,
+    by default one for 400 pixels; padded to one F with faces that are not
+    valid) as (N, F, 3, 3) and (N, F) tensors on `device`."""
+    import numpy as np
+    import torch
+
+    n = n or max(size[0] * size[1] // 400, 12)
+    images = [hard_cull_edge_faces(size, seed, n) for seed in (0, 1)]
+    F = max(fv.shape[0] for fv, _ in images)
+    fv, valid = np.zeros((2, F, 3, 3), np.float32), np.zeros((2, F), bool)
+    for i, (f, v) in enumerate(images):
+        fv[i, :f.shape[0]], valid[i, :v.shape[0]] = f, v
+    return torch.tensor(fv, device=device), torch.tensor(valid, device=device)
+
+
+def crossing_strip_faces(device, size, n=16, seed=0):
+    """(1, 2n, 3, 3) NDC face verts and valid mask of a seeded strip of
+    large faces on a floor below a camera at the origin looking along +z
+    (an (H, W) FoVPerspectiveCameras): n faces with two vertices behind the
+    camera (z < 0) and n with one, each crossing z = 0."""
+    import numpy as np
+    import torch
+
+    from pytorch3d_tpu_torch.renderer import FoVPerspectiveCameras
+    from pytorch3d_tpu_torch.structures import Meshes
+
+    rng = np.random.default_rng(seed)
+    x = np.linspace(-2.0, 2.0, n + 1)
+    front = np.stack([x, np.full(n + 1, -0.6), np.full(n + 1, 2.0)], -1)
+    back = np.stack([x, np.full(n + 1, -0.6), np.full(n + 1, -2.0)], -1)
+    verts = (np.concatenate([front, back]) + rng.uniform(-0.2, 0.2, (2 * n + 2, 3))).astype(np.float32)
+    faces = np.array([(i, n + 1 + i, n + 2 + i) for i in range(n)] + [(i, i + 1, n + 2 + i) for i in range(n)])
+    mesh = Meshes.create([torch.tensor(verts, device=device)], [torch.tensor(faces, device=device)], device=device)
+    cams = FoVPerspectiveCameras.create(R=torch.eye(3, device=device)[None], T=torch.zeros((1, 3), device=device),
+                                        aspect_ratio=size[1] / size[0], device=device)
+    return face_inputs(mesh, cams, size)
+
+
 def select_bound(pts, rad, valid, size, k, filled):
     """#6's least time: x, y, z, r and the valid flag (17 B per sphere) read
     once and the ids (4 B per slot) written once, against the pixel centres
@@ -3528,10 +3755,12 @@ def phase_slice5_times(device, serving, fit, topk_plain_ms, hard_plain_ms, state
 
     kernel = device_ms(lambda: rc.rasterize_hard_cuda(fv, valid, size), "rasterize_hard_kernel", iters=10)
     bound, by, tests = hard_bound(fv, valid, size)
+    made, walked = hard_tests(fv, valid, size)
     rows["rasterize_hard"] = dict(kernel=kernel, plain=hard_plain_ms, bound=bound, bound_by=by, library=None)
     log(f"times [rasterize_hard, serving batch] N={len(fv)} F={fv.shape[1]} {IMAGE}^2: kernel {kernel:.4f} ms"
         f" (device time, profiler), plain {hard_plain_ms:.2f} ms; bound {bound:.5f} ms by {by}"
-        f" ({tests / 1e6:.3f} M box tests)")
+        f" ({tests / 1e6:.3f} M box tests; the kernel's warps walk {walked / 1e6:.3f} M lanes, {made / 1e6:.3f} M"
+        f" of them in the faces' pixel boxes)")
 
     psize = (PULSAR_IMAGE, PULSAR_IMAGE)
     table, idx, bins = serving.inputs(PULSAR_YAWS[0])

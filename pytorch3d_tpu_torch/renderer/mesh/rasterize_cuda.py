@@ -27,8 +27,10 @@ in `rasterize_topk_pallas` :549): the ids-only build of
 `csrc/rasterize_fine.cu`, with `rasterize_topk` as its plain version.
 `rasterize_hard_cuda` replaces `_hard_kernel` (:635, its pallas_call at
 :770 in `rasterize_hard_pallas` :735), the K=1 z-min of
-`MeshRasterizerOpenGL`: `csrc/rasterize_hard.cu`, with
-`rasterize_hard_plain` as its plain version.
+`MeshRasterizerOpenGL`: `csrc/rasterize_hard.cu`, which tests a face only
+in the warps whose 4x8 pixel rectangle meets its pixel box (the same cull
+as `csrc/rasterize_fine.cu`'s), with `rasterize_hard_plain` as its plain
+version.
 """
 
 from __future__ import annotations
@@ -165,15 +167,18 @@ def face_pair_rows(tile_faces: torch.Tensor, tile_start: torch.Tensor, N: int, F
     in ascending tile order (a stable sort of the pairs by face).  Built on
     the binning's device without a host sync."""
     device = tile_faces.device
-    pairs = tile_faces.numel()
-    n_tiles = tile_start.numel() - 1
-    tile = torch.repeat_interleave(
-        torch.arange(n_tiles, device=device), tile_start.diff().long(), output_size=pairs
-    )
-    key = (tile // (n_tiles // N)) * F + tile_faces.long()
+    per_image = (tile_start.numel() - 1) // N
+    dtype = torch.int32 if N * F < 2**31 - 1 else torch.int64
+    key = tile_faces.to(dtype)
+    if N > 1:
+        # The image of pair q: the count of images 1..N-1 whose first pair
+        # lies at or before q.
+        firsts = tile_start[per_image:-1:per_image].contiguous()
+        q = torch.arange(tile_faces.numel(), dtype=firsts.dtype, device=device)
+        key = key + torch.searchsorted(firsts, q, right=True).to(dtype) * F
     key, pair_rows = torch.sort(key, stable=True)
-    face_start = torch.searchsorted(key, torch.arange(N * F + 1, device=device))
-    return pair_rows.to(torch.int32), face_start.to(torch.int32)
+    face_start = torch.searchsorted(key, torch.arange(N * F + 1, dtype=dtype, device=device), out_int32=True)
+    return pair_rows.to(torch.int32), face_start
 
 
 def rasterize_fragments_plain(
@@ -543,7 +548,7 @@ def _hard_library() -> ctypes.CDLL:
                 f" the binning makes {TILE[0]}x{TILE[1]} tiles"
             )
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rasterize_hard.argtypes = [p] * 5 + [i] * 6 + [p] * 4
+        lib.rasterize_hard.argtypes = [p] * 5 + [i] * 6 + [ctypes.c_float] + [p] * 4
         lib.rasterize_hard.restype = ctypes.c_int
     return lib
 
@@ -580,7 +585,7 @@ def rasterize_hard_cuda(
     with torch.cuda.device(device):
         err = lib.rasterize_hard(
             fv.data_ptr(), tile_faces.data_ptr(), tile_start.data_ptr(), xs.data_ptr(), ys.data_ptr(),
-            N, F, H, W, n_ty, n_tx, idx.data_ptr(), zbuf.data_ptr(), bary.data_ptr(),
+            N, F, H, W, n_ty, n_tx, box_grow((H, W), 0.0), idx.data_ptr(), zbuf.data_ptr(), bary.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:

@@ -17,9 +17,10 @@ the tile's whole list.
 Its backward, `rasterize_points_grad_cuda`, replaces the TPU kernel
 `_grad_kernel` (rasterize_points_pallas.py:365, its pallas_call at :562 in
 `_rpf_bwd`): on CUDA tensors it launches `csrc/rasterize_points_grad.cu`,
-one thread per (pixel, slot) with atomic adds per point; on CPU tensors it
-runs `rasterize_points_grad_plain`.  Each source's header says what bounds
-it on an H100 and how its design meets that.
+per-tile point sums over the forward's binning and then a fixed-order sum
+per point (`face_pair_rows`), so two runs give the same bits; on CPU
+tensors it runs `rasterize_points_grad_plain`.  Each source's header says
+what bounds it on an H100 and how its design meets that.
 
 Pulsar's two kernels sit here too.  `select_points_cuda` replaces the
 select-only `_fine_kernel` (rasterize_points_pallas.py:285, its pallas_call
@@ -41,7 +42,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ... import _build
-from ..mesh.rasterize_cuda import TILE, _ptr, bin_boxes, half_pixel
+from ..mesh.rasterize_cuda import TILE, _pixel_grid, _ptr, bin_boxes, face_pair_rows, half_pixel
 from ..mesh.rasterize_meshes import pixel_grid_ndc
 from .rasterize_points import rasterize_points_grad_plain, rasterize_points_plain, rasterize_points_topk
 
@@ -94,8 +95,15 @@ def _library() -> ctypes.CDLL:
 def _grad_library() -> ctypes.CDLL:
     lib = _build.load("rasterize_points_grad")
     if not lib.rasterize_points_grad.argtypes:
+        rows, cols = ctypes.c_int(), ctypes.c_int()
+        lib.rasterize_points_grad_tile(ctypes.byref(rows), ctypes.byref(cols))
+        if (rows.value, cols.value) != TILE:
+            raise RuntimeError(
+                f"rasterize_points_grad.cu sums {rows.value}x{cols.value} tiles but"
+                f" the binning makes {TILE[0]}x{TILE[1]} tiles"
+            )
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rasterize_points_grad.argtypes = [p] * 6 + [i] * 5 + [p] * 2
+        lib.rasterize_points_grad.argtypes = [p] * 10 + [i] * 7 + [p] * 4
         lib.rasterize_points_grad.restype = ctypes.c_int
     return lib
 
@@ -134,14 +142,19 @@ def rasterize_points_grad_cuda(
     gz: Optional[torch.Tensor],  # (N, H, W, K) or None (= 0)
     gdists: Optional[torch.Tensor],  # (N, H, W, K) or None
     image_size: Tuple[int, int],
+    bins=None,  # the forward's `bin_points` (tile_points, tile_start, n_ty, n_tx)
 ) -> torch.Tensor:
     """(N, P, 3) gradient of (zbuf, dists) w.r.t. `points`.
 
     CUDA tensors launch the backward kernel (and count the launch in
-    `rasterize_points_grad_cuda.launches`); CPU tensors run the plain
-    version.  The kernel takes float32 contiguous tensors and int32 ids;
-    anything else raises.  Its fp32 atomics add in an order that changes
-    from run to run, so two runs agree to rounding, not bit for bit.
+    `rasterize_points_grad_cuda.launches`) over `bins`, the binning the
+    forward rasterized `idx` with; CPU tensors run the plain version, which
+    needs no binning.  The kernel takes float32 contiguous tensors and int32
+    ids; anything else raises.  It sums per (tile, point) pair of `bins`,
+    then each point's pairs in ascending tile order: no atomics, so two runs
+    on the same inputs give the same bits.  A filled slot whose point is
+    missing from its tile's list in `bins` makes that point's row NaN, and
+    an id >= P every row of its cloud: the fault shows without a host sync.
     """
     if points.device.type == "cpu":
         return rasterize_points_grad_plain(points, idx, gz, gdists, image_size)
@@ -168,16 +181,28 @@ def rasterize_points_grad_cuda(
             raise ValueError(f"rasterize_points_grad_cuda: {name} must be contiguous")
     if not (points.is_contiguous() and idx.is_contiguous()):
         raise ValueError("rasterize_points_grad_cuda: points and idx must be contiguous")
-    grad = torch.zeros((N, P, 3), dtype=torch.float32, device=points.device)
-    if grad.numel() == 0 or idx.numel() == 0 or (gz is None and gdists is None):
-        return grad
-    ys, xs = pixel_grid_ndc(H, W, points.device)
+    if bins is None:
+        raise ValueError("rasterize_points_grad_cuda: CUDA tensors need the binning the ids were rasterized on")
+    device = points.device
+    if points.numel() == 0 or idx.numel() == 0 or (gz is None and gdists is None):
+        return torch.zeros((N, P, 3), dtype=torch.float32, device=device)
+    tile_points, tile_start, n_ty, n_tx = bins
+    if (n_ty, n_tx) != (-(-H // TILE[0]), -(-W // TILE[1])) or tile_start.numel() != N * n_ty * n_tx + 1:
+        raise ValueError(f"rasterize_points_grad_cuda: bins of {n_ty}x{n_tx} tiles are not of {N} {H}x{W} images")
+    if any(t.dtype != torch.int32 or t.device != device or not t.is_contiguous() for t in (tile_points, tile_start)):
+        raise TypeError("rasterize_points_grad_cuda: bins must be contiguous int32 tensors on the points' device")
+    pair_rows, point_start = face_pair_rows(tile_points, tile_start, N, P)
+    gpair = torch.empty((max(tile_points.numel(), 1), 3), dtype=torch.float32, device=device)
+    flagged = torch.zeros((N * P + N,), dtype=torch.int32, device=device)
+    grad = torch.empty((N, P, 3), dtype=torch.float32, device=device)
+    ys, xs = _pixel_grid(H, W, device)
     lib = _grad_library()
-    with torch.cuda.device(points.device):
+    with torch.cuda.device(device):
         err = lib.rasterize_points_grad(
-            points.data_ptr(), idx.data_ptr(), _ptr(gz), _ptr(gdists), xs.data_ptr(), ys.data_ptr(),
-            N, P, H, W, idx.shape[3], grad.data_ptr(),
-            torch.cuda.current_stream(points.device).cuda_stream,
+            points.data_ptr(), tile_points.data_ptr(), tile_start.data_ptr(), pair_rows.data_ptr(),
+            point_start.data_ptr(), idx.data_ptr(), _ptr(gz), _ptr(gdists), xs.data_ptr(), ys.data_ptr(),
+            N, P, H, W, idx.shape[3], n_ty, n_tx, gpair.data_ptr(), flagged.data_ptr(), grad.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"rasterize_points_grad launch failed: CUDA error {err}")
@@ -199,16 +224,17 @@ class _RasterizePoints(torch.autograd.Function):
         idx, zbuf, dists = _run_kernel(pts, radius, bins, image_size, K)
         ctx.mark_non_differentiable(idx)
         ctx.set_materialize_grads(False)  # an unused output's cotangent stays None
-        ctx.save_for_backward(pts, idx)
-        ctx.image_size = image_size
+        ctx.save_for_backward(pts, idx, bins[0], bins[1])  # the backward sums over the same tiles
+        ctx.raster = (image_size, bins[2], bins[3])
         return idx, zbuf, dists
 
     @staticmethod
     @once_differentiable
     def backward(ctx, _gidx, gz, gdists):
-        pts, idx = ctx.saved_tensors
+        pts, idx, tile_points, tile_start = ctx.saved_tensors
+        image_size, n_ty, n_tx = ctx.raster
         gz, gdists = (None if g is None else g.float().contiguous() for g in (gz, gdists))
-        grad = rasterize_points_grad_cuda(pts, idx, gz, gdists, ctx.image_size)
+        grad = rasterize_points_grad_cuda(pts, idx, gz, gdists, image_size, (tile_points, tile_start, n_ty, n_tx))
         return grad, None, None, None, None
 
 

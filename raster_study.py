@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Study the fine mesh rasterizer (#1), the pulsar blend backward (#8) and
-the points rasterizer (#5, with its select-only build #6) on one CUDA
-card: each against an earlier build of it, its parts timed apart, and the
+"""Study the fine mesh rasterizer (#1), the pulsar blend backward (#8),
+the points rasterizer (#5, with its select-only build #6), the hard mesh
+rasterizer (#3) and the points backward (#7) on one CUDA card: each
+against an earlier build of it, its parts timed apart, and the
 end-to-end paths that run them.
 
     git show b30e36d:pytorch3d_tpu_torch/csrc/rasterize_fine.cu > build/fine_parent.cu
@@ -10,6 +11,10 @@ end-to-end paths that run them.
     python3 raster_study.py pulsar --source build/pulsar_parent.cu
     git show febf1cf:pytorch3d_tpu_torch/csrc/rasterize_points.cu > build/points_parent.cu
     python3 raster_study.py points --source build/points_parent.cu
+    git show 3144b18:pytorch3d_tpu_torch/csrc/rasterize_hard.cu > build/hard_parent.cu
+    python3 raster_study.py hard --source build/hard_parent.cu
+    git show 3144b18:pytorch3d_tpu_torch/csrc/rasterize_points_grad.cu > build/points_grad_parent.cu
+    python3 raster_study.py points-grad --source build/points_grad_parent.cu
     python3 raster_study.py e2e [--tree DIR] [--reps N] [--paths NAME ...]
 
 `fine`: FILE is a `rasterize_fine.cu` without the box growth in its C
@@ -89,14 +94,62 @@ design makes (`chip_smoke.tile_candidates` for FILE; for the package
 the lanes its warps walk, each of which tests, and the pixel centres in
 the points' boxes among them, `chip_smoke.points_tests`).
 
+`hard`: FILE is a `rasterize_hard.cu` without the box growth in its C
+interface, such as 3144b18's, where every pixel of a tile tests every
+face of the tile's list.  The script builds FILE, the package's source
+(for its ptxas figures; the runs use the package's own build) and a copy,
+`shared_stores`, in which each warp writes its rectangle's id, z and bary
+through shared memory (as #1 does) where the package's threads store
+their own pixels.  At the
+serving batch for each of chip_smoke's 8 azimuths, at
+`chip_smoke.hard_cull_edge_batch` (the cull's edge cases, at 120x200 and
+512^2) and at `chip_smoke.crossing_strip_faces` (faces crossing z = 0,
+at 512^2 and 120x200), FILE's three outputs (ids, z, bary), the
+package's and the copy's must be equal bit for bit; the script exits non-zero otherwise.
+It prints the ids' agreement with the plain version and the tests each
+design makes (`chip_smoke.tile_candidates` for FILE, `chip_smoke.hard_tests`
+for the package), then times both by the profiler's device time at the
+serving batch (azimuths 30 and 165), in the order FILE, package, copy,
+package, FILE.
+
+`points-grad`: FILE is a `rasterize_points_grad.cu` with the C interface
+before the binning was passed in, such as 3144b18's (one thread per
+(pixel, slot), atomic adds).  The script builds FILE, the package's
+source (for its ptxas figures; the runs use the package's own build) and
+copies of it that each change one thing (`points_grad_variants`):
+
+- `splits1`, `splits6`: a tile's passes go to one block or to six (the
+  package three);
+- `chunk128`: pass 1 sums 128 list positions a pass (the package 256),
+  its passes shared by six blocks;
+- `loads8`: a warp loads 8 groups of 32 slot ids at once (the package 4),
+  with a ring of 512 queued slots;
+- `shared_atomic` (timing only): each lane adds its partials to the
+  warp's row with a shared-memory atomic, without the warp sort and
+  scan, so the order of the sums changes from run to run.
+
+At the points-fit step 0 (its loss's cotangents), points-bench
+(cotangents 1 at the filled slots, as its loss) and the points-serving
+batch (seeded random cotangents) it prints the package's largest
+difference from FILE's result over the largest |grad|, whether two
+package launches give the same bits and are finite, whether two of
+FILE's do, and whether each copy gives the package's bits (the splits
+and loads copies must: they sum the same slots in the same order) or how
+far it is off; then the device time of each, in the order FILE, package,
+copies, package, FILE: FILE's kernel and its call's whole device work
+(the zero fill included), the package's and each copy's two passes, the
+package's call's whole device work (the pair CSR and the flag fill
+included), and the pair CSR (`face_pair_rows`) alone.
+
 `e2e`: with the tree's own chip_smoke.py and port package (this checkout,
 or another commit unpacked with `git archive` into a directory
 .gitignore lists, such as `build/parent`), the serving frame (the mesh
 batch at one of chip_smoke's 8 azimuths), the render-fit step, the
 pulsar-serving request, the pulsar-fit step, the points-serving frame
-(the 8 requests in one render) and the points-fit step: each the host-clock
-median of N after warm-up (`chip_smoke.timed_ms`), printed as one JSON
-line; `--paths` times only the named ones, in the order given.  Host
+(the 8 requests in one render), the points-fit step and the mesh-gl
+frame (`MeshRasterizerOpenGL` with `HardPhongShader` on the serving
+batch): each the host-clock median of N after warm-up
+(`chip_smoke.timed_ms`), printed as one JSON line; `--paths` times only the named ones, in the order given.  Host
 times vary up to 2x between calls, so compare two trees only in one
 call, in turns:
 
@@ -121,7 +174,7 @@ REPO = Path(__file__).resolve().parent
 OUT = REPO / "build" / "raster_study"
 CSRC = REPO / "pytorch3d_tpu_torch" / "csrc"
 E2E_PATHS = ("serving frame", "render-fit step", "pulsar-serving request", "pulsar-fit step", "points-serving frame",
-             "points-fit step")
+             "points-fit step", "mesh-gl frame")
 
 FINE_BOUNDS = "__global__ void __launch_bounds__(kThreads, KB <= 8 ? 3 : 1)\nrasterize_fine_kernel("
 FINE_STORES_START = "  // Each warp writes its rectangle's slots through its buffer"
@@ -254,6 +307,52 @@ POINTS_DOUBLE_BUFFER = (
       const unsigned cols = axis_bits(s.cx, x, r2);
       s.pt[tid] = make_float4(x, y, r2, raw[half][2][tid]);"""),
 )
+PGRAD_SORT_START = "    // Bitonic sort of the keys (pos, lane) across the warp, ascending;"
+PGRAD_SORT_END = "    __syncwarp();\n  };"
+# Timing only: each lane adds its partials to the warp's row with a shared
+# atomic, in an order that changes from run to run.
+PGRAD_SHARED_ATOMIC = """    if (pos >= 0) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) atomicAdd(&acc[pos * 3 + c], g[c]);
+    }
+"""
+HARD_STORES_START = "  if (!live) return;\n  // interpolate_fragments(perspective_correct=True) for the winner."
+HARD_STORES_END = "\n}\n\n}  // namespace"
+# Each warp writes its rectangle's id, z and bary through a piece of
+# shared memory, a pixel's values an odd stride apart, read back as runs
+# of consecutive addresses (#1's stores).
+HARD_SHARED_STORES = """  float z = -1.0f, b0 = -1.0f, b1 = -1.0f, b2 = -1.0f;
+  if (best_id >= 0) {
+    const float t0 = (w0b * z1b) * z2b;
+    const float t1 = (z0b * w1b) * z2b;
+    const float t2 = (z0b * z1b) * w2b;
+    const float denom = fmaxf((t0 + t1) + t2, kEpsilon);
+    b0 = t0 / denom;
+    b1 = t1 / denom;
+    b2 = t2 / denom;
+    z = (b0 * z0b + b1 * z1b) + b2 * z2b;
+  }
+  __shared__ float s_buf[kWarps][32 * 3];
+  float* buf = s_buf[warp];
+  const size_t rect_base = (static_cast<size_t>(n) * H + row0) * W + col0;
+  const int rows_live = min(kRectH, H - row0), cols_live = min(kRectW, W - col0);
+  auto put = [&](float* out, int wd, float v0, float v1, float v2) {
+    buf[lane * wd] = v0;
+    if (wd == 3) {
+      buf[lane * 3 + 1] = v1;
+      buf[lane * 3 + 2] = v2;
+    }
+    __syncwarp();
+    for (int e = lane; e < 32 * wd; e += 32) {
+      const int p = e / wd, off = e - p * wd;
+      const int r = p / kRectW, c = p - r * kRectW;
+      if (r < rows_live && c < cols_live) out[(rect_base + static_cast<size_t>(r) * W + c) * wd + off] = buf[p * wd + off];
+    }
+    __syncwarp();
+  };
+  put(reinterpret_cast<float*>(out_idx), 1, __int_as_float(best_id), 0.0f, 0.0f);
+  put(out_z, 1, z, 0.0f, 0.0f);
+  put(out_bary, 3, b0, b1, b2);"""
 PULSAR_BOUNDS = "__global__ void __launch_bounds__(kThreads, KB <= 8 ? 4 : 1)\npulsar_grad_tiles_kernel("
 
 
@@ -301,6 +400,27 @@ def points_variants(text):
         "blocks3": bounds("(kThreads, KB <= 16 ? 3 : 1)"),
         "blocks4": bounds("(kThreads, KB <= 16 ? 4 : 1)"),
         "double_buffer": substitute(text, POINTS_DOUBLE_BUFFER, "double_buffer"),
+    }
+
+
+def points_grad_variants(text):
+    """{name: (source text, bit-exact with the package)} of the package's
+    points backward and its copies."""
+    i = text.index(PGRAD_SORT_START) if PGRAD_SORT_START in text else -1
+    j = text.find(PGRAD_SORT_END, i)
+    if i < 0 or j < 0:
+        raise SystemExit("raster_study: the package's points backward has no warp sort to take out")
+    sub = lambda pairs, what: substitute(text, pairs, what)  # noqa: E731
+    splits = lambda n: (("constexpr int kSplits = 3;", f"constexpr int kSplits = {n};"),)  # noqa: E731
+    chunk = lambda n: (("constexpr int kListChunk = 256;", f"constexpr int kListChunk = {n};"),)  # noqa: E731
+    return {
+        "package": (text, True),
+        "splits1": (sub(splits(1), "splits1"), True),
+        "splits6": (sub(splits(6), "splits6"), True),
+        "chunk128": (sub(chunk(128) + splits(6), "chunk128"), False),
+        "loads8": (sub((("constexpr int kLoads = 4;", "constexpr int kLoads = 8;"),
+                        ("constexpr int kQueue = 256;", "constexpr int kQueue = 512;")), "loads8"), True),
+        "shared_atomic": (text[:i] + PGRAD_SHARED_ATOMIC + text[j:], False),
     }
 
 
@@ -620,6 +740,218 @@ def study_points(cs, device, source):
     return 0
 
 
+def hard_settings(cs, device):
+    """[(label, fv, valid, size)] of `hard`: the serving batch at the 8
+    azimuths, the cull's edge cases and faces crossing z = 0."""
+    square, edge = (cs.IMAGE, cs.IMAGE), cs.CULL_EDGE_IMAGE
+    meshes = cs.main_path_meshes(device)
+    out = [(f"serving batch, azim {a:.0f}", *cs.face_inputs(meshes, cs.camera(a, device), square), square)
+           for a in cs.AZIMUTHS]
+    for size in (edge, square):
+        out.append((f"cull edges {size[0]}x{size[1]}", *cs.hard_cull_edge_batch(device, size), size))
+        out.append((f"faces crossing z = 0, {size[0]}x{size[1]}", *cs.crossing_strip_faces(device, size), size))
+    return out
+
+
+def study_hard(cs, device, source):
+    import torch
+
+    from pytorch3d_tpu_torch.renderer.mesh import rasterize_cuda as rc
+    from pytorch3d_tpu_torch.renderer.mesh.rasterize_meshes import _face_culls
+
+    parent_text = source.read_text()
+    if "box_grow" in parent_text:
+        raise SystemExit("raster_study: the source takes the box growth: not the design without the cull")
+    text = (CSRC / "rasterize_hard.cu").read_text()
+    i = text.index(HARD_STORES_START) if HARD_STORES_START in text else -1
+    j = text.find(HARD_STORES_END, i)
+    if i < 0 or j < 0:
+        raise SystemExit("raster_study: the package's hard kernel has no thread stores to replace")
+    sources = {"parent": (parent_text, ()), "package": (text, ()),
+               "shared_stores": (text[:i] + HARD_SHARED_STORES + text[j:], ())}
+    built = build_all("rasterize_hard", sources)
+    for name, (_, log) in built.items():
+        for kernel, figures in cs.ptxas_figures(log).items():
+            print(f"ptxas {name}: {kernel}: {figures}", flush=True)
+    parent = built["parent"][0]
+    p, i = ctypes.c_void_p, ctypes.c_int
+    parent.rasterize_hard.argtypes = [p] * 5 + [i] * 6 + [p] * 4
+    parent.rasterize_hard.restype = ctypes.c_int
+    copy = built["shared_stores"][0]
+    copy.rasterize_hard.argtypes = rc._hard_library().rasterize_hard.argtypes
+    copy.rasterize_hard.restype = ctypes.c_int
+    library = rc._hard_library
+
+    def run_copy(fv, valid, size):
+        rc._hard_library = lambda: copy
+        try:
+            return rc.rasterize_hard_cuda(fv, valid, size)
+        finally:
+            rc._hard_library = library
+
+    def outputs(N, H, W):
+        return (torch.empty((N, H, W, 1), dtype=torch.int32, device=device),
+                torch.empty((N, H, W, 1), device=device), torch.empty((N, H, W, 1, 3), device=device))
+
+    def run_parent(fv, bins, size):
+        tile_faces, tile_start, n_ty, n_tx = bins
+        N, F = fv.shape[:2]
+        H, W = size
+        ys, xs = rc.pixel_grid_ndc(H, W, device)
+        outs = outputs(N, H, W)
+
+        def run():
+            err = parent.rasterize_hard(
+                fv.data_ptr(), tile_faces.data_ptr(), tile_start.data_ptr(), xs.data_ptr(), ys.data_ptr(),
+                N, F, H, W, n_ty, n_tx, *(t.data_ptr() for t in outs), torch.cuda.current_stream().cuda_stream,
+            )
+            assert err == 0, err
+            return outs
+
+        return run
+
+    bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t  # noqa: E731
+    failed, timed = [], {}
+    for label, fv, valid, size in hard_settings(cs, device):
+        bins = rc.bin_faces(fv, _face_culls(fv, valid, False), size, 0.0)
+        want = [t.clone() for t in run_parent(fv, bins, size)()]
+        got = rc.rasterize_hard_cuda(fv, valid, size)
+        other = run_copy(fv, valid, size)
+        torch.cuda.synchronize()
+        same = [torch.equal(bits(g), bits(w)) for g, w in zip(got, want)]
+        same_copy = all(torch.equal(bits(g), bits(w)) for g, w in zip(other, want))
+        if not (all(same) and same_copy):
+            failed.append(label)
+        plain = rc.rasterize_hard_plain(fv, valid, size)[0]
+        made, walked = cs.hard_tests(fv, valid, size)
+        print(f"bits [{label}] N={fv.shape[0]} F={fv.shape[1]} {size[0]}x{size[1]}: package against the parent's"
+              f" ids, z, bary {'equal' if all(same) else 'DIFFER ' + str(same)}, shared_stores"
+              f" {'equal' if same_copy else 'DIFFERS'}; ids equal to the plain version's"
+              f" {float((got[0].long() == plain).float().mean()):.6f}, covered px {int((want[0] >= 0).sum())};"
+              f" tests: parent {cs.tile_candidates(bins[1], fv.shape[0], bins[2], bins[3], size) / 1e6:.3f} M,"
+              f" package {made / 1e6:.3f} M in {walked / 1e6:.3f} M warp lanes", flush=True)
+        if label in ("serving batch, azim 30", "serving batch, azim 165"):
+            timed[label] = (fv, valid, bins, size)
+    if failed:
+        print(f"raster_study: outputs differ from the parent's: {failed}", file=sys.stderr)
+        return 1
+    for label, (fv, valid, bins, size) in timed.items():
+        runs = {"parent": run_parent(fv, bins, size), "package": lambda: rc.rasterize_hard_cuda(fv, valid, size),
+                "shared_stores": lambda: run_copy(fv, valid, size)}
+        times = [f"{name} {cs.device_ms(runs[name], 'rasterize_hard_kernel'):.4f}"
+                 for name in ("parent", "package", "shared_stores", "package", "parent")]
+        print(f"times [{label}] device ms: {', '.join(times)}", flush=True)
+    return 0
+
+
+def study_points_grad(cs, device, source):
+    import torch
+
+    from pytorch3d_tpu_torch.renderer.points import rasterize_points_cuda as rpc
+
+    from pytorch3d_tpu_torch.renderer.mesh.rasterize_cuda import face_pair_rows
+
+    parent_text = source.read_text()
+    if "tile_points" in parent_text:
+        raise SystemExit("raster_study: the source takes the binning: not the design with atomic adds")
+    variants = points_grad_variants((CSRC / "rasterize_points_grad.cu").read_text())
+    sources = {"parent": (parent_text, ()), **{name: (text, ()) for name, (text, _) in variants.items()}}
+    built = build_all("rasterize_points_grad", sources)
+    for name, (_, log) in built.items():
+        for kernel, figures in cs.ptxas_figures(log).items():
+            print(f"ptxas {name}: {kernel}: {figures}", flush=True)
+    parent = built.pop("parent")[0]
+    p, i = ctypes.c_void_p, ctypes.c_int
+    parent.rasterize_points_grad.argtypes = [p] * 6 + [i] * 5 + [p] * 2
+    parent.rasterize_points_grad.restype = ctypes.c_int
+    package = rpc._grad_library()
+    copies = {}
+    for name, (lib, _) in built.items():
+        if name != "package":
+            lib.rasterize_points_grad.argtypes = package.rasterize_points_grad.argtypes
+            lib.rasterize_points_grad.restype = ctypes.c_int
+            copies[name] = lib
+    library = rpc._grad_library
+
+    size = (cs.PTS_IMAGE, cs.PTS_IMAGE)
+    cases = [("points-fit step 0", *cs.PointsFit(device).cotangents())]
+    bench = cs.bench_points(device)
+    rad, valid = cs.uniform_radius(bench, cs.BENCH_RADIUS)
+    idx, _, _ = rpc.rasterize_points_cuda(bench, rad, valid, size, cs.BENCH_K)
+    filled = (idx >= 0).float()
+    cases.append(("points-bench", bench, idx, (filled, filled), rpc.bin_points(bench, rad, valid, size)))
+    served = cs.served_points_ndc(device)
+    rad, valid = cs.uniform_radius(served, cs.PTS_RADIUS)
+    idx, zbuf, _ = rpc.rasterize_points_cuda(served, rad, valid, size, cs.PTS_K)
+    gen = torch.Generator(device=device).manual_seed(3)
+    cots = tuple(torch.randn(zbuf.shape, generator=gen, device=device) for _ in range(2))
+    cases.append(("points-serving batch, random cotangents", served, idx, cots, rpc.bin_points(served, rad, valid, size)))
+
+    for label, pts, idx, cots, bins in cases:
+        N, P = pts.shape[:2]
+        H, W = size
+        ys, xs = rpc.pixel_grid_ndc(H, W, device)
+
+        def run_parent():
+            grad = torch.zeros((N, P, 3), device=device)
+            err = parent.rasterize_points_grad(
+                pts.data_ptr(), idx.data_ptr(), *(None if c is None else c.data_ptr() for c in cots),
+                xs.data_ptr(), ys.data_ptr(), N, P, H, W, idx.shape[3], grad.data_ptr(),
+                torch.cuda.current_stream().cuda_stream,
+            )
+            assert err == 0, err
+            return grad
+
+        def run_package(lib=None):
+            if lib is not None:
+                rpc._grad_library = lambda: lib
+            try:
+                return rpc.rasterize_points_grad_cuda(pts, idx, *cots, size, bins)
+            finally:
+                rpc._grad_library = library
+
+        old, old2 = run_parent(), run_parent()
+        a, a2 = run_package(), run_package()
+        torch.cuda.synchronize()
+        scale = old.abs().max().clamp(min=1e-30)
+        same = torch.equal(a.view(torch.int32), a2.view(torch.int32))
+        same_parent = torch.equal(old.view(torch.int32), old2.view(torch.int32))
+        ratio = float((a - old).abs().max() / scale)
+        notes, failed = [], []
+        for name, lib in copies.items():
+            b = run_package(lib)
+            torch.cuda.synchronize()
+            if torch.equal(b.view(torch.int32), a.view(torch.int32)):
+                notes.append(f"{name} equal")
+            else:
+                notes.append(f"{name} off by {float((b - a).abs().max() / scale):.3e}")
+                if variants[name][1]:
+                    failed.append(name)
+        longest, passes = cs.longest_list(bins, cs.POINTS_GRAD_LIST_CHUNK)
+        print(f"[{label}] N={N} P={P} K={idx.shape[3]} filled {int((idx >= 0).sum())} pairs {bins[0].numel()}"
+              f" longest list {longest} ({passes} pass(es)): package vs parent max|diff| {ratio:.3e} of max|grad|;"
+              f" package twice bit-equal {same}, finite {bool(torch.isfinite(a).all())}; parent twice bit-equal"
+              f" {same_parent}; copies against the package: {'; '.join(notes)}", flush=True)
+        if failed or not (same and bool(torch.isfinite(a).all())):
+            print(f"raster_study: the package's gradient is not deterministic or not finite, or copies {failed}"
+                  f" differ, at {label}", file=sys.stderr)
+            return 1
+        times = []
+        for name in ("parent", "package", *copies, "package", "parent"):
+            if name == "parent":
+                kernel = cs.device_ms(run_parent, "rasterize_points_grad_kernel")
+                times.append(f"parent {kernel:.4f} (call {cs.call_device_ms(run_parent):.4f})")
+            else:
+                fn = (lambda lib=copies.get(name): run_package(lib))
+                by = cs.device_ms_by_kernel(fn, cs.POINTS_GRAD_KERNELS)
+                call = f"; call {cs.call_device_ms(fn):.4f}" if name == "package" else ""
+                times.append(f"{name} {sum(by.values()):.4f} (passes {' + '.join(f'{v:.4f}' for v in by.values())}"
+                             f"{call})")
+        csr = cs.call_device_ms(lambda: face_pair_rows(bins[0], bins[1], N, P))
+        print(f"times [{label}] device ms: {', '.join(times)}; pair CSR alone {csr:.4f}", flush=True)
+    return 0
+
+
 def study_e2e(cs, device, tree, reps, names):
     import torch
 
@@ -628,6 +960,7 @@ def study_e2e(cs, device, tree, reps, names):
     cs.phase_build()
     meshes = cs.main_path_meshes(device)
     renderers = [cs.renderer(cs.camera(a, device), device) for a in cs.AZIMUTHS]
+    gl_renderers = [cs.gl_renderer(cs.camera(a, device), device) for a in cs.AZIMUTHS]
     fit, serving, pfit = cs.RenderFit(device), cs.PulsarServing(device), cs.PulsarFit(device)
     from pytorch3d_tpu_torch.renderer import AlphaCompositor
 
@@ -648,6 +981,7 @@ def study_e2e(cs, device, tree, reps, names):
         "pulsar-fit step": lambda i: step(pfit),
         "points-serving frame": lambda i: points_render(clouds),
         "points-fit step": lambda i: step(points_fit),
+        "mesh-gl frame": lambda i: gl_renderers[i % len(gl_renderers)](meshes),
     }
     out = {"tree": tree}
     for name in names:
@@ -670,6 +1004,10 @@ def main() -> int:
                                           help="a pulsar_grad.cu without the flag array")
     sub.add_parser("points").add_argument("--source", type=Path, required=True,
                                           help="a rasterize_points.cu without the pixel-box cull")
+    sub.add_parser("hard").add_argument("--source", type=Path, required=True,
+                                        help="a rasterize_hard.cu without the box growth")
+    sub.add_parser("points-grad").add_argument("--source", type=Path, required=True,
+                                               help="a rasterize_points_grad.cu with atomic adds")
     e2e = sub.add_parser("e2e")
     e2e.add_argument("--tree", default=str(REPO))
     e2e.add_argument("--reps", type=int, default=16)
@@ -689,7 +1027,9 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True)
     print(smi.stdout.strip(), flush=True)
-    return {"fine": study_fine, "pulsar": study_pulsar, "points": study_points}[args.study](cs, device, args.source)
+    studies = {"fine": study_fine, "pulsar": study_pulsar, "points": study_points, "hard": study_hard,
+               "points-grad": study_points_grad}
+    return studies[args.study](cs, device, args.source)
 
 
 if __name__ == "__main__":

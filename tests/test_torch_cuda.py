@@ -372,9 +372,9 @@ def test_points_kernels_match_plain_at_the_cull_edges(cuda_device, size, K):
 
 
 def _point_grad_close(got, want, exact):
-    # fp32 atomics (kernel) and index_add_ (plain) sum per-pixel terms in
-    # orders that change from run to run: per point within 1e-5 of its own
-    # scale, against the float64 plain version (chip_smoke.py's gate).
+    # The kernel (per tile, then per point in tile order) and index_add_
+    # (plain) sum per-pixel terms in other orders: per point within 1e-5 of
+    # its own scale, against the float64 plain version (chip_smoke.py's gate).
     assert torch.isfinite(got).all()
     err = float((got.double() - exact).abs().max())
     assert err <= _CHIP_SMOKE.POINT_GRAD_GATE * float(exact.abs().max()), err
@@ -388,9 +388,10 @@ def test_points_grad_kernel_matches_plain(cuda_device, size, radius, K):
     idx, zbuf, _ = tpc.rasterize_points_cuda(pts, rad, valid, size, K)
     gen = torch.Generator(device=cuda_device).manual_seed(K)
     gz, gd = (torch.randn(zbuf.shape, generator=gen, device=cuda_device) for _ in range(2))
+    bins = tpc.bin_points(pts, rad, valid, size)
     for cots in ((gz, gd), (None, gd), (gz, None)):
         before = tpc.rasterize_points_grad_cuda.launches
-        got = tpc.rasterize_points_grad_cuda(pts, idx, *cots, size)
+        got = tpc.rasterize_points_grad_cuda(pts, idx, *cots, size, bins)
         torch.cuda.synchronize()
         assert tpc.rasterize_points_grad_cuda.launches == before + 1
         want = trp.rasterize_points_grad_plain(pts, idx, *cots, size)
@@ -423,7 +424,7 @@ def test_each_points_call_counts_its_launch(cuda_device):
     counters = (tpc.rasterize_points_cuda, tpc.rasterize_points_grad_cuda)
     before = [c.launches for c in counters]
     idx, zbuf, dists = tpc.rasterize_points_cuda(pts, rad, valid, (32, 32), 4)
-    tpc.rasterize_points_grad_cuda(pts, idx, zbuf, dists, (32, 32))
+    tpc.rasterize_points_grad_cuda(pts, idx, zbuf, dists, (32, 32), tpc.bin_points(pts, rad, valid, (32, 32)))
     assert [c.launches for c in counters] == [b + 1 for b in before]
 
 
@@ -439,17 +440,18 @@ def test_points_kernels_refuse_what_they_do_not_take(cuda_device):
         tpc.rasterize_points_cuda(pts, rad.double(), valid, (32, 32), 4)
 
     idx, zbuf, dists = tpc.rasterize_points_cuda(pts, rad, valid, (32, 32), 4)
+    bins = tpc.bin_points(pts, rad, valid, (32, 32))
     with pytest.raises(TypeError):
-        tpc.rasterize_points_grad_cuda(pts.double(), idx, zbuf, dists, (32, 32))
+        tpc.rasterize_points_grad_cuda(pts.double(), idx, zbuf, dists, (32, 32), bins)
     with pytest.raises(TypeError):
-        tpc.rasterize_points_grad_cuda(pts, idx.long(), zbuf, dists, (32, 32))
+        tpc.rasterize_points_grad_cuda(pts, idx.long(), zbuf, dists, (32, 32), bins)
     with pytest.raises(ValueError):
-        tpc.rasterize_points_grad_cuda(pts, idx, zbuf.transpose(1, 2), dists, (32, 32))  # not contiguous
+        tpc.rasterize_points_grad_cuda(pts, idx, zbuf.transpose(1, 2), dists, (32, 32), bins)  # not contiguous
     with pytest.raises(ValueError):
-        tpc.rasterize_points_grad_cuda(pts, idx.transpose(1, 2), zbuf, dists, (32, 32))  # not contiguous
+        tpc.rasterize_points_grad_cuda(pts, idx.transpose(1, 2), zbuf, dists, (32, 32), bins)  # not contiguous
     wide = idx.new_full((2, 32, 32, tpc.MAX_POINTS_PER_PIXEL + 1), -1)
     with pytest.raises(ValueError):
-        tpc.rasterize_points_grad_cuda(pts, wide, None, wide.float(), (32, 32))
+        tpc.rasterize_points_grad_cuda(pts, wide, None, wide.float(), (32, 32), bins)
 
 
 # --------------------------------------------------------------------------- #
