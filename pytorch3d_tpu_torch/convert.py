@@ -4,7 +4,8 @@ The JAX objects are flax dataclasses of arrays; a caller converts their
 fields with `np.asarray` and hands them here, so both packages render the
 same scene from the same state.  Nothing here imports JAX.  The mesh and
 point rendering paths have no learned weights: their state is geometry,
-vertex colors or point features, cameras, lights and materials; pulsar's
+vertex colors, UV maps or atlases, point features, cameras, lights and
+materials; pulsar's
 state is its sphere table (positions, colours, radii, opacities), which
 passes across as float32 arrays.  The NeRF
 model's weights convert between a flax `RadianceFieldRenderer` param tree
@@ -25,9 +26,9 @@ from .renderer.cameras import (
     OrthographicCameras,
     PerspectiveCameras,
 )
-from .renderer.lighting import PointLights
+from .renderer.lighting import AmbientLights, DirectionalLights, PointLights
 from .renderer.materials import Materials
-from .renderer.mesh.textures import TexturesVertex
+from .renderer.mesh.textures import TexturesAtlas, TexturesUV, TexturesVertex
 from .structures import Meshes, Pointclouds
 
 Device = Union[str, torch.device]
@@ -65,6 +66,28 @@ def meshes_from_numpy(
 def textures_vertex_from_numpy(verts_features: Arrays, device: Device = DEFAULT_DEVICE) -> TexturesVertex:
     """TexturesVertex from a list of (V_i, C) or a padded (N, V, C) array."""
     return TexturesVertex.create(_own(verts_features), device=device)
+
+
+def textures_uv_from_numpy(
+    maps: Arrays,
+    faces_uvs: Arrays,
+    verts_uvs: Arrays,
+    padding_mode: str = "border",
+    align_corners: bool = True,
+    sampling_mode: str = "bilinear",
+    device: Device = DEFAULT_DEVICE,
+) -> TexturesUV:
+    """TexturesUV from lists of per-mesh arrays or batched ones: maps
+    (N, H, W, C), faces_uvs (N, F, 3), verts_uvs (N, Vuv, 2)."""
+    return TexturesUV.create(
+        _own(maps), _own(faces_uvs), _own(verts_uvs), padding_mode=padding_mode,
+        align_corners=align_corners, sampling_mode=sampling_mode, device=device,
+    )
+
+
+def textures_atlas_from_numpy(atlas: Arrays, device: Device = DEFAULT_DEVICE) -> TexturesAtlas:
+    """TexturesAtlas from a list of (F_i, R, R, C) or a padded (N, F, R, R, C) array."""
+    return TexturesAtlas.create(_own(atlas), device=device)
 
 
 def fov_perspective_cameras_from_numpy(
@@ -166,6 +189,23 @@ def point_lights_from_numpy(
         ambient_color=_own(ambient_color), diffuse_color=_own(diffuse_color),
         specular_color=_own(specular_color), location=_own(location), device=device,
     )
+
+
+def directional_lights_from_numpy(
+    ambient_color: np.ndarray,
+    diffuse_color: np.ndarray,
+    specular_color: np.ndarray,
+    direction: np.ndarray,
+    device: Device = DEFAULT_DEVICE,
+) -> DirectionalLights:
+    return DirectionalLights.create(
+        ambient_color=_own(ambient_color), diffuse_color=_own(diffuse_color),
+        specular_color=_own(specular_color), direction=_own(direction), device=device,
+    )
+
+
+def ambient_lights_from_numpy(ambient_color: np.ndarray, device: Device = DEFAULT_DEVICE) -> AmbientLights:
+    return AmbientLights.create(ambient_color=_own(ambient_color), device=device)
 
 
 def materials_from_numpy(

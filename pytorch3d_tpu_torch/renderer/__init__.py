@@ -29,10 +29,12 @@ from .implicit import (
     ray_bundle_variables_to_ray_points,
     sample_pdf,
 )
-from .lighting import PointLights, diffuse, specular
+from .lighting import AmbientLights, DirectionalLights, PointLights, diffuse, specular
 from .materials import Materials
 from .mesh import (
     Fragments,
+    HardDepthShader,
+    HardFlatShader,
     HardGouraudShader,
     HardPhongShader,
     MeshRasterizer,
@@ -40,12 +42,19 @@ from .mesh import (
     MeshRenderer,
     MeshRendererWithFragments,
     RasterizationSettings,
+    SoftDepthShader,
+    SoftGouraudShader,
     SoftPhongShader,
     SoftSilhouetteShader,
+    SplatterPhongShader,
+    Textures,
+    TexturesAtlas,
+    TexturesUV,
     TexturesVertex,
     rasterize_meshes,
 )
-from .mesh.shading import gouraud_shading, phong_shading
+from .mesh.shading import flat_shading, gouraud_shading, phong_shading
+from .splatter_blend import SplatterBlender
 from .points import (
     AlphaCompositor,
     NormWeightedCompositor,

@@ -1,7 +1,9 @@
-"""Lights (port of pytorch3d_tpu/renderer/lighting.py; `PointLights` so far).
+"""Lights (port of pytorch3d_tpu/renderer/lighting.py): directional,
+point and ambient lights.
 
-Default colors: ambient 0.5, diffuse 0.3, specular 0.2.  Lights are plain
-dataclasses holding (N, 3) tensors; `create` builds one on a device.
+Default colors: ambient 0.5, diffuse 0.3, specular 0.2 (ambient-only
+lights: 1).  Lights are frozen dataclasses holding (N, 3) tensors; `create`
+builds one on a device.
 """
 
 from __future__ import annotations
@@ -70,8 +72,53 @@ def _color_batch(c, device: Device) -> torch.Tensor:
     return c[None] if c.ndim == 1 else c
 
 
+class _Light:
+    def replace(self, **changes):
+        return dataclasses.replace(self, **changes)
+
+    def clone(self):
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).clone() for f in dataclasses.fields(self)
+        })
+
+
 @dataclasses.dataclass(frozen=True)
-class PointLights:
+class DirectionalLights(_Light):
+    """Light at infinity with a fixed direction."""
+
+    ambient_color: torch.Tensor
+    diffuse_color: torch.Tensor
+    specular_color: torch.Tensor
+    direction: torch.Tensor
+
+    @classmethod
+    def create(
+        cls,
+        ambient_color=((0.5, 0.5, 0.5),),
+        diffuse_color=((0.3, 0.3, 0.3),),
+        specular_color=((0.2, 0.2, 0.2),),
+        direction=((0, 1, 0),),
+        device: Device = DEFAULT_DEVICE,
+    ) -> "DirectionalLights":
+        return cls(
+            ambient_color=_color_batch(ambient_color, device),
+            diffuse_color=_color_batch(diffuse_color, device),
+            specular_color=_color_batch(specular_color, device),
+            direction=_color_batch(direction, device),
+        )
+
+    def diffuse(self, normals, points=None) -> torch.Tensor:
+        return diffuse(normals=normals, color=self.diffuse_color, direction=self.direction)
+
+    def specular(self, normals, points, camera_position, shininess) -> torch.Tensor:
+        return specular(
+            points=points, normals=normals, color=self.specular_color,
+            direction=self.direction, camera_position=camera_position, shininess=shininess,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class PointLights(_Light):
     """Point light with a 3D location."""
 
     ambient_color: torch.Tensor
@@ -95,9 +142,6 @@ class PointLights:
             location=_color_batch(location, device),
         )
 
-    def replace(self, **changes) -> "PointLights":
-        return dataclasses.replace(self, **changes)
-
     def reshape_location(self, points) -> torch.Tensor:
         if self.location.ndim == points.ndim:
             return self.location
@@ -114,3 +158,19 @@ class PointLights:
             direction=direction, camera_position=camera_position, shininess=shininess,
         )
 
+
+@dataclasses.dataclass(frozen=True)
+class AmbientLights(_Light):
+    """Uniform ambient-only lighting."""
+
+    ambient_color: torch.Tensor
+
+    @classmethod
+    def create(cls, ambient_color=((1.0, 1.0, 1.0),), device: Device = DEFAULT_DEVICE) -> "AmbientLights":
+        return cls(ambient_color=_color_batch(ambient_color, device))
+
+    def diffuse(self, normals, points) -> torch.Tensor:
+        return torch.zeros_like(points)
+
+    def specular(self, normals, points, camera_position, shininess) -> torch.Tensor:
+        return torch.zeros_like(points)

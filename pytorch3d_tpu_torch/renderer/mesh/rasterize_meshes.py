@@ -356,25 +356,36 @@ def rasterize_meshes(
     CUDA tensors go through the fine kernel (`rasterize_cuda.py`), whose
     per-tile face lists are exact, so `max_faces_per_bin` is accepted for
     API parity only; `bin_size=0` asks for the plain path instead.
+
+    With `z_clip_value` every face is first clipped at that view depth
+    (`clip.py`): the rasterizer and its backward see (N, 2F) sub-faces,
+    and the ids and barycentrics are mapped back to the original faces
+    before the packed offset, which counts the original F.  zbuf and
+    dists stay those of the sub-faces.
     """
     H, W = parse_image_size(image_size)
-    if z_clip_value is not None:
-        raise NotImplementedError(
-            "z_clip_value needs near-plane clipping (mesh/clip.py), which the"
-            " port has not reached yet"
-        )
     from .rasterize_cuda import rasterize_fragments_cuda, rasterize_fragments_plain
 
     N, F = len(meshes), meshes.max_faces
     face_verts = meshes.verts_packed()[meshes.faces_packed()]  # (N*F, 3, 3)
     fv_batched = face_verts.reshape(N, F, 3, 3)
     mask_batched = meshes.faces_packed_mask().reshape(N, F)
+    clipped = None
+    if z_clip_value is not None:
+        from .clip import clip_faces
+
+        clipped = clip_faces(fv_batched, mask_batched, z_clip_value)
+        fv_batched, mask_batched = clipped.face_verts, clipped.valid  # (N, 2F, ...)
 
     rasterize = rasterize_fragments_plain if bin_size == 0 else rasterize_fragments_cuda
     pix_local, zbuf, bary, dists = rasterize(
         fv_batched, mask_batched, (H, W), blur_radius, faces_per_pixel,
         perspective_correct, clip_barycentric_coords, cull_backfaces,
     )
+    if clipped is not None:
+        from .clip import convert_clipped_rasterization_to_original_faces
+
+        pix_local, bary = convert_clipped_rasterization_to_original_faces(pix_local, bary, clipped)
     # Packed ids: mesh n's faces live at rows [n*F, (n+1)*F).
     offsets = (torch.arange(N, device=pix_local.device) * F)[:, None, None, None]
     pix_to_face = torch.where(pix_local >= 0, pix_local + offsets, -1)

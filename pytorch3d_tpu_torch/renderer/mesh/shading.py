@@ -6,6 +6,7 @@ import dataclasses
 
 import torch
 
+from ...common.gather import gather_rows
 from ...ops.interp_face_attrs import interpolate_face_attributes
 from .textures import TexturesVertex
 
@@ -74,3 +75,14 @@ def gouraud_shading(meshes, fragments, lights, cameras, materials) -> torch.Tens
     return interpolate_face_attributes(
         fragments.pix_to_face, fragments.bary_coords, verts_colors_shaded[faces]
     )
+
+
+def flat_shading(meshes, fragments, lights, cameras, materials, texels) -> torch.Tensor:
+    """One normal and one position (the centroid) per face, then light."""
+    face_normals = meshes.faces_normals_packed()
+    face_coords = meshes.verts_packed()[meshes.faces_packed()].mean(dim=-2)  # (F, 3)
+    mask = (fragments.pix_to_face >= 0)[..., None]
+    pixel_coords = torch.where(mask, gather_rows(face_coords, fragments.pix_to_face), 0.0)
+    pixel_normals = torch.where(mask, gather_rows(face_normals, fragments.pix_to_face), 0.0)
+    ambient, diffuse, specular = _apply_lighting(pixel_coords, pixel_normals, lights, cameras, materials)
+    return (ambient + diffuse) * texels + specular

@@ -858,3 +858,67 @@ def test_slice5_kernels_refuse_what_they_do_not_take(cuda_device):
         tpc.pulsar_blend_grads_cuda(table, idx, ct, *env, (32, 32), 0.1, 0.5, 3.5, 0.0, None)
     with pytest.raises(TypeError):
         tpc.pulsar_blend_grads_cuda(table.double(), idx, ct, *env, (32, 32), 0.1, 0.5, 3.5, 0.0, bins)
+
+
+def test_z_clip_cuda_route_matches_plain(cuda_device):
+    """rasterize_meshes(z_clip_value=0.1) from chip_smoke's two cameras
+    inside ico_sphere(4) at 128^2: #1 on the clipped table and #4 back
+    through the clip, against the plain route (bin_size=0): ids > 99.9 %,
+    zbuf 5e-3 and bary 1e-4 where they agree (bench.py:_row_ok), ids below
+    F, depths beyond the plane, the NDC vertex gradient finite and within
+    1e-4 of the largest."""
+    ndc, _, _ = _CHIP_SMOKE.clip_scene(cuda_device)
+    F = ndc.max_faces
+
+    def run(bin_size):
+        v = ndc.verts_padded().detach().clone().requires_grad_(True)
+        pix, zbuf, bary, dists = trm.rasterize_meshes(
+            ndc.update_padded(v), image_size=128, blur_radius=1e-4, faces_per_pixel=4, bin_size=bin_size,
+            perspective_correct=True, clip_barycentric_coords=True, z_clip_value=0.1,
+        )
+        filled = pix >= 0
+        (torch.where(filled, zbuf, 0.0).sum() + (torch.sigmoid(-dists / 1e-4) * filled).sum()).backward()
+        return pix, zbuf.detach(), bary.detach(), v.grad
+
+    fine, grad = trc.rasterize_fragments_cuda.launches, trc.rasterize_grad_cuda.launches
+    pix, zbuf, bary, g = run(None)
+    torch.cuda.synchronize()
+    assert (trc.rasterize_fragments_cuda.launches, trc.rasterize_grad_cuda.launches) == (fine + 1, grad + 1)
+    ppix, pzbuf, pbary, pg = run(0)
+    same = pix == ppix
+    assert same.float().mean() > 0.999
+    assert (zbuf - pzbuf).abs()[same].max() < 5e-3
+    assert (bary - pbary).abs()[same[..., None].expand_as(bary)].max() <= 1e-4
+    filled = pix >= 0
+    local = pix - torch.arange(2, device=cuda_device)[:, None, None, None] * F
+    assert int(local[filled].max()) < F and float(zbuf[filled].min()) >= 0.1 - 1e-4
+    assert torch.isfinite(g).all()
+    assert (g - pg).abs().max() <= 1e-4 * pg.abs().max()
+
+
+def test_textures_uv_sampling_on_the_card_matches_the_cpu(cuda_device):
+    """TexturesUV.sample_textures on card tensors against the same inputs
+    on the CPU: texels within 1e-6, the map's gradient (index_add_ on the
+    card) within 1e-5 of the largest."""
+    from pytorch3d_tpu_torch.renderer.mesh.rasterizer import Fragments
+
+    mesh = ico_sphere(3, device=torch.device("cpu"))
+    tex = _CHIP_SMOKE.uv_textures(mesh, _CHIP_SMOKE.uv_map(torch.device("cpu"), size=64))
+    gen = torch.Generator().manual_seed(0)
+    F = mesh.max_faces
+    pix = torch.randint(-1, F, (1, 48, 48, 3), generator=gen)
+    bary = torch.rand((1, 48, 48, 3, 3), generator=gen)
+    bary = bary / bary.sum(-1, keepdim=True)
+    ct = torch.randn((1, 48, 48, 3, 3), generator=gen)
+    out = []
+    for device in (torch.device("cpu"), cuda_device):
+        maps = tex.maps_padded().detach().to(device).requires_grad_(True)
+        t = tex.replace(_maps_padded=maps, _faces_uvs_padded=tex.faces_uvs_padded().to(device),
+                        _verts_uvs_padded=tex.verts_uvs_padded().to(device))
+        frags = Fragments(pix.to(device), bary[..., 0].to(device), bary.to(device), bary[..., 0].to(device))
+        texels = t.sample_textures(frags)
+        (texels * ct.to(device)).sum().backward()
+        out.append((texels.detach().cpu(), maps.grad.cpu()))
+    (want, want_g), (got, got_g) = out
+    assert (got - want).abs().max() <= 1e-6
+    assert (got_g - want_g).abs().max() <= 1e-5 * want_g.abs().max()

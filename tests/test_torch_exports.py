@@ -18,11 +18,6 @@ MODULES = ["transforms", "renderer", "renderer/mesh", "renderer/points", "render
 
 # ROADMAP.md queue 1 item -> the JAX names it brings to the port.
 NOT_YET = {
-    "1. the rest of the mesh path": [
-        "AmbientLights", "DirectionalLights", "HardDepthShader", "HardFlatShader", "SoftDepthShader",
-        "SoftGouraudShader", "SplatterBlender", "SplatterPhongShader", "Textures", "TexturesAtlas", "TexturesUV",
-        "flat_shading", "grid_sample",
-    ],
     "2. the rest of structures, transforms and cameras": [
         "FishEyeCameras", "TensorProperties", "acos_linear_extrapolation", "camera_to_eye_at_up",
         "cameras_from_opencv_projection", "convert_to_tensors_and_broadcast", "format_tensor", "hat", "hat_inv",

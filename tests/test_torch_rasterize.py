@@ -199,6 +199,13 @@ def test_headline_loss_gradients_match_jax():
 
 
 def test_z_clip_value_not_ported_yet():
-    mesh = Meshes.create(torch.zeros(1, 3, 3), torch.tensor([[[0, 1, 2]]]), device=CPU)
-    with pytest.raises(NotImplementedError):
-        trm.rasterize_meshes(mesh, image_size=16, z_clip_value=0.1)
+    """z_clip_value is ported now (the name is kept): a face with one vertex
+    before the plane is clipped, its ids map back to face 0 and every
+    covered depth lies beyond the plane (tests/test_torch_clip.py holds
+    it against the JAX package)."""
+    verts = torch.tensor([[[-0.8, -0.8, 0.05], [0.8, -0.8, 1.0], [0.0, 0.8, 1.0]]])
+    mesh = Meshes.create(verts, torch.tensor([[[0, 1, 2]]]), device=CPU)
+    pix, zbuf, _, _ = trm.rasterize_meshes(mesh, image_size=16, faces_per_pixel=2, z_clip_value=0.1, bin_size=0)
+    filled = pix >= 0
+    assert filled.any() and int(pix.max()) == 0
+    assert float(zbuf[filled].min()) >= 0.1 - 1e-6
