@@ -112,6 +112,20 @@ final result line:
     HardFlat, SoftGouraud, the two depth shaders and SplatterPhong (with
     its vertex gradient) against the plain route on 2 views; each logs
     its frame or step times and a profile with the device's idle share.
+11. slice 13, after slice 12: joined scenes, SE(3), camera indexing and
+    conversions, fisheye and point normals through #1, #3, #4, #6 and #9:
+    joined-scene-serving renders PyTorch3D's joined spheres
+    (`join_meshes_as_scene`) at 512^2, K=1, to 8 azimuths whose cameras are
+    joined by `join_cameras_as_batch`, under HardPhong, HardGouraud and
+    HardFlat (#1) and SplatterPhong through `MeshRasterizerOpenGL` (#3);
+    fisheye-serving renders ico_sphere(5) through the golden's
+    `FishEyeCameras` from two views under the same three shaders (#1);
+    pose-fit takes 20 Adam steps of a per-view se(3) log on render-fit's 8
+    views built by `cameras_from_opencv_projection` (#1, #4), then drives
+    one pulsar request through `pulsar_from_opencv_projection` (#6); normals
+    runs `Pointclouds.estimate_normals` on points-serving's 8 clouds at K=16
+    (#9) and at the default K=50 (the plain KNN on the card).  Each against
+    the plain route (2 views or clouds), with the gates its docstring names.
 
 The last lines are a `{"kernels": [...]}` JSON line and then
 `{"ok": true, "device": {...}}`.  Without CUDA, or outside a checkout of
@@ -4321,6 +4335,568 @@ def phase_mesh_shaders(device, mesh, uv_tex):
     return counts
 
 
+# --------------------------------------------------------------------------- #
+# Slice 13: joined scenes, SO(3)/SE(3), camera indexing and conversions,
+# fisheye, point normals
+# --------------------------------------------------------------------------- #
+
+JOINED_VIEWS = 8
+JOINED_AZIMUTHS = [45.0 * i for i in range(JOINED_VIEWS)]
+CHECK_VIEWS = 2  # views of the plain-route comparisons (the plain rasterizer takes seconds a view)
+JOINED_LIGHT = (0.0, 0.0, 2.0)
+# PyTorch3D's tests/test_render_meshes.py test_simple_sphere FishEye branch
+# (tests/test_reference_goldens.py:57-103).
+FISHEYE_PARAMS = dict(
+    radial_params=((-1.0, -2.0, -3.0, 0.0, 0.0, 1.0),),
+    tangential_params=((0.7002747019, -0.4005228974),),
+    thin_prism_params=((-1.000134884, -1.000084822, -1.0009420014, -1.0001276838),),
+)
+# unproject(transform(x)) = x, relative to the point's distance from the
+# camera, as tests/test_torch_cameras_more.py holds it: the radial polynomial
+# alone to 1e-6 within 20 degrees of the axis; with the golden's tangential
+# and thin-prism terms (beyond what 4 fixed-point steps undo) to 5e-5 within 2.
+FISHEYE_ROUND_TRIP = (("radial only", 20.0, 1e-6), ("full", 2.0, 5e-5))
+POSE_FOV = 60.0  # degrees: fx = fy = (IMAGE / 2) / tan 30 degrees, 443.4 pixels at 512^2
+POSE_PERTURB = 0.05  # |rotation log| (rad) and |translation log| of each view's start
+POSE_STEPS = 20
+POSE_TIMED = 10  # the last steps, whose median is the step time
+POSE_LR = 1e-2
+POSE_RADIUS = 0.01  # the pulsar request's sphere radius (world units)
+NORMALS_K = 16
+NORMALS_DEFAULT_K = 50  # PyTorch3D's default: the plain KNN on the card (#9 takes K <= 16)
+NORMALS_COS = 1e-5  # |cos| >= 1 - NORMALS_COS between the #9 and plain-KNN routes' normals
+NORMALS_SHARE = 0.9999
+NORMALS_F64_GAP = 1e-3  # float64 check on points whose two smallest eigenvalues differ by > 1e-3 of the largest
+NORMALS_F64_COS, NORMALS_F64_SHARE = 1e-4, 0.999
+
+
+def joined_spheres(device):
+    """tests/test_joined_spheres_goldens.py:45-63 (PyTorch3D's
+    tests/test_render_meshes.py:1171): ico_sphere(3) x0.25 shifted +1.2 in x
+    and ico_sphere(4) shifted -0.3, joined by join_meshes_as_scene, white
+    vertex colours; also the two parts."""
+    import torch
+
+    from pytorch3d_tpu_torch.renderer import TexturesVertex
+    from pytorch3d_tpu_torch.structures import Meshes, join_meshes_as_scene
+    from pytorch3d_tpu_torch.utils import ico_sphere
+
+    parts = []
+    for level, scale, off in ((3, 0.25, 1.2), (4, 1.0, -0.3)):
+        sph = ico_sphere(level, device=device)
+        v = sph.verts_padded()[0] * scale + torch.tensor([off, 0.0, 0.0], device=device)
+        parts.append(Meshes.create([v], [sph.faces_padded()[0]], device=device))
+    scene = join_meshes_as_scene(parts)
+    return scene.replace(textures=TexturesVertex.create(torch.ones_like(scene.verts_padded()), device=device)), parts
+
+
+def joined_cameras(device, views=JOINED_VIEWS):
+    """One FoVPerspectiveCameras per azimuth (dist 2.7, elev 0), joined by
+    join_cameras_as_batch."""
+    from pytorch3d_tpu_torch.renderer import FoVPerspectiveCameras, join_cameras_as_batch, look_at_view_transform
+
+    cams = []
+    for azim in JOINED_AZIMUTHS[:views]:
+        R, T = look_at_view_transform(2.7, 0.0, azim, device=device)
+        cams.append(FoVPerspectiveCameras.create(R=R, T=T, device=device))
+    return join_cameras_as_batch(cams)
+
+
+def golden_shader(shader_cls, cams, device):
+    """The goldens' shader: a light at (0, 0, 2), default materials,
+    BlendParams(0.5, 1e-4, black)."""
+    from pytorch3d_tpu_torch.renderer import BlendParams, Materials, PointLights
+
+    return shader_cls(
+        cameras=cams, lights=PointLights.create(location=[JOINED_LIGHT], device=device),
+        materials=Materials.create(device=device), blend_params=BlendParams(0.5, 1e-4, (0.0, 0.0, 0.0)),
+        device=device,
+    )
+
+
+def golden_settings(bin_size=None, perspective_correct=None):
+    from pytorch3d_tpu_torch.renderer import RasterizationSettings
+
+    return RasterizationSettings(image_size=IMAGE, blur_radius=0.0, faces_per_pixel=1, bin_size=bin_size,
+                                 perspective_correct=perspective_correct)
+
+
+def served_against_plain(label, renderer, meshes, plain_frags, check_cams):
+    """A served batch and its first views (those of `check_cams`) shaded on
+    the plain route's fragments: ids equal on > 99.9 % of pixels, images
+    within 1e-3 on >= 99.5 %.  (Two served calls need not agree to the bit:
+    the vertex normals' `index_add` is atomic on the card.)"""
+    import torch
+
+    check_views = len(check_cams)
+    with torch.no_grad():
+        frags = renderer.rasterizer(meshes)
+        images = renderer.shader(frags, meshes)
+        plain = renderer.shader(plain_frags, meshes[list(range(check_views))], cameras=check_cams)
+    ids = float((frags.pix_to_face[:check_views] == plain_frags.pix_to_face).float().mean())
+    frac, worst = image_agreement(images[:check_views], plain, 1e-3)
+    covered = (images[..., 3] > 0).sum(dim=(1, 2))
+    log(f"  {label}: {tuple(images.shape)}, covered px per view {covered.min().item()}..{covered.max().item()};"
+        f" views 0-{check_views - 1} against the plain route: ids equal {ids:.6f}, |image - plain| <= 1e-3 on"
+        f" {frac:.6f} of pixels (max {worst:.3e})")
+    check(bool(torch.isfinite(images).all()) and bool((covered > 0).all()), f"{label}: non-finite or empty views")
+    check(ids > 0.999, f"{label}: ids equal on only {ids:.6f} of pixels")
+    check(frac >= 0.995, f"{label}: only {frac:.6f} of pixels match the plain route")
+    return images, frags
+
+
+def phase_joined_scene_serving(device):
+    """PyTorch3D's joined spheres (`joined_spheres`) at 512^2, blur 0, K=1,
+    served to 8 azimuths (cameras joined by join_cameras_as_batch) in one call
+    per shader: HardPhong, HardGouraud and HardFlat through MeshRasterizer
+    (#1) and SplatterPhong through MeshRasterizerOpenGL (#3).  Gates: the
+    scene's packed verts and faces equal a hand-built concatenation;
+    join_meshes_as_batch([scene] * 8) equals scene.extend(8); each shader
+    against the plain route on 2 views; cameras[i] renders view i with the
+    batch's ids, its HardFlat image within 1e-6 (HardPhong's within 1e-5:
+    the vertex normals' index_add is atomic on the card)."""
+    import torch
+    import torch.nn.functional as F
+
+    from pytorch3d_tpu_torch.renderer import (
+        HardFlatShader, HardGouraudShader, HardPhongShader, MeshRasterizer, MeshRasterizerOpenGL, MeshRenderer,
+        SplatterPhongShader,
+    )
+    from pytorch3d_tpu_torch.structures import join_meshes_as_batch
+
+    scene, parts = joined_spheres(device)
+    V = max(p.max_verts for p in parts)
+    want_verts = torch.cat([F.pad(p.verts_padded()[0], (0, 0, 0, V - p.max_verts)) for p in parts])
+    want_faces = torch.cat([p.faces_padded()[0] + i * V for i, p in enumerate(parts)])
+    nf = int(scene.num_faces_per_mesh()[0])
+    check(torch.equal(scene.verts_packed(), want_verts) and torch.equal(scene.faces_packed()[:nf], want_faces)
+          and nf == want_faces.shape[0] and bool((scene.faces_packed()[nf:] == -1).all()),
+          "joined-scene: the scene's packed verts / faces differ from the hand-built concatenation")
+    batch, extended = join_meshes_as_batch([scene] * JOINED_VIEWS), scene.extend(JOINED_VIEWS)
+    check(all(torch.equal(getattr(batch, f)(), getattr(extended, f)()) for f in
+              ("verts_padded", "faces_padded", "num_verts_per_mesh", "num_faces_per_mesh"))
+          and torch.equal(batch.textures.verts_features_padded(), extended.textures.verts_features_padded()),
+          "joined-scene: join_meshes_as_batch([scene] * 8) differs from scene.extend(8)")
+    cams = joined_cameras(device)
+    meshes = scene.extend(JOINED_VIEWS)
+    shaders = (("HardPhongShader", HardPhongShader), ("HardGouraudShader", HardGouraudShader),
+               ("HardFlatShader", HardFlatShader))
+    renderers = {label: MeshRenderer(MeshRasterizer(cams, golden_settings()), golden_shader(cls, cams, device))
+                 for label, cls in shaders}
+    gl = MeshRenderer(MeshRasterizerOpenGL(cams, golden_settings(perspective_correct=True)),
+                      golden_shader(SplatterPhongShader, cams, device))
+    torch.cuda.synchronize()
+    reset_counts()
+    with torch.no_grad():
+        served = {label: r(meshes) for label, r in renderers.items()}
+        served["SplatterPhongShader"] = gl(meshes)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"joined-scene-serving: {nf} faces (ico_sphere(3) + ico_sphere(4)), {JOINED_VIEWS} views at {IMAGE}^2,"
+        f" K=1: launches {counts}")
+    check(counts["rasterize_fine"] == len(shaders) and counts["rasterize_hard"] == 1,
+          f"joined-scene-serving: launches {counts} ({len(shaders)} fine, 1 hard)")
+    check_cams = cams[list(range(CHECK_VIEWS))]
+    check_meshes = meshes[list(range(CHECK_VIEWS))]
+    with torch.no_grad():
+        plain_frags = MeshRasterizer(check_cams, golden_settings(bin_size=0))(check_meshes)
+    for label, r in renderers.items():
+        served_against_plain(f"joined-scene [{label}]", r, meshes, plain_frags, check_cams)
+    with torch.no_grad(), plain_gl():
+        plain = MeshRenderer(MeshRasterizerOpenGL(check_cams, golden_settings(perspective_correct=True)),
+                             golden_shader(SplatterPhongShader, check_cams, device))(check_meshes)
+    frac, worst = image_agreement(served["SplatterPhongShader"][:CHECK_VIEWS], plain, 1e-3)
+    log(f"  joined-scene [SplatterPhongShader, MeshRasterizerOpenGL]: against the plain route |image - plain| <= 1e-3"
+        f" on {frac:.6f} of pixels (max {worst:.3e})")
+    check(frac >= 0.995, f"joined-scene [SplatterPhongShader]: only {frac:.6f} of pixels match the plain route")
+    # cameras[i] alone renders view i of the batch: HardFlat's image (face
+    # normals) within 1e-6; HardPhong's within 1e-5, its vertex normals
+    # being an atomic index_add on the card (two batch calls differ as much).
+    phong = renderers["HardPhongShader"]
+    with torch.no_grad():
+        frags = phong.rasterizer(meshes)
+        for i in (0, JOINED_VIEWS - 3):
+            local = torch.where(frags.pix_to_face[i] >= 0, frags.pix_to_face[i] - i * meshes.max_faces, -1)
+            for label, tol in (("HardFlatShader", 1e-6), ("HardPhongShader", 1e-5)):
+                one = MeshRenderer(MeshRasterizer(cams[i], golden_settings()),
+                                   golden_shader(dict(shaders)[label], cams[i], device))
+                one_frags = one.rasterizer(scene)
+                diff = float((one.shader(one_frags, scene)[0] - served[label][i]).abs().max())
+                ids_same = torch.equal(one_frags.pix_to_face[0], local)
+                log(f"  joined-scene: cameras[{i}] alone [{label}]: ids equal the batch's view {i} {ids_same},"
+                    f" max|image - batch| {diff:.3e} (gate {tol:g})")
+                check(ids_same and diff <= tol, f"joined-scene: cameras[{i}] does not render view {i} as the batch")
+    with torch.no_grad():
+        ms = host_frames(lambda: phong(meshes), FRAMES)
+        log(f"times [joined-scene-serving frame, HardPhong] {JOINED_VIEWS} views: median {ms[FRAMES // 2]:.3f} ms"
+            f" (min {ms[0]:.3f}, max {ms[-1]:.3f})")
+        gl_ms = host_frames(lambda: gl(meshes), FRAMES)
+        log(f"times [joined-scene-serving frame, SplatterPhong + MeshRasterizerOpenGL] {JOINED_VIEWS} views: median"
+            f" {gl_ms[FRAMES // 2]:.3f} ms (min {gl_ms[0]:.3f}, max {gl_ms[-1]:.3f})")
+        profile("joined-scene-serving frame, HardPhong", lambda: phong(meshes), 1)
+    return counts, scene
+
+
+def fisheye_cameras(device, use_tangential=True, use_thin_prism=True):
+    """The golden's FishEyeCameras (world coordinates) at its two views:
+    (2.7, 0, 0) and the elevated (2.7, 45, 45)."""
+    import torch
+
+    from pytorch3d_tpu_torch.renderer import FishEyeCameras, look_at_view_transform
+
+    R0, T0 = look_at_view_transform(2.7, 0.0, 0.0, device=device)
+    R1, T1 = look_at_view_transform(dist=2.7, elev=45.0, azim=45.0, device=device)
+    return FishEyeCameras.create(R=torch.cat([R0, R1]), T=torch.cat([T0, T1]), world_coordinates=True,
+                                 use_tangential=use_tangential, use_thin_prism=use_thin_prism, device=device,
+                                 **FISHEYE_PARAMS)
+
+
+def fisheye_round_trip(cams, max_deg, n=4096, seed=13):
+    """max over both views of |unproject(transform(x)) - x| / |x - eye| for
+    seeded world points at view depth 1.7-3.7 within max_deg of the axis."""
+    import torch
+
+    gen = torch.Generator(device=cams.device).manual_seed(seed)
+    N = len(cams)
+    ang = math.radians(max_deg) * torch.rand((N, n), generator=gen, device=cams.device).sqrt()
+    phi = 2.0 * math.pi * torch.rand((N, n), generator=gen, device=cams.device)
+    z = 1.7 + 2.0 * torch.rand((N, n), generator=gen, device=cams.device)
+    view = torch.stack([torch.tan(ang) * torch.cos(phi) * z, torch.tan(ang) * torch.sin(phi) * z, z], dim=-1)
+    w2v = cams.get_world_to_view_transform()
+    world = w2v.inverse().transform_points(view)
+    proj = cams.transform_points(world)
+    back = cams.unproject_points(torch.cat([proj[..., :2], view[..., 2:]], dim=-1))
+    dist = (world - cams.get_camera_center()[:, None]).norm(dim=-1)
+    return float(((back - world).abs().amax(dim=-1) / dist).max())
+
+
+def phase_fisheye_serving(device):
+    """PyTorch3D's test_simple_sphere FishEye branch: ico_sphere(5) (20 480
+    faces), white, at 512^2, blur 0, K=1, the golden's radial, tangential and
+    thin-prism parameters, the plain and the elevated view in one batch,
+    under HardPhong, HardGouraud and HardFlat, all through #1 (MeshRasterizer's
+    non-linear branch: transform_points, then an identity NDC transform).
+    Gates: each against the plain route on both views; unproject(transform(x))
+    = x on the card as tests/test_torch_cameras_more.py holds it."""
+    import torch
+
+    from pytorch3d_tpu_torch.renderer import (
+        HardFlatShader, HardGouraudShader, HardPhongShader, MeshRasterizer, MeshRenderer, TexturesVertex,
+    )
+    from pytorch3d_tpu_torch.utils import ico_sphere
+
+    mesh = ico_sphere(5, device=device)
+    mesh = mesh.replace(textures=TexturesVertex.create(torch.ones_like(mesh.verts_padded()), device=device))
+    cams = fisheye_cameras(device)
+    meshes = mesh.extend(len(cams))
+    shaders = (("HardPhongShader", HardPhongShader), ("HardGouraudShader", HardGouraudShader),
+               ("HardFlatShader", HardFlatShader))
+    renderers = {label: MeshRenderer(MeshRasterizer(cams, golden_settings()), golden_shader(cls, cams, device))
+                 for label, cls in shaders}
+    torch.cuda.synchronize()
+    reset_counts()
+    with torch.no_grad():
+        for r in renderers.values():
+            r(meshes)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"fisheye-serving: ico_sphere(5) ({mesh.max_faces} faces), {len(cams)} views at {IMAGE}^2, K=1: launches"
+        f" {counts}")
+    check(counts["rasterize_fine"] == len(shaders), f"fisheye-serving: launches {counts} ({len(shaders)} fine)")
+    with torch.no_grad():
+        plain_frags = MeshRasterizer(cams, golden_settings(bin_size=0))(meshes)
+    for label, r in renderers.items():
+        served_against_plain(f"fisheye [{label}]", r, meshes, plain_frags, cams)
+    for label, max_deg, tol in FISHEYE_ROUND_TRIP:
+        flags = dict(use_tangential=False, use_thin_prism=False) if label == "radial only" else {}
+        err = fisheye_round_trip(fisheye_cameras(device, **flags), max_deg)
+        log(f"  fisheye [{label}]: unproject(transform(x)) within {max_deg:g} degrees of the axis: max|diff| / |x - eye|"
+            f" {err:.3e} (gate {tol:g})")
+        check(err <= tol, f"fisheye [{label}]: round trip {err:.3e} above {tol:g}")
+    phong = renderers["HardPhongShader"]
+    with torch.no_grad():
+        ms = host_frames(lambda: phong(meshes), FRAMES)
+        log(f"times [fisheye-serving frame, HardPhong] {len(cams)} views: median {ms[FRAMES // 2]:.3f} ms (min"
+            f" {ms[0]:.3f}, max {ms[-1]:.3f})")
+        profile("fisheye-serving frame, HardPhong", lambda: phong(meshes), 1)
+    return counts
+
+
+def opencv_views(device):
+    """Render-fit's 8 views (dist 2.8, elev 25, 8 azimuths) as OpenCV
+    (R, tvec, K, image_size): fx = fy = 256 / tan 30 degrees, c = (256, 256)
+    at 512^2."""
+    import torch
+
+    from pytorch3d_tpu_torch.renderer import look_at_view_transform
+
+    azims = torch.linspace(-180.0, 180.0, FIT_VIEWS + 1, device=device)[:-1]
+    R, T = look_at_view_transform(dist=2.8, elev=25.0, azim=azims, device=device)
+    flip = torch.tensor([-1.0, -1.0, 1.0], device=device)
+    R_cv, t_cv = (R * flip).transpose(1, 2), T * flip
+    f = IMAGE / 2 / math.tan(math.radians(POSE_FOV / 2))
+    K_cv = torch.tensor([[f, 0.0, IMAGE / 2], [0.0, f, IMAGE / 2], [0.0, 0.0, 1.0]], device=device).expand(FIT_VIEWS, 3, 3)
+    size = torch.tensor([[IMAGE, IMAGE]], dtype=torch.float32, device=device).expand(FIT_VIEWS, 2)
+    return R_cv, t_cv, K_cv, size
+
+
+class PoseFit:
+    """Camera pose refinement by gradient through the renderer: the joined
+    scene, render-fit's settings (8 views of 512^2, K=16, blur log(1/1e-4 -
+    1) * 1e-4, SoftPhongShader, a light at (0, 2, -3)) with PerspectiveCameras
+    from cameras_from_opencv_projection; targets rendered at the true poses;
+    each view starts perturbed by a seeded se(3) log of 0.05 rad and 0.05
+    units; Adam fits a per-view (8, 6) log, started at zero and composed with
+    the start through se3_exp_map, under rgb + silhouette MSE."""
+
+    def __init__(self, device, scene):
+        import torch
+
+        from pytorch3d_tpu_torch.renderer import cameras_from_opencv_projection
+        from pytorch3d_tpu_torch.transforms import Rotate, Translate, se3_exp_map
+
+        self.device, self.scene = device, scene
+        self.opencv = opencv_views(device)
+        self.cams = cameras_from_opencv_projection(*self.opencv)
+        gen = torch.Generator(device=device).manual_seed(14)
+        d = torch.randn((FIT_VIEWS, 2, 3), generator=gen, device=device)
+        delta = (POSE_PERTURB * d / d.norm(dim=-1, keepdim=True)).reshape(FIT_VIEWS, 6)
+        self.M_true = Rotate(self.cams.R, device=device).compose(Translate(self.cams.T, device=device)).get_matrix()
+        self.M_start = self.M_true @ se3_exp_map(delta)
+        with torch.no_grad():
+            target = self.renderer(self.cams)(scene.extend(FIT_VIEWS))
+        self.target_rgb, self.target_sil = target[..., :3], target[..., 3]
+        self.log = torch.zeros((FIT_VIEWS, 6), device=device, requires_grad=True)
+        self.optimizer = torch.optim.Adam([self.log], lr=POSE_LR)
+
+    def renderer(self, cams, bin_size=None):
+        from pytorch3d_tpu_torch.renderer import (
+            MeshRasterizer, MeshRenderer, PointLights, RasterizationSettings, SoftPhongShader,
+        )
+
+        settings = RasterizationSettings(image_size=IMAGE, blur_radius=FIT_BLUR, faces_per_pixel=FIT_K,
+                                         bin_size=bin_size)
+        lights = PointLights.create(location=[[0.0, 2.0, -3.0]], device=self.device)
+        return MeshRenderer(MeshRasterizer(cams, settings), SoftPhongShader(cameras=cams, lights=lights,
+                                                                            device=self.device))
+
+    def cameras(self, views=FIT_VIEWS):
+        from pytorch3d_tpu_torch.transforms import se3_exp_map
+
+        M = self.M_start[:views] @ se3_exp_map(self.log[:views])
+        return self.cams[list(range(views))].replace(R=M[:, :3, :3], T=M[:, 3, :3])
+
+    def forward(self, views=FIT_VIEWS, bin_size=None):
+        import torch
+
+        images = self.renderer(self.cameras(views), bin_size)(self.scene.extend(views))
+        return (torch.mean((images[..., :3] - self.target_rgb[:views]) ** 2)
+                + torch.mean((images[..., 3] - self.target_sil[:views]) ** 2))
+
+    def rotation_error(self):
+        """Mean so3_relative_angle (degrees) between the fitted and the true
+        rotations."""
+        import torch
+
+        from pytorch3d_tpu_torch.transforms import so3_relative_angle
+
+        with torch.no_grad():
+            return float(so3_relative_angle(self.cameras().R, self.cams.R).mean()) * 180.0 / math.pi
+
+
+def phase_pose_fit(device, scene):
+    """`PoseFit` on the joined scene: the OpenCV round trip (1e-5), step 0's
+    gradient with respect to the log on 2 views against the plain route
+    (1e-4 of its largest, the backward through #4), 20 Adam steps (a finite,
+    falling loss; rotation error at steps 0 and 20), then one pulsar request
+    of points-serving's 30 000-point cloud at 512^2 through the camera of view
+    0 converted by pulsar_from_opencv_projection (#6), ids against the plain
+    select."""
+    import torch
+
+    from pytorch3d_tpu_torch.renderer import opencv_from_cameras_projection
+    from pytorch3d_tpu_torch.renderer.points.pulsar import Renderer
+    from pytorch3d_tpu_torch.utils import pulsar_from_opencv_projection
+
+    fit = PoseFit(device, scene)
+    back = opencv_from_cameras_projection(fit.cams, fit.opencv[3])
+    trip = max(float((g - w).abs().max() / w.abs().max()) for g, w in zip(back, fit.opencv[:3]))
+    log(f"pose-fit: OpenCV (R, tvec, K) -> PerspectiveCameras -> OpenCV: max|diff| / max|x| {trip:.3e}")
+    check(trip <= 1e-5, f"pose-fit: the OpenCV round trip is off by {trip:.3e}")
+    grads = [torch.autograd.grad(fit.forward(CHECK_VIEWS, b), fit.log)[0][:CHECK_VIEWS] for b in (None, 0)]
+    err, ratio = grad_error(*grads)
+    log(f"pose-fit: step 0 gradient of the (views, 6) log on {CHECK_VIEWS} views vs the plain route: max|diff|"
+        f" {err:.3e} = {ratio:.3e} of max|grad| ({grads[1].abs().max().item():.3e})")
+    check(bool(torch.isfinite(grads[0]).all()), "pose-fit: non-finite gradient")
+    check(ratio <= GRAD_GATE, f"pose-fit: gradient {ratio:.3e} of max|grad| off the plain route's")
+
+    angle0 = fit.rotation_error()
+    torch.cuda.synchronize()
+    reset_counts()
+    losses, step_ms = [], []
+    for _ in range(POSE_STEPS):
+        t0 = time.perf_counter()
+        fit.optimizer.zero_grad()
+        loss = fit.forward()
+        loss.backward()
+        fit.optimizer.step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+    counts = read_counts()
+    angle = fit.rotation_error()
+    log(f"pose-fit: {POSE_STEPS} Adam({POSE_LR:g}) steps, {FIT_VIEWS} views at {IMAGE}^2, K={FIT_K}: losses"
+        f" {[round(v, 6) for v in losses]}; mean rotation error to the truth {angle0:.4f} deg at step 0,"
+        f" {angle:.4f} deg at step {POSE_STEPS}; launches {counts}")
+    check(all(math.isfinite(v) for v in losses), "pose-fit: non-finite loss")
+    check(losses[-1] < losses[0], f"pose-fit: loss did not fall ({losses[0]:.6f} -> {losses[-1]:.6f})")
+    check(counts["rasterize_fine"] == POSE_STEPS and counts["rasterize_grad"] == POSE_STEPS,
+          f"pose-fit: launches {counts} for {POSE_STEPS} steps (1 fine + 1 grad each)")
+    timed = sorted(step_ms[-POSE_TIMED:])
+    log(f"times [pose-fit step] median of the last {POSE_TIMED}: {timed[POSE_TIMED // 2]:.3f} ms (min {timed[0]:.3f},"
+        f" max {timed[-1]:.3f})")
+
+    def step():
+        fit.optimizer.zero_grad()
+        fit.forward().backward()
+        fit.optimizer.step()
+
+    profile("pose-fit step", step, 1)
+
+    # One pulsar request through view 0's camera.
+    cloud, _ = colored_points_scene(device)
+    pos, col = cloud.points_padded()[0].contiguous(), cloud.features_padded()[0].contiguous()
+    rad = torch.full((pos.shape[0],), POSE_RADIUS, device=device)
+    R_cv, t_cv, K_cv, size = fit.opencv
+    cam = pulsar_from_opencv_projection(R_cv[:1], t_cv[:1], K_cv[:1], size[:1])[0]
+    ren = Renderer(IMAGE, IMAGE, pos.shape[0], n_track=PULSAR_TRACK)
+
+    def request(r):
+        return r(pos, col, rad, cam, PULSAR_GAMMA, 10.0, min_depth=0.5, return_forward_info=True)
+
+    torch.cuda.synchronize()
+    reset_counts()
+    with torch.no_grad():
+        image, info = request(ren)
+    torch.cuda.synchronize()
+    pulsar_counts = read_counts()
+    with torch.no_grad():
+        plain_image, plain_info = request(plain_pulsar(ren))
+    ids = float((info["closest_ids"] == plain_info["closest_ids"]).float().mean())
+    hit = float((info["closest_ids"][..., 0] >= 0).float().mean())
+    frac, worst = image_agreement(image, plain_image, PULSAR_IMAGE_TOL)
+    log(f"pose-fit pulsar request: camera {[round(v, 4) for v in cam.tolist()]} (pulsar_from_opencv_projection of"
+        f" view 0), {pos.shape[0]} spheres of radius {POSE_RADIUS} at {IMAGE}^2: launches {pulsar_counts}; pixels hit"
+        f" {hit:.4f}; ids equal to the plain select's on {ids:.6f} of slots; |image - plain| <= {PULSAR_IMAGE_TOL:g}"
+        f" on {frac:.6f} of pixels (max {worst:.3e})")
+    check(pulsar_counts["select_points"] == 1, f"pose-fit pulsar request: launches {pulsar_counts}")
+    check(hit > 0.01 and bool(torch.isfinite(image).all()), f"pose-fit pulsar request: {hit:.4f} of pixels hit")
+    check(ids >= PULSAR_IDS_GATE, f"pose-fit pulsar request: ids equal on only {ids:.6f} of slots")
+    check(frac >= PULSAR_IMAGE_SHARE, f"pose-fit pulsar request: only {frac:.6f} of pixels match the plain path")
+    for k, v in pulsar_counts.items():
+        counts[k] += v
+    return counts
+
+
+def plain_knn():
+    """Within the block, the KNN kernel's wrapper is its plain version."""
+    from unittest import mock
+
+    from pytorch3d_tpu_torch.ops import knn
+
+    return mock.patch.object(knn, "knn_points_cuda", knn.knn_points_plain)
+
+
+def float64_normals(points, lengths, k):
+    """The smallest eigenvector of float64 covariances of the plain KNN's
+    neighbourhoods (torch.linalg.eigh), and the eigenvalues."""
+    import torch
+
+    from pytorch3d_tpu_torch.ops import knn_points
+
+    with plain_knn():
+        nn = knn_points(points, points, lengths1=lengths, lengths2=lengths, K=k, return_nn=True).knn.double()
+    centered = nn - nn.mean(dim=2, keepdim=True)
+    cov = (centered[..., :, None] * centered[..., None, :]).sum(dim=2) / k
+    evals, evecs = torch.linalg.eigh(cov)
+    return evecs[..., 0], evals
+
+
+def phase_normals(device):
+    """Pointclouds.estimate_normals on points-serving's batch of 8 clouds of
+    30 000 points at neighborhood_size=16 (#9), then on one cloud at
+    PyTorch3D's default of 50 (the plain KNN on the card, as JAX takes XLA
+    above 16).  Gates: the #9 route's normals against the plain-KNN route's
+    (on 2 clouds) |cos| >= 1 - 1e-5 on >= 99.99 % of points; against float64
+    eigh of float64 covariances where the two smallest eigenvalues differ by
+    > 1e-3 of the largest, |cos| >= 1 - 1e-4 on >= 99.9 % of them."""
+    import torch
+
+    cloud, _ = colored_points_scene(device)
+    clouds = cloud.extend(PTS_REQUESTS)
+    torch.cuda.synchronize()
+    reset_counts()
+    with torch.no_grad():
+        normals = clouds.estimate_normals(neighborhood_size=NORMALS_K)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts["knn"] == 1, f"normals: launches {counts} for one estimate_normals at K={NORMALS_K}")
+    torch.cuda.synchronize()
+    reset_counts()
+    with torch.no_grad():
+        default = clouds[0].estimate_normals()
+    torch.cuda.synchronize()
+    default_counts = read_counts()
+    check(default_counts["knn"] == 0, f"normals at K={NORMALS_DEFAULT_K}: launches {default_counts} (plain KNN)")
+    with torch.no_grad(), plain_knn():
+        plain = clouds[list(range(CHECK_VIEWS))].estimate_normals(neighborhood_size=NORMALS_K)
+        plain50 = clouds[0].estimate_normals()
+    cos = (normals[:CHECK_VIEWS] * plain).sum(-1).abs()
+    share = float((cos >= 1 - NORMALS_COS).float().mean())
+    cos50 = (default * plain50).sum(-1).abs()
+    share50 = float((cos50 >= 1 - NORMALS_COS).float().mean())
+    with torch.no_grad():
+        n64, evals = float64_normals(clouds.points_padded()[:1], clouds.num_points_per_cloud()[:1], NORMALS_K)
+    sep = (evals[..., 1] - evals[..., 0]) > NORMALS_F64_GAP * evals[..., 2]
+    cos64 = (normals[:1].double() * n64).sum(-1).abs()[sep]
+    share64 = float((cos64 >= 1 - NORMALS_F64_COS).float().mean())
+    log(f"normals: {PTS_REQUESTS} clouds of {clouds.max_points} points at K={NORMALS_K}: launches {counts}; against"
+        f" the plain-KNN route (clouds 0-{CHECK_VIEWS - 1}): |cos| >= 1 - {NORMALS_COS:g} on {share:.6f} (min |cos|"
+        f" {float(cos.min()):.8f}); K={NORMALS_DEFAULT_K} (plain KNN on the card, launches {default_counts}) against"
+        f" the same under the patch: {share50:.6f}; against float64 eigh on cloud 0 ({int(sep.sum())} of"
+        f" {sep.numel()} points with the two smallest eigenvalues > {NORMALS_F64_GAP:g} of the largest apart): |cos|"
+        f" >= 1 - {NORMALS_F64_COS:g} on {share64:.6f}, 1 - |cos| median {float((1 - cos64).median()):.3e},"
+        f" max {float((1 - cos64).max()):.3e}")
+    check(bool(torch.isfinite(normals).all()) and bool(torch.isfinite(default).all()), "normals: non-finite normals")
+    check(share >= NORMALS_SHARE and share50 >= NORMALS_SHARE,
+          f"normals: #9's normals agree with the plain KNN's on only {share:.6f} / {share50:.6f}")
+    check(share64 >= NORMALS_F64_SHARE, f"normals: only {share64:.6f} within {NORMALS_F64_COS:g} of float64")
+
+    # #9 at this path's shape, by CUDA events: a 12 ms call dwarfs the
+    # wrapper's host time, and a CUDA-only profiler window after the slice's
+    # CPU + CUDA profiles can drop records.
+    from pytorch3d_tpu_torch.ops import knn
+
+    pts = clouds.points_padded().contiguous()
+    knn_ms = cuda_ms(lambda: knn.knn_points_cuda(pts, pts, None, NORMALS_K), 10)
+    bound, bound_by, pairs = knn_bound(pts, pts, NORMALS_K)
+    log(f"kernel knn [normals: N={len(clouds)} P={clouds.max_points} K={NORMALS_K}, {pairs:.3e} pairs]: {knn_ms:.4f} ms"
+        f" (CUDA events, both stages); bound {bound:.4f} ms ({bound_by}): {knn_ms / bound:.2f}x")
+
+    def run():
+        clouds.estimate_normals(neighborhood_size=NORMALS_K)
+
+    with torch.no_grad():
+        ms = host_frames(run, FRAMES)
+        log(f"times [normals, {PTS_REQUESTS} clouds, K={NORMALS_K}]: median {ms[FRAMES // 2]:.3f} ms (min {ms[0]:.3f},"
+            f" max {ms[-1]:.3f})")
+        ms50 = host_frames(lambda: clouds[0].estimate_normals(), 3)
+        log(f"times [normals, 1 cloud, K={NORMALS_DEFAULT_K}, plain KNN]: median {ms50[1]:.3f} ms (min {ms50[0]:.3f},"
+            f" max {ms50[-1]:.3f})")
+        profile(f"normals, K={NORMALS_K}", run, 1)
+    return counts
+
+
 def kernel_rows(launches, errors, fine, grad, knn_t, points, points_grad, mlp, mlp_grad, field, field_grad, slice5):
     rows = []
     fused = "pytorch3d_tpu_torch/csrc/fused_mlp.cu"
@@ -4463,6 +5039,19 @@ def main() -> int:
             for kernel, n in counts.items():
                 launches[kernel] += n
         log(f"launches by path (slice 12): {slice12}; summed over every path {launches}")
+        slice13 = {}
+        phase = "joined-scene-serving"
+        slice13["joined-scene-serving"], joined = phase_joined_scene_serving(device)
+        phase = "fisheye-serving"
+        slice13["fisheye-serving"] = phase_fisheye_serving(device)
+        phase = "training: pose-fit"
+        slice13["pose-fit"] = phase_pose_fit(device, joined)
+        phase = "normals"
+        slice13["normals"] = phase_normals(device)
+        for counts in slice13.values():
+            for kernel, n in counts.items():
+                launches[kernel] += n
+        log(f"launches by path (slice 13): {slice13}; summed over every path {launches}")
         kernels = kernel_rows(launches, errors, fine, grad, knn_t, points_t, points_grad_t, *nerf_t, slice5)
     except Exception as e:  # report which phase failed, then exit non-zero
         import traceback

@@ -9,7 +9,8 @@ materials; pulsar's
 state is its sphere table (positions, colours, radii, opacities), which
 passes across as float32 arrays.  The NeRF
 model's weights convert between a flax `RadianceFieldRenderer` param tree
-(as nested dicts of numpy arrays) and the port's `state_dict`.
+(as nested dicts of numpy arrays) and the port's `state_dict`, and a flax
+`LinearWithRepeat`'s into the port's module.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from .renderer.cameras import (
     OrthographicCameras,
     PerspectiveCameras,
 )
+from .renderer.fisheyecameras import FishEyeCameras
 from .renderer.lighting import AmbientLights, DirectionalLights, PointLights
 from .renderer.materials import Materials
 from .renderer.mesh.textures import TexturesAtlas, TexturesUV, TexturesVertex
@@ -222,6 +224,38 @@ def materials_from_numpy(
 
 
 # The NeRF field's dense layers, by the flax names the port keeps.
+def fisheye_cameras_from_numpy(
+    R: np.ndarray,
+    T: np.ndarray,
+    focal_length: np.ndarray,
+    principal_point: np.ndarray,
+    radial_params: np.ndarray,
+    tangential_params: np.ndarray,
+    thin_prism_params: np.ndarray,
+    use_radial: bool = True,
+    use_tangential: bool = True,
+    use_thin_prism: bool = True,
+    world_coordinates: bool = False,
+    device: Device = DEFAULT_DEVICE,
+) -> FishEyeCameras:
+    """FishEyeCameras from the JAX camera's fields and flags."""
+    return FishEyeCameras.create(
+        focal_length=_own(focal_length), principal_point=_own(principal_point),
+        radial_params=_own(radial_params), tangential_params=_own(tangential_params),
+        thin_prism_params=_own(thin_prism_params), R=_own(R), T=_own(T), world_coordinates=world_coordinates,
+        use_radial=use_radial, use_tangential=use_tangential, use_thin_prism=use_thin_prism, device=device,
+    )
+
+
+def linear_with_repeat_state_dict_from_flax(params: Mapping, device: Device = DEFAULT_DEVICE) -> Dict[str, torch.Tensor]:
+    """A `LinearWithRepeat` state_dict from the flax module's params
+    (`{"params": {"kernel", "bias"}}` or its inside) as numpy; the kernel
+    stays (in, out)."""
+    tree = params.get("params", params)
+    return {leaf: torch.as_tensor(np.array(tree[leaf]), dtype=torch.float32, device=device)
+            for leaf in ("kernel", "bias")}
+
+
 _NERF_FIELDS = ("_renderer_coarse_field", "_renderer_fine_field")
 _NERF_HEAD = ("intermediate_linear", "density_layer", "color_layer_hidden", "color_layer_out")
 

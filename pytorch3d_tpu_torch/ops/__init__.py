@@ -1,9 +1,14 @@
 """Ops (port of pytorch3d_tpu/ops; interpolation of face attributes, grid
-sampling, KNN, point sampling from meshes and the fused NeRF MLP so far)."""
+sampling, KNN, point sampling from meshes, the fused NeRF MLP, Laplacian
+matrices, packed <-> padded gathers, point covariances and normals so far)."""
 from .fused_mlp_cuda import fused_mlp, fused_nerf_field
 from .grid_sample import grid_sample
 from .interp_face_attrs import interpolate_face_attributes
 from .knn import knn_gather, knn_points
+from .laplacian_matrices import cot_laplacian, laplacian, norm_laplacian
+from .packed_to_padded import packed_to_padded, padded_to_packed
+from .points_normals import estimate_pointcloud_local_coord_frames, estimate_pointcloud_normals
 from .sample_points_from_meshes import sample_points_from_meshes
+from .utils import convert_pointclouds_to_tensor, eyes, get_point_covariances, is_pointclouds, masked_gather, wmean
 
 __all__ = [k for k in dir() if not k.startswith("_")]

@@ -1,6 +1,8 @@
 """Differentiable rendering (port of pytorch3d_tpu/renderer; the mesh,
-point, pulsar and NeRF rendering paths so far)."""
+point, pulsar and NeRF rendering paths and the cameras so far)."""
 from .blending import BlendParams, hard_rgb_blend, sigmoid_alpha_blend, softmax_rgb_blend
+from .camera_conversions import cameras_from_opencv_projection, opencv_from_cameras_projection
+from .camera_utils import camera_to_eye_at_up, join_cameras_as_batch, rotate_on_spot
 from .cameras import (
     CamerasBase,
     FoVOrthographicCameras,
@@ -19,6 +21,7 @@ from .cameras import (
     look_at_view_transform,
     try_get_projection_transform,
 )
+from .fisheyecameras import FishEyeCameras
 from .implicit import (
     HarmonicEmbedding,
     MonteCarloRaysampler,
@@ -67,6 +70,13 @@ from .points import (
     norm_weighted_sum,
     rasterize_points,
     weighted_sum,
+)
+from .utils import (
+    TensorProperties,
+    convert_to_tensors_and_broadcast,
+    format_tensor,
+    ndc_grid_sample,
+    ndc_to_grid_sample_coords,
 )
 
 __all__ = [k for k in dir() if not k.startswith("_")]

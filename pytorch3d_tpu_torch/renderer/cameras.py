@@ -4,13 +4,13 @@ Conventions are the JAX package's: world, view and NDC spaces are
 right-handed with +X left, +Y up, +Z into the screen; points are row
 vectors (``x_out = x @ M`` via `Transform3d`).
 
-Ported so far: the base class (with NDC and screen projections),
-`FoVPerspectiveCameras` (with `unproject_points`), `FoVOrthographicCameras`,
-the SfM-style `PerspectiveCameras` and `OrthographicCameras`,
-`look_at_view_transform`, the NDC <-> screen transforms and
-`try_get_projection_transform`.  Cameras are
-plain dataclasses holding tensors; `create` builds one on a device (CUDA
-unless the caller names another) and `replace` swaps fields.
+The base class (NDC and screen projections, batch indexing, `clone` and
+`to`), `FoVPerspectiveCameras`, `FoVOrthographicCameras`, the SfM-style
+`PerspectiveCameras` and `OrthographicCameras`, `look_at_view_transform`,
+the NDC <-> screen transforms and `try_get_projection_transform`
+(`FishEyeCameras` is in fisheyecameras.py).  Cameras are plain
+dataclasses holding tensors; `create` builds one on a device (CUDA unless
+the caller names another) and `replace` swaps fields.
 """
 
 from __future__ import annotations
@@ -88,9 +88,46 @@ class CamerasBase:
     def device(self) -> torch.device:
         return self.R.device
 
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.R.dtype
+
     def replace(self, **changes):
         """A copy with the named fields replaced."""
         return dataclasses.replace(self, **changes)
+
+    def _map_tensors(self, fn):
+        """A copy with `fn` applied to every tensor field (the flags stay)."""
+        return dataclasses.replace(self, **{
+            f.name: fn(getattr(self, f.name))
+            for f in dataclasses.fields(self)
+            if torch.is_tensor(getattr(self, f.name))
+        })
+
+    def __getitem__(self, index):
+        """The cameras at `index` (an int, a list, a slice or an index
+        tensor), every tensor field indexed along its batch dimension; an
+        int keeps that dimension.  An int out of range raises IndexError."""
+        n = len(self)
+        if isinstance(index, int):
+            index = [index]
+        if isinstance(index, (list, tuple)):
+            if any(isinstance(i, int) and not -n <= i < n for i in index):
+                raise IndexError(f"index {index} out of range for batch size {n}")
+            index = torch.as_tensor(index, dtype=torch.int64, device=self.device)
+        return self._map_tensors(lambda t: t[index])
+
+    def clone(self):
+        return self._map_tensors(torch.clone)
+
+    def to(self, device: Device):
+        return self._map_tensors(lambda t: t.to(device))
+
+    def get_znear(self):
+        return getattr(self, "znear", None)
+
+    def get_principal_point(self, **kwargs) -> Optional[torch.Tensor]:
+        return kwargs.get("principal_point", getattr(self, "principal_point", None))
 
     def get_world_to_view_transform(self, **kwargs) -> Transform3d:
         return get_world_to_view_transform(
@@ -104,7 +141,13 @@ class CamerasBase:
     def get_projection_transform(self, **kwargs) -> Transform3d:
         raise NotImplementedError
 
+    def unproject_points(self, xy_depth: torch.Tensor, **kwargs) -> torch.Tensor:
+        raise NotImplementedError
+
     def is_perspective(self) -> bool:
+        raise NotImplementedError
+
+    def in_ndc(self) -> bool:
         raise NotImplementedError
 
     def get_full_projection_transform(self, **kwargs) -> Transform3d:

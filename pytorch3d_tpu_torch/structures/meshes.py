@@ -14,6 +14,12 @@ element:
 `Meshes` is a plain class holding tensors.  `create` builds one on a device
 (CUDA unless the caller names another) and `replace` returns a copy with
 some fields swapped, as the flax dataclass does in the JAX package.
+`offset_verts_` and `scale_verts_` update the vertex tensor in place and
+return the same object, where the JAX package returns a new one.
+
+The list accessors, `get_mesh_verts_faces`, `check_shapes`, `submeshes`
+and `laplacian_packed` read sizes on the host (one sync each); nothing on
+the rendering and fitting paths calls them.
 """
 
 from __future__ import annotations
@@ -23,9 +29,12 @@ import functools
 from typing import Any, List, Optional, Sequence, Union
 
 import torch
+import torch.nn.functional as F
 
 from ..common import DEFAULT_DEVICE
 from .utils import list_to_padded
+
+Device = Union[str, torch.device]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -324,6 +333,108 @@ class Meshes:
             raise ValueError("new values must have the same shape as the current.")
         return self.replace(_verts_padded=new_verts_padded)
 
+    def _vert_offsets(self, vert_offsets_packed: torch.Tensor) -> torch.Tensor:
+        """A (3,) offset or one (N*V, 3) row per packed vertex as (N, V, 3)."""
+        offs = torch.as_tensor(vert_offsets_packed, dtype=self._verts_padded.dtype, device=self.device)
+        if offs.shape == (3,):
+            return offs.expand(self._verts_padded.shape)
+        if offs.shape != (len(self) * self.max_verts, 3):
+            raise ValueError("Verts offsets must have dimension (all_v, 3).")
+        return offs.reshape(self._verts_padded.shape)
+
+    def _mesh_scales(self, scale) -> torch.Tensor:
+        scale = torch.as_tensor(scale, dtype=self._verts_padded.dtype, device=self.device)
+        if scale.ndim == 0:
+            scale = scale.expand(len(self))
+        return scale[:, None, None]
+
+    def offset_verts(self, vert_offsets_packed: torch.Tensor) -> "Meshes":
+        """Verts moved by a (3,) offset or one (N*V, 3) row per packed vertex."""
+        return self.update_padded(self._verts_padded + self._vert_offsets(vert_offsets_packed))
+
+    def offset_verts_(self, vert_offsets_packed: torch.Tensor) -> "Meshes":
+        """`offset_verts` in place on the vertex tensor; returns self."""
+        self._verts_padded.add_(self._vert_offsets(vert_offsets_packed))
+        return self
+
+    def scale_verts(self, scale) -> "Meshes":
+        """Each mesh scaled by a scalar or by its entry of an (N,) tensor."""
+        return self.update_padded(self._verts_padded * self._mesh_scales(scale))
+
+    def scale_verts_(self, scale) -> "Meshes":
+        """`scale_verts` in place on the vertex tensor; returns self."""
+        self._verts_padded.mul_(self._mesh_scales(scale))
+        return self
+
+    def _apply(self, fn) -> "Meshes":
+        """`fn` applied to every tensor and to the textures' tensors."""
+        return Meshes(
+            _verts_padded=fn(self._verts_padded),
+            _faces_padded=fn(self._faces_padded),
+            _num_verts_per_mesh=fn(self._num_verts_per_mesh),
+            _num_faces_per_mesh=fn(self._num_faces_per_mesh),
+            textures=None if self.textures is None else self.textures._map_tensors(fn),
+        )
+
+    def detach(self) -> "Meshes":
+        return self._apply(torch.Tensor.detach)
+
+    def clone(self) -> "Meshes":
+        return self._apply(torch.clone)
+
+    def to(self, device: Device) -> "Meshes":
+        return self._apply(lambda t: t.to(device))
+
+    def cpu(self) -> "Meshes":
+        return self.to("cpu")
+
+    def cuda(self) -> "Meshes":
+        return self.to("cuda")
+
+    def check_shapes(self) -> bool:
+        """Raise unless the padded tensors and counts agree (one host sync)."""
+        N = len(self)
+        ok = (
+            self._verts_padded.ndim == 3 and self._verts_padded.shape[-1] == 3
+            and self._faces_padded.ndim == 3 and self._faces_padded.shape[-1] == 3
+            and self._num_verts_per_mesh.shape == (N,) and self._num_faces_per_mesh.shape == (N,)
+            and bool((self._num_verts_per_mesh <= self.max_verts).all()
+                     & (self._num_faces_per_mesh <= self.max_faces).all())
+        )
+        if not ok:
+            raise ValueError("Meshes padded/count shapes are inconsistent.")
+        return True
+
+    def get_bounding_boxes(self) -> torch.Tensor:
+        """(N, 3, 2) per-mesh min and max corners over the real verts."""
+        mask = self.verts_padded_mask()[..., None]
+        mins = torch.where(mask, self._verts_padded, torch.inf).amin(dim=1)
+        maxs = torch.where(mask, self._verts_padded, -torch.inf).amax(dim=1)
+        return torch.stack([mins, maxs], dim=-1)
+
+    def has_verts_normals(self) -> bool:
+        """Vertex normals are computed on demand, so always available."""
+        return True
+
+    def verts_padded_to_packed_idx(self) -> torch.Tensor:
+        """Packed position -> padded flat index: the identity over all N*V
+        slots in this padded-first layout; compose with
+        `verts_packed_mask()` for validity."""
+        return torch.arange(len(self) * self.max_verts, device=self.device)
+
+    def mesh_to_edges_packed_first_idx(self) -> torch.Tensor:
+        """(N,) first row of each mesh in `edges_packed()`."""
+        num = self.num_edges_per_mesh()
+        return torch.cumsum(num, 0) - num
+
+    def laplacian_packed(self) -> torch.Tensor:
+        """The uniform Laplacian over the packed verts, a sparse (N*V, N*V)
+        COO tensor (the real edges are cut out on the host)."""
+        from ..ops.laplacian_matrices import laplacian
+
+        edges = self.edges_packed()
+        return laplacian(self.verts_packed(), edges[self.edges_packed_mask()])
+
     # ------------------------------------------------------------------ #
     # Batch manipulation
     # ------------------------------------------------------------------ #
@@ -359,8 +470,97 @@ class Meshes:
         counts = self._num_faces_per_mesh.tolist()
         return [self._faces_padded[i, :n] for i, n in enumerate(counts)]
 
+    def verts_normals_list(self) -> List[torch.Tensor]:
+        normals = self.verts_normals_padded()
+        return [normals[i, :n] for i, n in enumerate(self._num_verts_per_mesh.tolist())]
+
+    def faces_normals_list(self) -> List[torch.Tensor]:
+        normals = self.faces_normals_padded()
+        return [normals[i, :n] for i, n in enumerate(self._num_faces_per_mesh.tolist())]
+
+    def get_mesh_verts_faces(self, index: int):
+        """(verts, faces) of mesh `index`, cut to its counts."""
+        if not isinstance(index, int):
+            raise ValueError("Mesh index must be an integer.")
+        if index < 0 or index >= len(self):
+            raise ValueError("Mesh index out of bounds.")
+        nv, nf = int(self._num_verts_per_mesh[index]), int(self._num_faces_per_mesh[index])
+        return self._verts_padded[index, :nv], self._faces_padded[index, :nf]
+
+    def split(self, split_sizes: List[int]) -> List["Meshes"]:
+        """The batch cut into consecutive sub-batches of the given sizes."""
+        if sum(int(s) for s in split_sizes) != len(self):
+            raise ValueError("Split sizes must sum to the batch size.")
+        out, start = [], 0
+        for s in split_sizes:
+            out.append(self[slice(start, start + int(s))])
+            start += int(s)
+        return out
+
+    def submeshes(self, face_indices) -> "Meshes":
+        """Sub-meshes cut by per-mesh lists of face-index tensors (local face
+        ids), one per inner tensor, in order, without textures; each keeps
+        the verts its faces use, in ascending order (host-side)."""
+        if len(face_indices) != len(self):
+            raise ValueError(
+                "You must specify exactly one set of submeshes for each mesh in this Meshes object."
+            )
+        sub_verts, sub_faces = [], []
+        for i, per_mesh in enumerate(face_indices):
+            for idx in per_mesh:
+                idx = torch.as_tensor(idx, dtype=torch.int64, device=self.device).reshape(-1)
+                faces = self._faces_padded[i][idx]  # (S, 3) local vert ids
+                uniq, inverse = torch.unique(faces.reshape(-1), sorted=True, return_inverse=True)
+                sub_verts.append(self._verts_padded[i][uniq])
+                sub_faces.append(inverse.reshape(-1, 3))
+        return Meshes.create(sub_verts, sub_faces, device=self.device)
+
     def sample_textures(self, fragments):
         if self.textures is None:
             raise ValueError("Meshes does not have textures")
         return self.textures.sample_textures(fragments, faces_packed=self.faces_packed())
 
+
+
+def join_meshes_as_batch(meshes: List[Meshes], include_textures: bool = True) -> Meshes:
+    """Several batches concatenated into one, padded to the widest verts
+    and faces; textures join when every batch has them."""
+    if isinstance(meshes, Meshes):
+        raise ValueError("Wrong first argument to join_meshes_as_batch.")
+    V = max(m.max_verts for m in meshes)
+    Fm = max(m.max_faces for m in meshes)
+    tex = None
+    if include_textures and all(m.textures is not None for m in meshes):
+        tex = type(meshes[0].textures).join_batch([m.textures for m in meshes])
+    return Meshes(
+        _verts_padded=torch.cat([F.pad(m._verts_padded, (0, 0, 0, V - m.max_verts)) for m in meshes]),
+        _faces_padded=torch.cat([F.pad(m._faces_padded, (0, 0, 0, Fm - m.max_faces), value=-1) for m in meshes]),
+        _num_verts_per_mesh=torch.cat([m._num_verts_per_mesh for m in meshes]),
+        _num_faces_per_mesh=torch.cat([m._num_faces_per_mesh for m in meshes]),
+        textures=tex,
+    )
+
+
+def join_meshes_as_scene(meshes, include_textures: bool = True) -> Meshes:
+    """One scene mesh from a batch (or a list, joined as a batch first).
+
+    The scene keeps all N*V padded verts (vertex ids are the packed ones);
+    its faces are the real faces moved to the front in packed order by a
+    stable sort, padded with -1 to N*F.  Per-face texture data follows the
+    same order (`join_scene(face_order=...)`).  No host sync.
+    """
+    if isinstance(meshes, (list, tuple)):
+        meshes = join_meshes_as_batch(list(meshes), include_textures=include_textures)
+    fmask = meshes.faces_packed_mask()
+    order = torch.argsort((~fmask).to(torch.int8), stable=True)
+    faces = torch.where(fmask[order][:, None], meshes.faces_packed()[order], -1)
+    tex = None
+    if include_textures and meshes.textures is not None:
+        tex = meshes.textures.join_scene(face_order=order)
+    return Meshes(
+        _verts_padded=meshes.verts_packed()[None],
+        _faces_padded=faces[None],
+        _num_verts_per_mesh=torch.full((1,), len(meshes) * meshes.max_verts, dtype=torch.int64, device=meshes.device),
+        _num_faces_per_mesh=fmask.sum()[None],
+        textures=tex,
+    )

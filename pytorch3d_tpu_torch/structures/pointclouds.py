@@ -223,6 +223,50 @@ class Pointclouds:
     def to(self, device: Device) -> "Pointclouds":
         return self._apply(lambda t: t.to(device))
 
+    def cpu(self) -> "Pointclouds":
+        return self.to("cpu")
+
+    def cuda(self) -> "Pointclouds":
+        return self.to("cuda")
+
+    def subsample(
+        self, max_points: int, generator: Optional[torch.Generator] = None, scores: Optional[torch.Tensor] = None
+    ) -> "Pointclouds":
+        """At most `max_points` points of each cloud, drawn without
+        replacement: the points of the `max_points` smallest uniform scores
+        (N, P) from `generator` (or the given `scores`, as a test hands in
+        the JAX package's), real points before padding, in score order."""
+        if max_points >= self.max_points:
+            return self
+        if scores is None:
+            scores = torch.rand(self._points_padded.shape[:2], generator=generator, device=self.device)
+        scores = torch.where(self.points_padded_mask(), scores.to(self.device), 2.0)
+        idx = torch.argsort(scores, dim=1, stable=True)[:, :max_points]
+
+        def take(t: torch.Tensor) -> torch.Tensor:
+            return t.gather(1, idx[..., None].expand(-1, -1, t.shape[-1]))
+
+        return Pointclouds(
+            _points_padded=take(self._points_padded),
+            _num_points_per_cloud=torch.clamp(self._num_points_per_cloud, max=max_points),
+            _normals_padded=_map(self._normals_padded, take),
+            _features_padded=_map(self._features_padded, take),
+        )
+
+    def estimate_normals(
+        self, neighborhood_size: int = 50, disambiguate_directions: bool = True, assign_to_self: bool = False
+    ):
+        """Per-point normals by `estimate_pointcloud_normals`; with
+        `assign_to_self` a copy holding them as its normals."""
+        from ..ops.points_normals import estimate_pointcloud_normals
+
+        normals = estimate_pointcloud_normals(
+            self, neighborhood_size=neighborhood_size, disambiguate_directions=disambiguate_directions
+        )
+        if assign_to_self:
+            return self.replace(_normals_padded=normals)
+        return normals
+
     # ------------------------------------------------------------------ #
     # List accessors (host-side)
     # ------------------------------------------------------------------ #

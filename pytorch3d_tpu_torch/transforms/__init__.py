@@ -1,5 +1,6 @@
-"""Transforms (port of pytorch3d_tpu/transforms; Transform3d and the rotation
-conversions so far)."""
+"""Transforms (port of pytorch3d_tpu/transforms): Transform3d, the rotation
+conversions and the SO(3) / SE(3) maps."""
+from .math import acos_linear_extrapolation
 from .rotation_conversions import (
     axis_angle_to_matrix,
     axis_angle_to_quaternion,
@@ -20,6 +21,8 @@ from .rotation_conversions import (
     rotation_6d_to_matrix,
     standardize_quaternion,
 )
+from .se3 import se3_exp_map, se3_log_map
+from .so3 import hat, hat_inv, so3_exp_map, so3_exponential_map, so3_log_map, so3_relative_angle, so3_rotation_angle
 from .transform3d import Rotate, RotateAxisAngle, Scale, Transform3d, Translate
 
 __all__ = [k for k in dir() if not k.startswith("_")]

@@ -65,6 +65,12 @@ class Transform3d:
     def __len__(self) -> int:
         return self.matrix.shape[0]
 
+    def __getitem__(self, index) -> "Transform3d":
+        """The transforms at `index`; an int keeps the batch dimension."""
+        if isinstance(index, int):
+            index = slice(index, index + 1) if index != -1 else slice(-1, None)
+        return Transform3d(self.matrix[index])
+
     @property
     def dtype(self) -> torch.dtype:
         return self.matrix.dtype
@@ -77,6 +83,12 @@ class Transform3d:
         """The (N, 4, 4) composed matrix."""
         return self.matrix
 
+    def get_se3_log(self, eps: float = 1e-4, cos_bound: float = 1e-4) -> torch.Tensor:
+        """The (N, 6) se(3) logarithm of the matrices."""
+        from .se3 import se3_log_map
+
+        return se3_log_map(self.matrix, eps=eps, cos_bound=cos_bound)
+
     def compose(self, *others: "Transform3d") -> "Transform3d":
         """Return self followed by each transform in ``others`` (left to right)."""
         m = self.matrix
@@ -88,6 +100,10 @@ class Transform3d:
         # inv_ex: as jnp.linalg.inv, a singular matrix gives non-finite
         # entries rather than an error, so a CUDA call needs no host sync.
         return Transform3d(torch.linalg.inv_ex(self.matrix).inverse)
+
+    def stack(self, *others: "Transform3d") -> "Transform3d":
+        """The batches of self and `others` concatenated."""
+        return Transform3d(torch.cat([self.matrix] + [o.matrix for o in others], dim=0))
 
     def transform_points(
         self, points: torch.Tensor, eps: Optional[float] = None
@@ -139,6 +155,15 @@ class Transform3d:
         return self.compose(
             RotateAxisAngle(*args, dtype=self.dtype, device=self.device, **kwargs)
         )
+
+    def clone(self) -> "Transform3d":
+        return Transform3d(self.matrix.clone())
+
+    def to(self, device: Optional[Device] = None, dtype: Optional[torch.dtype] = None) -> "Transform3d":
+        return Transform3d(self.matrix.to(device=device, dtype=dtype))
+
+    def cpu(self) -> "Transform3d":
+        return self.to("cpu")
 
 
 def _handle_coord(c, dtype, device) -> torch.Tensor:

@@ -922,3 +922,90 @@ def test_textures_uv_sampling_on_the_card_matches_the_cpu(cuda_device):
     (want, want_g), (got, got_g) = out
     assert (got - want).abs().max() <= 1e-6
     assert (got_g - want_g).abs().max() <= 1e-5 * want_g.abs().max()
+
+
+def _golden_renderer(cams, shader_cls, size, bin_size=None, K=1, blur=0.0):
+    from pytorch3d_tpu_torch.renderer import BlendParams, MeshRenderer, PointLights, RasterizationSettings
+
+    device = cams.device
+    settings = RasterizationSettings(image_size=size, blur_radius=blur, faces_per_pixel=K, bin_size=bin_size)
+    shader = shader_cls(cameras=cams, lights=PointLights.create(location=[[0.0, 0.0, 2.0]], device=device),
+                        blend_params=BlendParams(0.5, 1e-4, (0.0, 0.0, 0.0)), device=device)
+    return MeshRenderer(MeshRasterizer(cams, settings), shader)
+
+
+def test_joined_scene_through_the_fine_kernel_matches_plain(cuda_device):
+    """join_meshes_as_scene's joined spheres, two views from cameras joined
+    by join_cameras_as_batch, HardPhongShader at 128^2 through #1 against
+    bin_size=0: ids equal, images within 1e-5."""
+    from pytorch3d_tpu_torch.renderer import HardPhongShader
+
+    scene = _CHIP_SMOKE.joined_spheres(cuda_device)[0].extend(2)
+    cams = _CHIP_SMOKE.joined_cameras(cuda_device, 2)
+    trc.rasterize_fragments_cuda.launches = 0
+    with torch.no_grad():
+        got = _golden_renderer(cams, HardPhongShader, 128)(scene)
+        want = _golden_renderer(cams, HardPhongShader, 128, bin_size=0)(scene)
+    assert trc.rasterize_fragments_cuda.launches == 1
+    assert (got[..., 3] > 0).float().mean() > 0.05
+    assert (got - want).abs().max() <= 1e-5
+
+
+def test_fisheye_through_the_fine_kernel_matches_plain(cuda_device):
+    """The golden FishEyeCameras (two views) on ico_sphere(3) at 128^2
+    through #1 (MeshRasterizer's non-linear branch) against bin_size=0:
+    fragments equal (ids) and within 1e-6 (zbuf, bary)."""
+    from pytorch3d_tpu_torch.renderer import RasterizationSettings
+
+    cams = _CHIP_SMOKE.fisheye_cameras(cuda_device)
+    mesh = ico_sphere(3, device=cuda_device).extend(2)
+    trc.rasterize_fragments_cuda.launches = 0
+    frags = [MeshRasterizer(cams, RasterizationSettings(image_size=128, faces_per_pixel=1, bin_size=b))(mesh)
+             for b in (None, 0)]
+    assert trc.rasterize_fragments_cuda.launches == 1
+    assert torch.equal(frags[0].pix_to_face, frags[1].pix_to_face) and (frags[0].pix_to_face >= 0).any()
+    assert (frags[0].zbuf - frags[1].zbuf).abs().max() <= 1e-6
+    assert (frags[0].bary_coords - frags[1].bary_coords).abs().max() <= 1e-6
+
+
+def test_estimate_normals_through_the_knn_kernel_matches_plain(cuda_device):
+    """Pointclouds.estimate_normals at K=16 through #9 (one launch) against
+    the plain KNN: |cos| >= 1 - 1e-5 everywhere."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    pts = torch.randn((2, 4000, 3), generator=gen, device=cuda_device)
+    pts = pts / pts.norm(dim=-1, keepdim=True) * torch.tensor([1.0, 0.7, 0.4], device=cuda_device)
+    clouds = Pointclouds.create(pts, device=cuda_device)
+    tknn.knn_points_cuda.launches = 0
+    with torch.no_grad():
+        got = clouds.estimate_normals(neighborhood_size=16)
+        assert tknn.knn_points_cuda.launches == 1
+        with _CHIP_SMOKE.plain_knn():
+            want = clouds.estimate_normals(neighborhood_size=16)
+    assert ((got * want).sum(-1).abs() >= 1 - 1e-5).all()
+
+
+def test_se3_pose_gradient_through_the_grad_kernel_matches_plain(cuda_device):
+    """The joined scene at 128^2 (SoftPhongShader, K=8, blur 1e-4) from two
+    views posed by se3_exp_map of a (2, 6) log at zero: the gradient of an
+    image loss with respect to the log through #4 within 1e-4 of its largest
+    against bin_size=0."""
+    from pytorch3d_tpu_torch.renderer import SoftPhongShader
+    from pytorch3d_tpu_torch.transforms import Rotate, Translate, se3_exp_map
+
+    scene = _CHIP_SMOKE.joined_spheres(cuda_device)[0].extend(2)
+    cams = _CHIP_SMOKE.joined_cameras(cuda_device, 2)
+    M0 = Rotate(cams.R, device=cuda_device).compose(Translate(cams.T, device=cuda_device)).get_matrix()
+    weights = torch.rand((2, 128, 128, 4), generator=torch.Generator(device=cuda_device).manual_seed(1),
+                         device=cuda_device)
+    grads = []
+    trc.rasterize_grad_cuda.launches = 0
+    for bin_size in (None, 0):
+        log = torch.zeros((2, 6), device=cuda_device, requires_grad=True)
+        M = M0 @ se3_exp_map(log)
+        posed = cams.replace(R=M[:, :3, :3], T=M[:, 3, :3])
+        image = _golden_renderer(posed, SoftPhongShader, 128, bin_size=bin_size, K=8, blur=1e-4)(scene)
+        (image * weights).sum().backward()
+        grads.append(log.grad)
+    assert trc.rasterize_grad_cuda.launches == 1
+    assert torch.isfinite(grads[0]).all() and grads[1].abs().max() > 0
+    assert (grads[0] - grads[1]).abs().max() <= 1e-4 * grads[1].abs().max()

@@ -14,18 +14,10 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 MODULES = ["transforms", "renderer", "renderer/mesh", "renderer/points", "renderer/implicit", "structures", "ops",
-           "loss"]
+           "loss", "utils", "common"]
 
 # ROADMAP.md queue 1 item -> the JAX names it brings to the port.
 NOT_YET = {
-    "2. the rest of structures, transforms and cameras": [
-        "FishEyeCameras", "TensorProperties", "acos_linear_extrapolation", "camera_to_eye_at_up",
-        "cameras_from_opencv_projection", "convert_to_tensors_and_broadcast", "format_tensor", "hat", "hat_inv",
-        "join_cameras_as_batch", "join_meshes_as_batch", "join_meshes_as_scene", "list_to_packed",
-        "ndc_grid_sample", "ndc_to_grid_sample_coords", "opencv_from_cameras_projection", "packed_to_list",
-        "padded_to_list", "padded_to_packed", "rotate_on_spot", "se3_exp_map", "se3_log_map", "so3_exp_map",
-        "so3_exponential_map", "so3_log_map", "so3_relative_angle", "so3_rotation_angle",
-    ],
     "3. the rest of NeRF that needs nothing of Implicitron": [
         "AbsorptionOnlyRaymarcher", "EmissionAbsorptionRaymarcher", "GridRaysampler", "HeterogeneousRayBundle",
         "ImplicitRenderer", "NDCGridRaysampler", "VolumeLocator", "VolumeRenderer", "VolumeSampler", "Volumes",
@@ -34,13 +26,11 @@ NOT_YET = {
     "4. the remaining ops and losses": [
         "GraphConv", "SubdivideMeshes", "add_pointclouds_to_volumes",
         "add_points_features_to_volume_densities_features", "ball_query", "box3d_overlap",
-        "convert_pointclouds_to_tensor", "corresponding_cameras_alignment", "corresponding_points_alignment",
-        "cot_laplacian", "cubify", "efficient_pnp", "estimate_pointcloud_local_coord_frames",
-        "estimate_pointcloud_normals", "eyes", "gather_scatter", "gather_scatter_python", "get_point_covariances",
-        "interpolate_face_attributes_python", "is_pointclouds", "iterative_closest_point", "laplacian",
-        "marching_cubes", "marching_cubes_naive", "masked_gather", "mesh_face_areas_normals", "norm_laplacian",
-        "packed_to_padded", "point_mesh_edge_distance", "point_mesh_face_distance", "rasterize_points_python",
-        "sample_farthest_points", "sample_farthest_points_naive", "taubin_smoothing", "vert_align", "wmean",
+        "corresponding_cameras_alignment", "corresponding_points_alignment", "cubify", "efficient_pnp",
+        "gather_scatter", "gather_scatter_python", "interpolate_face_attributes_python", "iterative_closest_point",
+        "marching_cubes", "marching_cubes_naive", "mesh_face_areas_normals", "point_mesh_edge_distance",
+        "point_mesh_face_distance", "rasterize_points_python", "sample_farthest_points",
+        "sample_farthest_points_naive", "taubin_smoothing", "vert_align",
     ],
 }
 _QUEUED = {name: item for item, names in NOT_YET.items() for name in names}
