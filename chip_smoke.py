@@ -126,6 +126,23 @@ final result line:
     runs `Pointclouds.estimate_normals` on points-serving's 8 clouds at K=16
     (#9) and at the default K=50 (the plain KNN on the card).  Each against
     the plain route (2 views or clouds), with the gates its docstring names.
+12. slice 14, after slice 13: volumes and the implicit renderer through
+    #12 and #13: volume-fit takes 20 Adam steps of PyTorch3D's
+    fit_textured_volume tutorial (a 128^3 grid through VolumeRenderer at
+    64^2, 150 points, 10 of cow.npz's views a step; step 0's image and
+    gradients against float64); implicit-nerf drives the full-width
+    NeuralRadianceField through ImplicitRenderer as the
+    fit_simple_neural_radiance_field tutorial does (12 Adam steps of 6 x 750
+    Monte Carlo rays, #12 saving and #13, step 0's gradients against the
+    plain field and float64), then serves the 8 test views at 64^2 (#12),
+    one mask-weighted grid-subsampling request and one n_rays_total
+    request, each against use_fused_kernel=False; nerf-remat runs the NeRF
+    training step with remat=True beside remat=False (bit-equal gradients,
+    #12 launched by both builds, peak memory); points-to-volume splats
+    points-serving's 30 000 points into 128^3 in both modes (against
+    float64) and renders each volume at 256^2 for 8 azimuths;
+    point-mesh-distance runs the face and edge distances and
+    mesh_face_areas_normals at chamfer-fit's shapes against float64.
 
 The last lines are a `{"kernels": [...]}` JSON line and then
 `{"ok": true, "device": {...}}`.  Without CUDA, or outside a checkout of
@@ -4897,6 +4914,620 @@ def phase_normals(device):
     return counts
 
 
+# --------------------------------------------------------------------------- #
+# Slice 14: volumes and the implicit renderer, run through #12 and #13
+# --------------------------------------------------------------------------- #
+
+VOL_GRID = 128  # fit_textured_volume: a 128^3 grid, 1 density + 3 colour channels
+VOL_EXTENT = 3.0  # world extent of the grid (voxel size 3 / 128)
+VOL_IMAGE = 64  # the tutorial renders 128^2 views; cow.npz holds 64^2 ones
+VOL_POINTS = 150
+VOL_DEPTH = (0.1, 3.0)
+VOL_BATCH = 10  # views a step
+VOL_LR = 0.1
+VOL_STEPS = 20
+VOL_IMAGE_GATE = 1e-5  # step 0's image: max |float32 - float64|
+VOL_GRAD_GATE = 1e-4  # step 0's gradients: max |float32 - float64| <= gate * max |float64|
+INR_RAYS = 750  # fit_simple_neural_radiance_field: MC rays per image, points per ray
+INR_POINTS = 128
+INR_DEPTH = (0.1, 3.0)
+INR_BATCH = 6
+INR_LR = 1e-3
+INR_STEPS = 12
+INR_SUBSAMPLE = 1024  # rays of the grid-subsampling request
+INR_TOTAL = 4096  # rays of the n_rays_total request
+P2V_GRID = 128
+P2V_IMAGE = 256
+P2V_POINTS = 128
+P2V_DEPTH = (1.5, 4.5)
+# The splat against float64: max |diff| <= gate * max |float64|.  A float32
+# voxel coordinate in [0, 127] is off by up to ~4e-6, and so is each corner
+# weight; a voxel sums tens of them.
+P2V_VALUE_GATE = 1e-4
+P2V_GRAD_GATE = 1e-4  # its gradients, and the rescaled colours (absolute) where ...
+P2V_RESCALED_DENSITY = 0.5  # ... the density is at least this: a colour over a density of a few tiny
+# corner weights divides their float32 rounding by that density
+PMD_VALUE_GATE = 1e-5  # the distances, areas and normals against float64, relative
+PMD_GRAD_GATE = 1e-4  # gradient rows within gate * max |float64 gradient| ...
+PMD_ROW_SHARE = 0.999  # ... on at least this share of the rows (a near tie may pick another face in float32)
+
+
+def huber(x, y, scaling=0.1):
+    """The tutorials' smooth L1 of x - y."""
+    return ((1 + (x - y) ** 2 / scaling**2).clamp(min=1e-4).sqrt() - 1) * scaling
+
+
+def cow_views(device):
+    """cow.npz's 64^2 views (white background) with their cameras: (images,
+    silhouettes (non-white), cameras(indices), train ids, test ids)."""
+    import numpy as np
+    import torch
+
+    from pytorch3d_tpu_torch.renderer import FoVPerspectiveCameras
+
+    data = np.load(NERF_DATA)
+    images = torch.tensor(data["images"].astype(np.float32), device=device)
+    sil = (images < 0.99).any(dim=-1).to(images.dtype)
+    R, T = torch.tensor(data["R"], device=device), torch.tensor(data["T"], device=device)
+    fov, znear, zfar = float(data["fov"]), float(data["znear"]), float(data["zfar"])
+    test = [int(i) for i in data["test_idx"]]
+    train = [i for i in range(len(images)) if i not in test]
+
+    def cameras(ids):
+        ids = torch.as_tensor(ids, device=device)
+        return FoVPerspectiveCameras.create(R=R[ids], T=T[ids], fov=fov, znear=znear, zfar=zfar, device=device)
+
+    return images, sil, cameras, train, test
+
+
+def max_ratio(got, want):
+    return float((got.double() - want.double()).abs().max() / want.double().abs().max().clamp(min=1e-30))
+
+
+def row_share(got, want, gate):
+    """Share of rows (the last axis's vectors) within gate * max |want|."""
+    err = (got.double() - want.double()).abs().reshape(-1, got.shape[-1]).amax(dim=-1)
+    return float((err <= gate * want.double().abs().max()).double().mean())
+
+
+class VolumeFit:
+    """PyTorch3D's fit_textured_volume tutorial on cow.npz: log-densities
+    (start -4) and colour logits (start 0) of a 128^3 grid through sigmoids,
+    rendered by VolumeRenderer(NDCMultinomialRaysampler(64^2, 150 points,
+    depth 0.1-3.0), EmissionAbsorptionRaymarcher()), Adam at lr 0.1 on 10
+    training views a step; the render is composited over the views' white
+    background, and its opacity fits their non-white silhouettes."""
+
+    def __init__(self, device):
+        import torch
+
+        from pytorch3d_tpu_torch.renderer import EmissionAbsorptionRaymarcher, NDCMultinomialRaysampler, VolumeRenderer
+
+        self.device = device
+        self.images, self.sil, self.cameras, self.train, _ = cow_views(device)
+        self.log_densities = torch.full((1, VOL_GRID, VOL_GRID, VOL_GRID), -4.0, device=device, requires_grad=True)
+        self.log_colors = torch.zeros((3, VOL_GRID, VOL_GRID, VOL_GRID), device=device, requires_grad=True)
+        self.renderer = VolumeRenderer(
+            NDCMultinomialRaysampler(image_width=VOL_IMAGE, image_height=VOL_IMAGE, n_pts_per_ray=VOL_POINTS,
+                                     min_depth=VOL_DEPTH[0], max_depth=VOL_DEPTH[1]),
+            EmissionAbsorptionRaymarcher(),
+        )
+        self.optimizer = torch.optim.Adam([self.log_densities, self.log_colors], lr=VOL_LR)
+        self.generator = torch.Generator().manual_seed(0)
+
+    def volumes(self, B, log_densities=None, log_colors=None):
+        import torch
+
+        from pytorch3d_tpu_torch.structures import Volumes
+
+        ld = self.log_densities if log_densities is None else log_densities
+        lc = self.log_colors if log_colors is None else log_colors
+        dens, cols = torch.sigmoid(ld), torch.sigmoid(lc)
+        return Volumes.create(dens[None].expand(B, *dens.shape), cols[None].expand(B, *cols.shape),
+                              voxel_size=VOL_EXTENT / VOL_GRID, device=self.device, dtype=ld.dtype)
+
+    def loss(self, images, views):
+        rgb = images[..., :3] + (1.0 - images[..., 3:])  # over white
+        return huber(rgb, self.images[views]).mean() + huber(images[..., 3], self.sil[views]).mean()
+
+    def views(self):
+        import torch
+
+        pick = torch.randperm(len(self.train), generator=self.generator)[:VOL_BATCH]
+        return [self.train[int(i)] for i in pick]
+
+    def step(self, views):
+        self.optimizer.zero_grad(set_to_none=True)
+        images, _ = self.renderer(cameras=self.cameras(views), volumes=self.volumes(len(views)))
+        loss = self.loss(images, views)
+        loss.backward()
+        self.optimizer.step()
+        return loss.item()
+
+
+def phase_volume_fit(device, card):
+    """Step 0's image and gradients against the same step in float64 (the
+    float32 step's rays, the volume, sampling, marching and loss in
+    float64), then VOL_STEPS Adam steps whose loss must fall."""
+    import torch
+
+    from pytorch3d_tpu_torch.renderer import VolumeSampler
+
+    fit = VolumeFit(device)
+    views = fit.views()
+    reset_counts()
+    images, bundle = fit.renderer(cameras=fit.cameras(views), volumes=fit.volumes(len(views)))
+    fit.loss(images, views).backward()
+    ld64 = fit.log_densities.detach().double().requires_grad_(True)
+    lc64 = fit.log_colors.detach().double().requires_grad_(True)
+    bundle64 = bundle.replace(**{k: getattr(bundle, k).double() for k in ("origins", "directions", "lengths", "xys")})
+    volumes64 = fit.volumes(len(views), ld64, lc64)
+    dens64, feats64 = VolumeSampler(volumes64)(bundle64)
+    images64 = fit.renderer._renderer.raymarcher(rays_densities=dens64, rays_features=feats64)
+    fit.loss(images64, views).backward()
+    image_err = float((images.detach().double() - images64.detach()).abs().max())
+    grad_err = {"densities": max_ratio(fit.log_densities.grad, ld64.grad), "colours": max_ratio(fit.log_colors.grad,
+                                                                                                lc64.grad)}
+    log(f"volume-fit: step 0 ({len(views)} views of {VOL_IMAGE}^2, {VOL_POINTS} points, a {VOL_GRID}^3 grid) against"
+        f" float64: image max|diff| {image_err:.3e} (gate {VOL_IMAGE_GATE:g}); gradients {grad_err} of each max|grad|"
+        f" (gate {VOL_GRAD_GATE:g})")
+    check(image_err <= VOL_IMAGE_GATE, f"volume-fit: step 0's image is {image_err:.3e} off float64")
+    check(all(v <= VOL_GRAD_GATE for v in grad_err.values()), f"volume-fit: step 0's gradients off float64: {grad_err}")
+    del images, images64, bundle, bundle64, volumes64, dens64, feats64, ld64, lc64
+    fit.optimizer.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for _ in range(VOL_STEPS):
+        views = fit.views()
+        loss, ms = timed_ms(lambda: fit.step(views))
+        losses.append(loss)
+        step_ms.append(ms)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    timed = sorted(step_ms[-10:])
+    log(f"volume-fit: {VOL_STEPS} Adam steps: losses {[round(v, 5) for v in losses]}; launches {counts} (no kernel on"
+        f" this path); peak memory {peak:.2f} GB")
+    log(f"times [volume-fit step, {card}] median of the last 10: {timed[5]:.3f} ms (min {timed[0]:.3f}, max"
+        f" {timed[-1]:.3f})")
+    check(all(math.isfinite(v) for v in losses), "volume-fit: non-finite loss")
+    check(last < first, f"volume-fit: the mean of the last 5 losses {last:.6f} is not below the first 5's {first:.6f}")
+    profile("volume-fit step", lambda: fit.step(fit.views()), 1)
+    del fit
+    torch.cuda.empty_cache()
+    return counts
+
+
+class ImplicitNeRF:
+    """PyTorch3D's fit_simple_neural_radiance_field renderers driving the
+    port's NeuralRadianceField at RadianceFieldRenderer's defaults (8 x 256,
+    skip at 5; the heads in #12): ImplicitRenderer(MonteCarloRaysampler(750
+    rays, 128 points, depth 0.1-3.0)) for training on 6 views a step (Adam,
+    lr 1e-3), ImplicitRenderer(NDCMultinomialRaysampler(64^2, 128 points))
+    for serving; both with EmissionAbsorptionRaymarcher, composited over
+    cow.npz's white background."""
+
+    def __init__(self, device):
+        import torch
+
+        from pytorch3d_tpu_torch.models import NeuralRadianceField
+        from pytorch3d_tpu_torch.renderer import (
+            EmissionAbsorptionRaymarcher,
+            ImplicitRenderer,
+            MonteCarloRaysampler,
+            NDCMultinomialRaysampler,
+        )
+
+        self.device = device
+        self.images, self.sil, self.cameras, self.train, self.test = cow_views(device)
+        self.field = NeuralRadianceField(device=device, generator=torch.Generator(device=device).manual_seed(0))
+        marcher = EmissionAbsorptionRaymarcher()
+        self.train_renderer = ImplicitRenderer(
+            MonteCarloRaysampler(-1.0, 1.0, -1.0, 1.0, INR_RAYS, INR_POINTS, INR_DEPTH[0], INR_DEPTH[1]), marcher
+        )
+        grid = dict(image_width=64, image_height=64, n_pts_per_ray=INR_POINTS, min_depth=INR_DEPTH[0],
+                    max_depth=INR_DEPTH[1])
+        self.serve_renderer = ImplicitRenderer(NDCMultinomialRaysampler(**grid), marcher)
+        self.subsample_renderer = ImplicitRenderer(NDCMultinomialRaysampler(**grid, n_rays_per_image=INR_SUBSAMPLE),
+                                                   marcher)
+        self.total_renderer = ImplicitRenderer(NDCMultinomialRaysampler(**grid, n_rays_total=INR_TOTAL), marcher)
+        self.optimizer = torch.optim.Adam(self.field.parameters(), lr=INR_LR)
+        self.order = torch.Generator().manual_seed(1)
+        self.generator = torch.Generator(device=device).manual_seed(2)
+
+    def views(self):
+        import torch
+
+        pick = torch.randperm(len(self.train), generator=self.order)[:INR_BATCH]
+        return [self.train[int(i)] for i in pick]
+
+    def loss(self, views, generator, field=None):
+        """(loss, ray bundle) of a training render of `views`."""
+        from pytorch3d_tpu_torch.models.nerf.utils import sample_images_at_mc_locs
+
+        images, bundle = self.train_renderer(cameras=self.cameras(views), volumetric_function=field or self.field,
+                                             generator=generator)
+        rgb = images[..., :3] + (1.0 - images[..., 3:])
+        target = sample_images_at_mc_locs(self.images[views], bundle.xys)
+        return huber(rgb, target).mean(), bundle
+
+    def step(self, views):
+        self.optimizer.zero_grad(set_to_none=True)
+        loss, _ = self.loss(views, self.generator)
+        loss.backward()
+        self.optimizer.step()
+        return loss.item()
+
+    def request(self, renderer, views, **kwargs):
+        """An rgb render (composited over white) without autograd."""
+        import torch
+
+        with torch.no_grad():
+            images, bundle = renderer(cameras=self.cameras(views), volumetric_function=self.field, **kwargs)
+        return images[..., :3] + (1.0 - images[..., 3:]), bundle
+
+    def plain(self, fn):
+        self.field.use_fused_kernel = False
+        try:
+            return fn()
+        finally:
+            self.field.use_fused_kernel = True
+
+
+def pixel_share(got, want):
+    diff = (got - want).abs().amax(dim=-1)
+    return float((diff <= NERF_FRAME_TOL).double().mean()), float(diff.max())
+
+
+def phase_implicit_nerf(device, card):
+    """Step 0's gradients against use_fused_kernel=False on the same rays
+    (GRAD_GATE of each tensor's largest) and both against the plain field in
+    float64 on those rays; INR_STEPS Adam steps through #12 (saving) and #13;
+    then the 8 test views served at 64^2 through #12, one request through
+    grid subsampling and one through n_rays_total, each against
+    use_fused_kernel=False at the NeRF frame's gates."""
+    import copy
+
+    import torch
+
+    nerf = ImplicitNeRF(device)
+    views = nerf.views()
+    grads, bundles = [], []
+    for fused in (True, False):
+        nerf.field.use_fused_kernel = fused
+        nerf.field.zero_grad(set_to_none=True)
+        loss, bundle = nerf.loss(views, torch.Generator(device=device).manual_seed(3))
+        loss.backward()
+        grads.append({n: p.grad.clone() for n, p in nerf.field.named_parameters()})
+        bundles.append(bundle)
+    nerf.field.use_fused_kernel = True
+    check(torch.equal(bundles[0].xys, bundles[1].xys), "implicit-nerf: the two step-0 runs drew different rays")
+    from pytorch3d_tpu_torch.models.nerf.utils import sample_images_at_mc_locs
+
+    ref = copy.deepcopy(nerf.field).double()
+    ref.use_fused_kernel = False
+    bundle64 = bundles[0].replace(**{k: getattr(bundles[0], k).double()
+                                     for k in ("origins", "directions", "lengths", "xys")})
+    images64 = nerf.train_renderer.raymarcher(*ref(bundle64))
+    target = sample_images_at_mc_locs(nerf.images[views].double(), bundle64.xys)
+    huber(images64[..., :3] + (1.0 - images64[..., 3:]), target).mean().backward()
+    exact = {n: p.grad for n, p in ref.named_parameters()}
+    fused_vs_plain = grad_ratios(grads[0], grads[1])
+    witness = [max(grad_ratios(g, exact).values()) for g in grads]
+    worst = max(fused_vs_plain, key=fused_vs_plain.get)
+    log(f"implicit-nerf: step 0 ({INR_BATCH} views x {INR_RAYS} rays x {INR_POINTS} points) gradients, fused against"
+        f" use_fused_kernel=False: worst {worst} {fused_vs_plain[worst]:.3e} of its max|grad| (gate {GRAD_GATE:g});"
+        f" against the plain field in float64: fused {witness[0]:.3e}, plain {witness[1]:.3e}")
+    check(all(math.isfinite(v) for v in fused_vs_plain.values()), "implicit-nerf: non-finite step 0 gradients")
+    check(fused_vs_plain[worst] <= GRAD_GATE, "implicit-nerf: step 0 gradients off the plain field's")
+    check(witness[0] <= max(GRAD_GATE, FUSED_PLAIN_FACTOR * witness[1]),
+          "implicit-nerf: the fused field is further from float64 than the plain one")
+    del ref, images64, exact, grads, bundles, bundle64
+    nerf.field.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+
+    from pytorch3d_tpu_torch.ops import fused_mlp_cuda as fm
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    recomputed = fm._backward.forwards_run
+    losses, step_ms = [], []
+    for _ in range(INR_STEPS):
+        views = nerf.views()
+        loss, ms = timed_ms(lambda: nerf.step(views))
+        losses.append(loss)
+        step_ms.append(ms)
+    train_counts = read_counts()
+    recomputed = fm._backward.forwards_run - recomputed
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    first, last = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
+    timed = sorted(step_ms[2:])
+    log(f"implicit-nerf: {INR_STEPS} Adam steps: losses {[round(v, 5) for v in losses]}; launches {train_counts};"
+        f" forwards the backward ran itself: {recomputed}; peak memory {peak:.2f} GB")
+    log(f"times [implicit-nerf step, {card}] median of the last {len(timed)}: {timed[len(timed) // 2]:.3f} ms"
+        f" (min {timed[0]:.3f}, max {timed[-1]:.3f})")
+    check(all(math.isfinite(v) for v in losses), "implicit-nerf: non-finite loss")
+    check(last < first, f"implicit-nerf: the mean of the last 3 losses {last:.6f} is not below the first 3's {first:.6f}")
+    check(train_counts["nerf_field"] == INR_STEPS and train_counts["nerf_field_grad"] == INR_STEPS,
+          f"implicit-nerf: launches {train_counts} for {INR_STEPS} steps (one field forward and backward each)")
+    check(recomputed == 0, "implicit-nerf: the backward recomputed the forward instead of reading its saved tensors")
+
+    torch.cuda.synchronize()
+    reset_counts()
+    frames, frame_ms = [], []
+    for i in nerf.test:
+        (rgb, _), ms = timed_ms(lambda: nerf.request(nerf.serve_renderer, [i]))
+        frames.append(rgb)
+        frame_ms.append(ms)
+    mask = nerf.sil[nerf.test[:1]]
+    gen = lambda: torch.Generator(device=device).manual_seed(4)  # noqa: E731
+    sub, sub_bundle = nerf.request(nerf.subsample_renderer, nerf.test[:1], mask=mask, generator=gen())
+    total, total_bundle = nerf.request(nerf.total_renderer, nerf.test, generator=gen())
+    serve_counts = read_counts()
+    want = len(nerf.test) + 2
+    log(f"implicit-nerf serving: {len(frames)} requests of 64^2 x {INR_POINTS} points, one of {INR_SUBSAMPLE} rays"
+        f" subsampled by the silhouette, one of {INR_TOTAL} rays over the {len(nerf.test)} cameras (n_rays_total):"
+        f" launches {serve_counts}")
+    check(serve_counts["nerf_field"] == want and serve_counts["nerf_field_grad"] == 0,
+          f"implicit-nerf serving: launches {serve_counts}, expected {want} nerf_field")
+    check(sub.shape == (1, INR_SUBSAMPLE, 3) and total.shape == (INR_TOTAL, 1, 3), "implicit-nerf: request shapes")
+    # NDC x, y of the 64^2 grid run from 1 - 1/64 down by 2/64 per column / row
+    col, row = (((1.0 - 1.0 / 64) - sub_bundle.xys[0]) * 32).round().long().unbind(-1)
+    on = float(nerf.sil[nerf.test[0]][row, col].mean())
+    log(f"  the subsampled rays on the silhouette: {on:.6f}")
+    check(on == 1.0, f"implicit-nerf: {1 - on:.6f} of the mask-weighted rays lie off the mask")
+    check(int(total_bundle.camera_counts.sum()) == INR_TOTAL, "implicit-nerf: n_rays_total camera counts")
+    plain = nerf.plain(lambda: (
+        nerf.request(nerf.serve_renderer, nerf.test[:1])[0],
+        nerf.request(nerf.subsample_renderer, nerf.test[:1], mask=mask, generator=gen())[0],
+        nerf.request(nerf.total_renderer, nerf.test, generator=gen())[0],
+    ))
+    for name, got, ref in (("frame", frames[0], plain[0]), ("subsample", sub, plain[1]), ("n_rays_total", total,
+                                                                                          plain[2])):
+        share, worst = pixel_share(got, ref)
+        log(f"  {name} vs use_fused_kernel=False: |rgb diff| <= {NERF_FRAME_TOL:g} on {share:.6f} (max {worst:.3e})")
+        check(bool(torch.isfinite(got).all()), f"implicit-nerf: non-finite {name}")
+        check(share >= NERF_FRAME_SHARE, f"implicit-nerf: only {share:.6f} of the {name}'s rays match the plain field")
+    timed = sorted(frame_ms)
+    log(f"times [implicit-nerf frame, {card}] median of {len(timed)}: {timed[len(timed) // 2]:.3f} ms (min"
+        f" {timed[0]:.3f}, max {timed[-1]:.3f})")
+    profile("implicit-nerf frame", lambda: nerf.request(nerf.serve_renderer, nerf.test[:1]), 1)
+    profile("implicit-nerf step", lambda: nerf.step(nerf.views()), 1)
+    del nerf
+    torch.cuda.empty_cache()
+    return {k: train_counts[k] + serve_counts[k] for k in train_counts}
+
+
+class RecordedSaves:
+    """While open, records the `save` flag of every #12 launch (False: the
+    serving build, True: the saving build) by wrapping the wrappers' shared
+    `_forward`; the launch counts are the wrappers' own, untouched."""
+
+    def __enter__(self):
+        from pytorch3d_tpu_torch.ops import fused_mlp_cuda as fm
+
+        self.fm, self.original, self.saves = fm, fm._forward, []
+
+        def recording(what, x, d_embed, weights, biases, head, skips, save=False):
+            if what == "nerf_field_cuda":
+                self.saves.append(save)
+            return self.original(what, x, d_embed, weights, biases, head, skips, save)
+
+        fm._forward = recording
+        return self.saves
+
+    def __exit__(self, *exc):
+        self.fm._forward = self.original
+        return False
+
+
+def phase_nerf_remat(device, scene, card):
+    """chip_smoke's NeRF training step (the full-width RadianceFieldRenderer,
+    1024 rays, 64 + 64 points) with remat=True beside remat=False on the
+    same weights and draws: the gradients equal to the bit, #12 launched
+    twice per field call under remat (serving build in the forward, saving
+    build in the backward), peak memory of both."""
+    import torch
+
+    from pytorch3d_tpu_torch.models import RadianceFieldRenderer
+    from pytorch3d_tpu_torch.ops import fused_mlp_cuda as fm
+
+    base = scene.model
+    remat = RadianceFieldRenderer(
+        image_width=NERF_FRAME, image_height=NERF_FRAME, n_pts_per_ray=64, n_pts_per_ray_fine=64,
+        n_rays_per_image=NERF_RAYS, min_depth=scene.znear, max_depth=scene.zfar, bg_color=(1.0, 1.0, 1.0),
+        remat=True, device=device,
+    )
+    remat.load_state_dict(base.state_dict())
+    view = scene.train_idx[0]
+    draws = base.make_draws(1, True, torch.Generator(device=device).manual_seed(8))
+    grads, peaks, counts, saves = {}, {}, {}, {}
+    for name, model in (("remat=False", base), ("remat=True", remat)):
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        reset_counts()
+        recomputed = fm._backward.forwards_run
+        with RecordedSaves() as flags:
+            _, m = model(scene.camera(view), image=scene.images[view : view + 1], training=True, draws=draws)
+            (m["mse_coarse"] + m["mse_fine"]).backward()
+            torch.cuda.synchronize()
+        counts[name] = read_counts()
+        check(fm._backward.forwards_run == recomputed, f"nerf-remat: {name}: the backward ran a forward of its own")
+        saves[name] = list(flags)
+        peaks[name] = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
+        grads[name] = {n: p.grad.clone() for n, p in model.named_parameters()}
+    base.zero_grad(set_to_none=True)
+    equal = all(torch.equal(grads["remat=True"][n], grads["remat=False"][n]) for n in grads["remat=False"])
+    ratios = grad_ratios(grads["remat=True"], grads["remat=False"])
+    worst = max(ratios, key=ratios.get)
+    log(f"nerf-remat: one training step: launches {counts}; #12 save flags in call order {saves}; peak memory above"
+        f" the weights and optimizer state: remat=False {peaks['remat=False']:.3f} GB, remat=True"
+        f" {peaks['remat=True']:.3f} GB ({card}); gradients {'equal to the bit' if equal else 'NOT bit-equal'}"
+        f" (worst {worst} {ratios[worst]:.3e} of its max|grad|)")
+    check(counts["remat=False"]["nerf_field"] == 2 and counts["remat=False"]["nerf_field_grad"] == 2,
+          f"nerf-remat: remat=False launches {counts['remat=False']}")
+    check(counts["remat=True"]["nerf_field"] == 4 and counts["remat=True"]["nerf_field_grad"] == 2,
+          f"nerf-remat: remat=True launches {counts['remat=True']}")
+    check(saves["remat=True"] == [False, False, True, True] and saves["remat=False"] == [True, True],
+          f"nerf-remat: builds {saves}")
+    check(equal or ratios[worst] <= GRAD_GATE, f"nerf-remat: remat gradients off: {worst} {ratios[worst]:.3e}")
+    del remat
+    torch.cuda.empty_cache()
+    return {k: counts["remat=False"][k] + counts["remat=True"][k] for k in counts["remat=False"]}
+
+
+def phase_points_to_volume(device, card):
+    """points-serving's 30 000 coloured torus points splatted into a 128^3
+    grid (extent 3) in both modes: the densities, the weighted colour sums
+    and their gradients to the points and colours against float64 (and the
+    rescaled colours where the density is at least P2V_RESCALED_DENSITY);
+    then add_pointclouds_to_volumes' volume in each mode rendered by
+    VolumeRenderer at 256^2, 128 points, for the 8 azimuths (perspective
+    cameras at points-serving's distance and elevation)."""
+    import torch
+
+    from pytorch3d_tpu_torch.ops import add_points_features_to_volume_densities_features
+    from pytorch3d_tpu_torch.renderer import (
+        EmissionAbsorptionRaymarcher,
+        FoVPerspectiveCameras,
+        NDCMultinomialRaysampler,
+        VolumeRenderer,
+        look_at_view_transform,
+    )
+    from pytorch3d_tpu_torch.structures import Volumes
+
+    cloud, _ = colored_points_scene(device)
+    pts, rgb = cloud.points_padded(), cloud.features_padded()
+    empty = Volumes.create(torch.zeros((1, 1, P2V_GRID, P2V_GRID, P2V_GRID), device=device),
+                           torch.zeros((1, 3, P2V_GRID, P2V_GRID, P2V_GRID), device=device),
+                           voxel_size=VOL_EXTENT / P2V_GRID, device=device)
+    R, T = look_at_view_transform(dist=3.0, elev=25.0, azim=torch.tensor(PTS_AZIMUTHS, device=device), device=device)
+    cams = FoVPerspectiveCameras.create(R=R, T=T, znear=0.1, device=device)
+    renderer = VolumeRenderer(
+        NDCMultinomialRaysampler(image_width=P2V_IMAGE, image_height=P2V_IMAGE, n_pts_per_ray=P2V_POINTS,
+                                 min_depth=P2V_DEPTH[0], max_depth=P2V_DEPTH[1]),
+        EmissionAbsorptionRaymarcher(),
+    )
+    gen = torch.Generator(device=device).manual_seed(9)
+    cot = [torch.randn((1, c, P2V_GRID, P2V_GRID, P2V_GRID), generator=gen, device=device) for c in (3, 1)]
+    # Both runs splat the same local coordinates (the float32 transform's):
+    # the float64 run checks the splat's arithmetic, not the transform's.
+    local = empty.world_to_local_coords(pts).detach()
+    reset_counts()
+    for mode in ("trilinear", "nearest"):
+        results = {}
+        for dtype in (torch.float32, torch.float64):
+            p = local.to(dtype).detach().requires_grad_(True)
+            f = rgb.to(dtype).detach().requires_grad_(True)
+            grid = empty.to(dtype=dtype)
+            args = (p, f, grid.densities(), grid.features())
+            raw, dens = add_points_features_to_volume_densities_features(*args, mode=mode, rescale_features=False)
+            torch.autograd.backward([raw, dens], [c.to(dtype) for c in cot])
+            with torch.no_grad():
+                rescaled = add_points_features_to_volume_densities_features(*args, mode=mode)[0]
+            zero = torch.zeros_like(p)  # nearest: the points get no gradient
+            results[dtype] = (dens.detach(), raw.detach(), rescaled, f.grad, zero if p.grad is None else p.grad)
+        (d32, r32, s32, gf32, gp32), (d64, r64, s64, gf64, gp64) = results[torch.float32], results[torch.float64]
+        dense = (d64 >= P2V_RESCALED_DENSITY).expand_as(s64)
+        errs = {"densities": max_ratio(d32, d64), "weighted colour sums": max_ratio(r32, r64),
+                "d colours": max_ratio(gf32, gf64), "d points": max_ratio(gp32, gp64),
+                "rescaled colours": float((s32.double() - s64)[dense].abs().max())}
+        log(f"points-to-volume [{mode}]: {pts.shape[1]} points into {P2V_GRID}^3 against float64 on the same local"
+            f" coordinates, max|diff| over each max: {', '.join(f'{k} {v:.3e}' for k, v in errs.items())} (the"
+            f" rescaled colours absolute, on the {int(dense[:, 0].sum())} voxels of density >= "
+            f"{P2V_RESCALED_DENSITY:g}; gates {P2V_VALUE_GATE:g} values, {P2V_GRAD_GATE:g} gradients and rescaled)")
+        check(errs["densities"] <= P2V_VALUE_GATE and errs["weighted colour sums"] <= P2V_VALUE_GATE,
+              f"points-to-volume [{mode}]: the splat is off float64: {errs}")
+        check(max(errs["d colours"], errs["d points"], errs["rescaled colours"]) <= P2V_GRAD_GATE,
+              f"points-to-volume [{mode}]: off float64: {errs}")
+        del results, d32, r32, s32, gf32, gp32, d64, r64, s64, gf64, gp64
+    torch.cuda.empty_cache()
+    from pytorch3d_tpu_torch.ops import add_pointclouds_to_volumes
+
+    for mode in ("trilinear", "nearest"):
+        with torch.no_grad():
+            volume, splat_ms = timed_ms(lambda: add_pointclouds_to_volumes(cloud, empty, mode=mode))
+            batch = volume.replace(_densities=volume.densities().expand(len(cams), -1, -1, -1, -1),
+                                   _features=volume.features().expand(len(cams), -1, -1, -1, -1))
+            (images, _), render_ms = timed_ms(lambda: renderer(cameras=cams, volumes=batch))
+            render_again = sorted(timed_ms(lambda: renderer(cameras=cams, volumes=batch))[1] for _ in range(3))
+        opacity = images[..., 3]
+        log(f"points-to-volume [{mode}]: occupied voxels {int((volume.densities() > 0).sum())}; render of"
+            f" {len(cams)} views at {P2V_IMAGE}^2 x {P2V_POINTS} points: opacity max {float(opacity.max()):.4f}, covered"
+            f" pixels {float((opacity > 0.01).double().mean()):.4f}")
+        log(f"times [points-to-volume {mode}, {card}] splat {splat_ms:.3f} ms (first call), render of {len(cams)}"
+            f" views median {render_again[1]:.3f} ms (first {render_ms:.3f})")
+        check(images.shape == (len(cams), P2V_IMAGE, P2V_IMAGE, 4) and bool(torch.isfinite(images).all()),
+              f"points-to-volume [{mode}]: render shape {tuple(images.shape)} or non-finite pixels")
+        check(float((opacity > 0.01).double().mean()) > 0.01, f"points-to-volume [{mode}]: the render is empty")
+    profile("points-to-volume render", lambda: renderer(cameras=cams, volumes=batch), 1)
+    del images, batch, volume
+    torch.cuda.empty_cache()
+    return read_counts()
+
+
+def phase_point_mesh_distance(device, card):
+    """chamfer-fit's shapes (examples/deform_source_mesh.py): ico_sphere(4)
+    against 5000 points sampled from the target torus; point_mesh_face_distance,
+    point_mesh_edge_distance and mesh_face_areas_normals forward and
+    backward against float64."""
+    import torch
+
+    from pytorch3d_tpu_torch.loss import point_mesh_edge_distance, point_mesh_face_distance
+    from pytorch3d_tpu_torch.ops import mesh_face_areas_normals
+    from pytorch3d_tpu_torch.structures import Pointclouds
+    from pytorch3d_tpu_torch.utils import ico_sphere
+
+    mesh = ico_sphere(4, device=device)
+    _, target = chamfer_clouds(device)
+    verts, faces = mesh.verts_padded()[0], mesh.faces_padded()[0]
+    cloud = Pointclouds.create(target, device=device)
+    reset_counts()
+    for name, fn in (("face", point_mesh_face_distance), ("edge", point_mesh_edge_distance)):
+        results = {}
+        for dtype in (torch.float32, torch.float64):
+            v = verts.detach().to(dtype).requires_grad_(True)
+            p = target.detach().to(dtype).requires_grad_(True)
+            loss, ms = timed_ms(lambda: fn(mesh.update_padded(v[None]), cloud.update_padded(p)))
+            _, back_ms = timed_ms(loss.backward)
+            results[dtype] = (loss.detach(), v.grad, p.grad, ms, back_ms)
+            del loss
+            torch.cuda.empty_cache()
+        (l32, gv32, gp32, ms, back_ms), (l64, gv64, gp64, _, _) = results[torch.float32], results[torch.float64]
+        value = float((l32.double() - l64).abs() / l64.abs())
+        shares = {"verts": row_share(gv32, gv64, PMD_GRAD_GATE), "points": row_share(gp32, gp64, PMD_GRAD_GATE)}
+        log(f"point-mesh-distance [{name}]: {len(target[0])} points, {len(faces)} faces: value {float(l32):.6e},"
+            f" {value:.3e} off float64 (gate {PMD_VALUE_GATE:g}); gradient rows within {PMD_GRAD_GATE:g} of the"
+            f" largest: {shares} (gate {PMD_ROW_SHARE}); max off {max_ratio(gv32, gv64):.3e} (verts),"
+            f" {max_ratio(gp32, gp64):.3e} (points)")
+        log(f"times [point_mesh_{name}_distance, {card}] forward {ms:.3f} ms, backward {back_ms:.3f} ms (float32,"
+            f" the first call)")
+        check(value <= PMD_VALUE_GATE, f"point-mesh-distance [{name}]: {value:.3e} off float64")
+        check(all(s >= PMD_ROW_SHARE for s in shares.values()), f"point-mesh-distance [{name}]: gradients {shares}")
+        del results, gv32, gp32, gv64, gp64
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device=device).manual_seed(10)
+    wa = torch.randn(len(faces), generator=gen, device=device, dtype=torch.float64)
+    wn = torch.randn((len(faces), 3), generator=gen, device=device, dtype=torch.float64)
+    results = {}
+    for dtype in (torch.float32, torch.float64):
+        v = verts.detach().to(dtype).requires_grad_(True)
+        areas, normals = mesh_face_areas_normals(v, faces)
+        ((areas * wa.to(dtype)).sum() + (normals * wn.to(dtype)).sum()).backward()
+        results[dtype] = (areas.detach(), normals.detach(), v.grad)
+    errs = [max_ratio(a, b) for a, b in zip(results[torch.float32], results[torch.float64])]
+    log(f"mesh_face_areas_normals: {len(faces)} faces against float64: areas {errs[0]:.3e}, normals {errs[1]:.3e},"
+        f" vertex gradient {errs[2]:.3e} of each max (gate {PMD_VALUE_GATE:g})")
+    check(max(errs) <= PMD_VALUE_GATE, f"mesh_face_areas_normals off float64: {errs}")
+    return read_counts()
+
+
 def kernel_rows(launches, errors, fine, grad, knn_t, points, points_grad, mlp, mlp_grad, field, field_grad, slice5):
     rows = []
     fused = "pytorch3d_tpu_torch/csrc/fused_mlp.cu"
@@ -5052,6 +5683,21 @@ def main() -> int:
             for kernel, n in counts.items():
                 launches[kernel] += n
         log(f"launches by path (slice 13): {slice13}; summed over every path {launches}")
+        slice14 = {}
+        phase = "training: volume-fit"
+        slice14["volume-fit"] = phase_volume_fit(device, card)
+        phase = "training: implicit-nerf"
+        slice14["implicit-nerf"] = phase_implicit_nerf(device, card)
+        phase = "training: nerf-remat"
+        slice14["nerf-remat"] = phase_nerf_remat(device, nerf, card)
+        phase = "points-to-volume"
+        slice14["points-to-volume"] = phase_points_to_volume(device, card)
+        phase = "point-mesh-distance"
+        slice14["point-mesh-distance"] = phase_point_mesh_distance(device, card)
+        for counts in slice14.values():
+            for kernel, n in counts.items():
+                launches[kernel] += n
+        log(f"launches by path (slice 14): {slice14}; summed over every path {launches}")
         kernels = kernel_rows(launches, errors, fine, grad, knn_t, points_t, points_grad_t, *nerf_t, slice5)
     except Exception as e:  # report which phase failed, then exit non-zero
         import traceback

@@ -10,7 +10,8 @@ state is its sphere table (positions, colours, radii, opacities), which
 passes across as float32 arrays.  The NeRF
 model's weights convert between a flax `RadianceFieldRenderer` param tree
 (as nested dicts of numpy arrays) and the port's `state_dict`, and a flax
-`LinearWithRepeat`'s into the port's module.
+`LinearWithRepeat`'s into the port's module.  A `Volumes`' densities,
+features and locator pass across as float32 arrays.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from .renderer.fisheyecameras import FishEyeCameras
 from .renderer.lighting import AmbientLights, DirectionalLights, PointLights
 from .renderer.materials import Materials
 from .renderer.mesh.textures import TexturesAtlas, TexturesUV, TexturesVertex
-from .structures import Meshes, Pointclouds
+from .structures import Meshes, Pointclouds, Volumes
 
 Device = Union[str, torch.device]
 Arrays = Union[np.ndarray, Sequence[np.ndarray]]
@@ -244,6 +245,28 @@ def fisheye_cameras_from_numpy(
         radial_params=_own(radial_params), tangential_params=_own(tangential_params),
         thin_prism_params=_own(thin_prism_params), R=_own(R), T=_own(T), world_coordinates=world_coordinates,
         use_radial=use_radial, use_tangential=use_tangential, use_thin_prism=use_thin_prism, device=device,
+    )
+
+
+def volumes_from_numpy(
+    densities: np.ndarray,
+    features: Optional[np.ndarray] = None,
+    voxel_size: Union[float, np.ndarray] = 1.0,
+    volume_translation: Union[Sequence[float], np.ndarray] = (0.0, 0.0, 0.0),
+    align_corners: bool = True,
+    device: Device = DEFAULT_DEVICE,
+) -> Volumes:
+    """Volumes from densities (N, C_d, D, H, W), optional features
+    (N, C_f, D, H, W), voxel sizes (a scalar, (N,), (3,) or (N, 3)) and
+    translations ((3,) or (N, 3)): a JAX `Volumes`' `densities()`,
+    `features()`, `locator.voxel_size` and `locator.volume_translation`.
+    Both packages' grids take align_corners=True only."""
+    if not align_corners:
+        raise ValueError("Volumes take align_corners=True only, in both packages")
+    return Volumes.create(
+        torch.from_numpy(_own(densities)), None if features is None else torch.from_numpy(_own(features)),
+        voxel_size=torch.as_tensor(_own(voxel_size)), volume_translation=torch.as_tensor(_own(volume_translation)),
+        device=device,
     )
 
 

@@ -9,8 +9,16 @@ from the caller as a dict, so a test can hand in the numbers the JAX
 package drew from its key.  Both fields run the fused NeRF field (kernels
 #12/#13 on the card) unless `use_fused_kernel=False`.
 
-Left for later slices: `remat` (activation checkpointing), dtypes other
-than float32 and `ray_sharding`; each raises NotImplementedError.
+`remat=True` checkpoints each field call (`_RematField`): the forward
+keeps only the call's inputs and runs the field without autograd (on the
+card #12's serving build, which stores nothing), and the backward runs it
+again with autograd (#12's saving build) and takes the gradients from that
+(#13 on what the saving build stored).  So a training step launches #12
+four times instead of two, and holds no field activations between its
+forward and backward.
+
+Left for later slices: dtypes other than float32 and `ray_sharding`; each
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -27,6 +35,36 @@ from .raysampler import NeRFRaysampler, ProbabilisticRaysampler
 from .utils import calc_mse, calc_psnr, sample_images_at_mc_locs
 
 Device = Union[str, torch.device]
+
+
+class _RematField(torch.autograd.Function):
+    """One checkpointed field call: `field(bundle, std, noise)` run without
+    autograd in the forward and again with it in the backward."""
+
+    @staticmethod
+    def forward(ctx, field, bundle, density_noise_std, noise, *params):
+        ctx.field, ctx.bundle, ctx.std, ctx.noise, ctx.params = field, bundle, density_noise_std, noise, params
+        with torch.no_grad():
+            return field(bundle, density_noise_std, noise=noise)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        params = ctx.params
+        with torch.enable_grad():
+            outs = ctx.field(ctx.bundle, ctx.std, noise=ctx.noise)
+        wanted = [p for p in params if p.requires_grad]
+        got = iter(torch.autograd.grad(outs, wanted, grads, allow_unused=True))
+        ctx.field = ctx.bundle = ctx.noise = ctx.params = None
+        return (None, None, None, None, *(next(got) if p.requires_grad else None for p in params))
+
+
+def _field_call(field, bundle, density_noise_std, noise, remat):
+    """(densities, colours) of `field` on `bundle`, checkpointed with remat
+    when autograd records the call."""
+    params = tuple(field.parameters())
+    if remat and torch.is_grad_enabled() and any(p.requires_grad for p in params):
+        return _RematField.apply(field, bundle, density_noise_std, noise, *params)
+    return field(bundle, density_noise_std, noise=noise)
 
 
 class RadianceFieldRenderer(nn.Module):
@@ -58,13 +96,12 @@ class RadianceFieldRenderer(nn.Module):
         """`generator` (on `device`) draws the initial weights: xavier-uniform
         kernels and zero biases, as flax initialises them."""
         super().__init__()
-        if remat:
-            raise NotImplementedError("remat (activation checkpointing) waits for a later slice of the port")
         if dtype != torch.float32:
             raise NotImplementedError("the port's NeRF runs in float32 only so far")
         self.n_pts_per_ray = n_pts_per_ray
         self.n_pts_per_ray_fine = n_pts_per_ray_fine
         self.density_noise_std = density_noise_std
+        self.remat = remat
         self.register_buffer("bg_color", torch.tensor(bg_color, dtype=torch.float32, device=device), persistent=False)
         field = dict(
             n_harmonic_functions_xyz=n_harmonic_functions_xyz, n_harmonic_functions_dir=n_harmonic_functions_dir,
@@ -146,15 +183,15 @@ class RadianceFieldRenderer(nn.Module):
             u_xy=draws.get("xy"), u_jiggle=draws.get("jiggle"),
         )
         bg = self.bg_color
-        densities, colors = self._renderer_coarse_field(
-            ray_bundle, self.density_noise_std, noise=draws.get("noise_coarse")
+        densities, colors = _field_call(
+            self._renderer_coarse_field, ray_bundle, self.density_noise_std, draws.get("noise_coarse"), self.remat
         )
         rgb_coarse, weights = self._raymarcher(densities, colors)
         rgb_coarse = rgb_coarse + (1.0 - weights.sum(dim=-1, keepdim=True)) * bg
 
         bundle_fine = self._raysampler_fine(ray_bundle, weights.detach(), training=training, u=draws.get("pdf"))
-        densities_f, colors_f = self._renderer_fine_field(
-            bundle_fine, self.density_noise_std, noise=draws.get("noise_fine")
+        densities_f, colors_f = _field_call(
+            self._renderer_fine_field, bundle_fine, self.density_noise_std, draws.get("noise_fine"), self.remat
         )
         rgb_fine, weights_f = self._raymarcher(densities_f, colors_f)
         rgb_fine = rgb_fine + (1.0 - weights_f.sum(dim=-1, keepdim=True)) * bg

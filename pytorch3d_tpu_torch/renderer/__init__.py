@@ -23,11 +23,19 @@ from .cameras import (
 )
 from .fisheyecameras import FishEyeCameras
 from .implicit import (
+    AbsorptionOnlyRaymarcher,
+    EmissionAbsorptionRaymarcher,
+    GridRaysampler,
     HarmonicEmbedding,
+    HeterogeneousRayBundle,
+    ImplicitRenderer,
     MonteCarloRaysampler,
     MultinomialRaysampler,
+    NDCGridRaysampler,
     NDCMultinomialRaysampler,
     RayBundle,
+    VolumeRenderer,
+    VolumeSampler,
     ray_bundle_to_ray_points,
     ray_bundle_variables_to_ray_points,
     sample_pdf,

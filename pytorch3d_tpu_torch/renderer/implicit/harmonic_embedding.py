@@ -1,7 +1,8 @@
 """Harmonic (positional) embedding (port of
-pytorch3d_tpu/renderer/implicit/harmonic_embedding.py).
-
-The integrated embedding of mip-NeRF (`diag_cov`) waits for a later slice.
+pytorch3d_tpu/renderer/implicit/harmonic_embedding.py), with the
+integrated embedding of mip-NeRF: given the diagonal of each point's
+covariance, every sine and cosine of frequency f is damped by
+exp(-f^2 var / 2), its expectation under that Gaussian.
 """
 
 from __future__ import annotations
@@ -38,11 +39,16 @@ class HarmonicEmbedding:
         return self._on_device[key]
 
     def __call__(self, x: torch.Tensor, diag_cov: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x (..., D) -> (..., D * 2 * n_harmonic_functions [+ D])."""
+        """x (..., D) -> (..., D * 2 * n_harmonic_functions [+ D]); with
+        `diag_cov` (..., D), the variances of x, the integrated embedding."""
+        freqs = self._frequencies_like(x)
+        embed = (x[..., None] * freqs).reshape(*x.shape[:-1], -1)
+        parts = [torch.sin(embed), torch.cos(embed)]
         if diag_cov is not None:
-            raise NotImplementedError("the integrated (mip-NeRF) embedding waits for a later slice of the port")
-        embed = (x[..., None] * self._frequencies_like(x)).reshape(*x.shape[:-1], -1)
-        parts = [torch.sin(embed), torch.cos(embed)] + ([x] if self.append_input else [])
+            atten = torch.exp(-0.5 * (diag_cov[..., None] * freqs**2).reshape(*x.shape[:-1], -1))
+            parts = [p * atten for p in parts]
+        if self.append_input:
+            parts.append(x)
         return torch.cat(parts, dim=-1)
 
     @staticmethod

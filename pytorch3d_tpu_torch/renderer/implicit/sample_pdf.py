@@ -53,3 +53,19 @@ def sample_pdf(
     else:
         u = torch.rand(shape, generator=generator, dtype=weights.dtype, device=weights.device)
     return sample_pdf_with_draws(bins, weights, u, eps)
+
+
+def sample_pdf_python(
+    bins: torch.Tensor,
+    weights: torch.Tensor,
+    n_samples: int,
+    det: bool = False,
+    eps: float = 1e-5,
+    generator: Optional[torch.Generator] = None,
+    u: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The reference's name for `sample_pdf`; with `u` (..., n_samples),
+    the samples at those quantiles (`sample_pdf_with_draws`)."""
+    if u is not None:
+        return sample_pdf_with_draws(bins, weights, u, eps)
+    return sample_pdf(bins, weights, n_samples, det, eps, generator)

@@ -1,12 +1,14 @@
 """Ray bundles (port of pytorch3d_tpu/renderer/implicit/utils.py).
 
-`RayBundle` is a plain dataclass of tensors; the heterogeneous bundle of
-rays from several cameras waits for a later slice.
+`RayBundle` is a plain dataclass of tensors; `HeterogeneousRayBundle`
+adds, for rays drawn from several cameras (`n_rays_total`), which camera
+each ray came from and how many rays each camera gave.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -23,6 +25,16 @@ class RayBundle:
 
     def replace(self, **changes) -> "RayBundle":
         return dataclasses.replace(self, **changes)
+
+
+@dataclasses.dataclass(frozen=True)
+class HeterogeneousRayBundle(RayBundle):
+    """Rays packed from several cameras: camera_ids (n_rays,) is each row's
+    camera, camera_counts (n_cameras,) the rows of each camera (every camera
+    of the batch counted, zeros included: the shapes stay static)."""
+
+    camera_ids: Optional[torch.Tensor] = None
+    camera_counts: Optional[torch.Tensor] = None
 
 
 def ray_bundle_to_ray_points(ray_bundle: RayBundle) -> torch.Tensor:

@@ -1009,3 +1009,60 @@ def test_se3_pose_gradient_through_the_grad_kernel_matches_plain(cuda_device):
     assert trc.rasterize_grad_cuda.launches == 1
     assert torch.isfinite(grads[0]).all() and grads[1].abs().max() > 0
     assert (grads[0] - grads[1]).abs().max() <= 1e-4 * grads[1].abs().max()
+
+
+def test_remat_on_the_card_equals_the_step_without_it(cuda_device):
+    """A small RadianceFieldRenderer step with remat=True against remat=False
+    on the same weights and draws: #12 launched twice per field call (the
+    serving build, then the saving build in the backward), #13 once, and the
+    gradients equal to the bit."""
+    from pytorch3d_tpu_torch.models import RadianceFieldRenderer
+
+    kw = dict(n_pts_per_ray=16, n_pts_per_ray_fine=16, n_rays_per_image=256, min_depth=1.0, max_depth=4.5,
+              n_hidden_neurons_xyz=64, n_hidden_neurons_dir=32, n_layers_xyz=4, append_xyz=(2,), device=cuda_device)
+    base = RadianceFieldRenderer(32, 32, **kw, generator=torch.Generator(device=cuda_device).manual_seed(0))
+    remat = RadianceFieldRenderer(32, 32, **kw, remat=True)
+    remat.load_state_dict(base.state_dict())
+    R, T = look_at_view_transform(2.7, 20.0, 30.0, device=cuda_device)
+    cams = FoVPerspectiveCameras.create(R=R, T=T, device=cuda_device)
+    image = torch.rand((1, 32, 32, 3), generator=torch.Generator(device=cuda_device).manual_seed(1),
+                       device=cuda_device)
+    draws = base.make_draws(1, True, torch.Generator(device=cuda_device).manual_seed(2))
+    grads, launches = [], []
+    for model in (base, remat):
+        before = (tfm.nerf_field_cuda.launches, tfm.nerf_field_grad_cuda.launches)
+        _, m = model(cams, image=image, training=True, draws=draws)
+        (m["mse_coarse"] + m["mse_fine"]).backward()
+        torch.cuda.synchronize()
+        launches.append((tfm.nerf_field_cuda.launches - before[0], tfm.nerf_field_grad_cuda.launches - before[1]))
+        grads.append({n: p.grad for n, p in model.named_parameters()})
+    assert launches == [(2, 2), (4, 2)]
+    assert all(torch.equal(grads[0][n], grads[1][n]) for n in grads[0])
+
+
+def test_implicit_renderer_through_the_field_kernels_matches_plain(cuda_device):
+    """ImplicitRenderer around NeuralRadianceField on the card: the image and
+    the weights' gradients through #12 and #13 against use_fused_kernel=False
+    (the plain chain) on the same rays."""
+    from pytorch3d_tpu_torch.models import NeuralRadianceField
+    from pytorch3d_tpu_torch.renderer import EmissionAbsorptionRaymarcher, ImplicitRenderer, MonteCarloRaysampler
+
+    field = NeuralRadianceField(n_hidden_neurons_xyz=64, n_hidden_neurons_dir=32, n_layers_xyz=4, append_xyz=(2,),
+                                device=cuda_device, generator=torch.Generator(device=cuda_device).manual_seed(0))
+    renderer = ImplicitRenderer(MonteCarloRaysampler(-1.0, 1.0, -1.0, 1.0, 200, 32, 1.0, 4.5),
+                                EmissionAbsorptionRaymarcher())
+    R, T = look_at_view_transform(2.7, 20.0, torch.tensor([0.0, 90.0]), device=cuda_device)
+    cams = FoVPerspectiveCameras.create(R=R, T=T, device=cuda_device)
+    out = []
+    before = (tfm.nerf_field_cuda.launches, tfm.nerf_field_grad_cuda.launches)
+    for fused in (True, False):
+        field.use_fused_kernel = fused
+        field.zero_grad(set_to_none=True)
+        images, _ = renderer(cameras=cams, volumetric_function=field,
+                             generator=torch.Generator(device=cuda_device).manual_seed(1))
+        (images ** 2).sum().backward()
+        out.append((images.detach(), {n: p.grad.clone() for n, p in field.named_parameters()}))
+    assert (tfm.nerf_field_cuda.launches - before[0], tfm.nerf_field_grad_cuda.launches - before[1]) == (1, 1)
+    assert float((out[0][0] - out[1][0]).abs().max()) <= 1e-5
+    for n, g in out[1][1].items():
+        assert float((out[0][1][n] - g).abs().max()) <= 1e-4 * float(g.abs().max()), n

@@ -18,19 +18,13 @@ MODULES = ["transforms", "renderer", "renderer/mesh", "renderer/points", "render
 
 # ROADMAP.md queue 1 item -> the JAX names it brings to the port.
 NOT_YET = {
-    "3. the rest of NeRF that needs nothing of Implicitron": [
-        "AbsorptionOnlyRaymarcher", "EmissionAbsorptionRaymarcher", "GridRaysampler", "HeterogeneousRayBundle",
-        "ImplicitRenderer", "NDCGridRaysampler", "VolumeLocator", "VolumeRenderer", "VolumeSampler", "Volumes",
-        "sample_pdf_python",
-    ],
+    "3. the rest of NeRF that needs nothing of Implicitron": [],
     "4. the remaining ops and losses": [
-        "GraphConv", "SubdivideMeshes", "add_pointclouds_to_volumes",
-        "add_points_features_to_volume_densities_features", "ball_query", "box3d_overlap",
-        "corresponding_cameras_alignment", "corresponding_points_alignment", "cubify", "efficient_pnp",
-        "gather_scatter", "gather_scatter_python", "interpolate_face_attributes_python", "iterative_closest_point",
-        "marching_cubes", "marching_cubes_naive", "mesh_face_areas_normals", "point_mesh_edge_distance",
-        "point_mesh_face_distance", "rasterize_points_python", "sample_farthest_points",
-        "sample_farthest_points_naive", "taubin_smoothing", "vert_align",
+        "GraphConv", "SubdivideMeshes", "ball_query", "box3d_overlap", "corresponding_cameras_alignment",
+        "corresponding_points_alignment", "cubify", "efficient_pnp", "gather_scatter", "gather_scatter_python",
+        "interpolate_face_attributes_python", "iterative_closest_point", "marching_cubes", "marching_cubes_naive",
+        "rasterize_points_python", "sample_farthest_points", "sample_farthest_points_naive", "taubin_smoothing",
+        "vert_align",
     ],
 }
 _QUEUED = {name: item for item, names in NOT_YET.items() for name in names}

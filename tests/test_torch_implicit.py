@@ -87,8 +87,10 @@ def test_harmonic_embedding(n_harmonics, append):
     # sin/cos of arguments up to 3 * 2^5 = 96: 1e-6 of the values' magnitude
     # plus the ulp of the argument (~8e-6 at 96).
     _close(got, want, 1e-5)
-    with pytest.raises(NotImplementedError):
-        emb(torch.tensor(x), diag_cov=torch.ones(5, 7, 3))
+    # the integrated (mip-NeRF) embedding: each sin / cos damped by exp(-f^2 var / 2)
+    var = np.random.RandomState(1).uniform(0, 0.01, (5, 7, 3)).astype(np.float32)
+    _close(emb(torch.tensor(x), diag_cov=torch.tensor(var)),
+           JEmbed(n_harmonics, append_input=append)(jnp.asarray(x), diag_cov=jnp.asarray(var)), 1e-5)
 
 
 def test_ray_bundle_to_ray_points():

@@ -259,7 +259,11 @@ def test_weights_round_trip(graft_entry):
 
 
 def test_left_out_options_raise():
-    with pytest.raises(NotImplementedError):
-        RadianceFieldRenderer(32, 32, **TINY, remat=True, device="cpu")
+    """bf16 and ray sharding still raise; remat is ported
+    (tests/test_torch_implicit_renderer.py)."""
+    assert RadianceFieldRenderer(32, 32, **TINY, remat=True, device="cpu").remat
     with pytest.raises(NotImplementedError):
         RadianceFieldRenderer(32, 32, **TINY, dtype=torch.bfloat16, device="cpu")
+    model = RadianceFieldRenderer(32, 32, **TINY, device="cpu")
+    with pytest.raises(NotImplementedError):
+        model(_port_cameras(graft._tiny_inputs()[0]), training=False, ray_sharding=object())
