@@ -93,7 +93,8 @@ final result line:
    a NeRF frame and training steps; #2, #3, #6 and #8 by the profiler's
    device time beside their plain versions and bounds (#8 also beside
    autograd of the plain blend), the pulsar request, the mesh-gl frame
-   and profiles of both and of pulsar-fit steps.
+   and profiles of both and of pulsar-fit steps; the band builds of #1 and
+   #4 at band-raster's splits (slice 15) by the profiler's device time.
 10. slice 12, after the times: the rest of the mesh path through #1 and
     #4 (PyTorch3D's tutorial render_textured_meshes.ipynb with
     ico_sphere(4) in cow.obj's place): mesh-uv-serving renders 20 views
@@ -143,6 +144,18 @@ final result line:
     float64) and renders each volume at 256^2 for 8 azimuths;
     point-mesh-distance runs the face and edge distances and
     mesh_face_areas_normals at chamfer-fit's shapes against float64.
+13. slice 15, after slice 14: the row-band rasterizer and the parallel
+    package, then ICP, EPnP, camera alignment, farthest point sampling and
+    ball query: band-raster runs the headline in 4 bands of 128 rows, and
+    480^2 in 4 bands of 120, through `rasterize_fragments_band_cuda` (the
+    band builds of #1 and #4), each band equal to the bit to the full
+    image's rows; sharded-raster runs `sharded_silhouette_loss_and_grad`
+    in a world-1 NCCL group here and in 2 gloo ranks spawned on the card;
+    sharded-nerf takes 10 steps of the NeRF step on a (1, 2) mesh of
+    spawned gloo ranks (#12, #13 on both), step 0 against the
+    single-device step; alignment-ops runs ICP through #9 on
+    points-serving's 8 clouds against the plain KNN route, farthest point
+    sampling, ball query, EPnP and camera alignment against float64.
 
 The last lines are a `{"kernels": [...]}` JSON line and then
 `{"ok": true, "device": {...}}`.  Without CUDA, or outside a checkout of
@@ -178,6 +191,7 @@ PEAK_TF32X3_OPS_PER_S = 495e12 / 3
 KERNELS = ("rasterize_fine", "rasterize_grad", "knn", "rasterize_points", "rasterize_points_grad",
            "fused_mlp", "fused_mlp_grad", "nerf_field", "nerf_field_grad",
            "rasterize_topk", "rasterize_hard", "select_points", "pulsar_grad")
+BAND_KERNELS = ("rasterize_fine_band", "rasterize_grad_band")  # #1 and #4 over a band of rows (slice 15)
 # The device kernels of #4 and #7 (pass 1, pass 2), whose device times make their times.
 GRAD_KERNELS = ("rasterize_grad_tiles_kernel", "rasterize_grad_faces_kernel")
 POINTS_GRAD_KERNELS = ("rasterize_points_grad_tiles_kernel", "rasterize_points_grad_points_kernel")
@@ -339,6 +353,8 @@ def _counters():
         "pulsar_grad": rpc.pulsar_blend_grads_cuda,
         "rasterize_fine": rc.rasterize_fragments_cuda,
         "rasterize_grad": rc.rasterize_grad_cuda,
+        "rasterize_fine_band": rc.rasterize_fragments_band_cuda,
+        "rasterize_grad_band": rc.rasterize_grad_band_cuda,
         "knn": knn.knn_points_cuda,
         "rasterize_points": rpc.rasterize_points_cuda,
         "rasterize_points_grad": rpc.rasterize_points_grad_cuda,
@@ -460,6 +476,13 @@ def row_ok(frac, err):
     # that wrote 0 or the wrong sign.  1e-6, a hundredth of the main path's
     # blur, leaves room for rounding alone.
     return frac > 0.999 and err["zbuf"] < 5e-3 and err["bary"] <= 1e-4 and err["dists"] <= DISTS_ATOL
+
+
+def headline_loss(zbuf, dists):
+    """bench.py:117-119's loss."""
+    import torch
+
+    return torch.sum(torch.sigmoid(-dists / 1e-4)) * 1e-6 + torch.sum(zbuf) * 1e-6
 
 
 def headline_cotangents(zbuf, dists):
@@ -1471,7 +1494,7 @@ def phase_headline(device):
             mesh_ndc.update_padded(v), image_size=IMAGE, blur_radius=BLUR, faces_per_pixel=K,
             bin_size=bin_size,
         )
-        loss = torch.sum(torch.sigmoid(-dists / 1e-4)) * 1e-6 + torch.sum(zbuf) * 1e-6
+        loss = headline_loss(zbuf, dists)
         loss.backward()
         return loss.detach(), v.grad
 
@@ -2462,7 +2485,6 @@ class NeRFScene:
         import numpy as np
         import torch
 
-        from pytorch3d_tpu_torch.models import RadianceFieldRenderer
         from pytorch3d_tpu_torch.parallel import make_nerf_train_step
 
         data = np.load(NERF_DATA)
@@ -2473,11 +2495,7 @@ class NeRFScene:
         self.fov, self.znear, self.zfar = float(data["fov"]), float(data["znear"]), float(data["zfar"])
         self.test_idx = [int(i) for i in data["test_idx"]]
         self.train_idx = [i for i in range(len(self.images)) if i not in self.test_idx]
-        self.model = RadianceFieldRenderer(
-            image_width=NERF_FRAME, image_height=NERF_FRAME, n_pts_per_ray=64, n_pts_per_ray_fine=64,
-            n_rays_per_image=NERF_RAYS, min_depth=self.znear, max_depth=self.zfar, bg_color=(1.0, 1.0, 1.0),
-            device=device, generator=torch.Generator(device=device).manual_seed(0),
-        )
+        self.model = nerf_model(device, 0)
         self.optimizer = torch.optim.Adam(self.model.parameters(), lr=NERF_LR)
         self.step = make_nerf_train_step(self.model, self.optimizer)
         self.generator = torch.Generator(device=device).manual_seed(1)
@@ -5528,7 +5546,595 @@ def phase_point_mesh_distance(device, card):
     return read_counts()
 
 
-def kernel_rows(launches, errors, fine, grad, knn_t, points, points_grad, mlp, mlp_grad, field, field_grad, slice5):
+# --------------------------------------------------------------------------- #
+# Slice 15: the row-band rasterizer, the parallel package, ICP, EPnP, camera
+# alignment, farthest point sampling and ball query
+# --------------------------------------------------------------------------- #
+
+BAND_SPLITS = ((IMAGE, 4), (480, 4))  # (image side, bands): 4 x 128 rows of the headline, and 4 x 120
+# The summed band gradients against the full image's #4, as the JAX package
+# holds its 8-device dry run (__graft_entry__.py:148-149, :206-207).
+BAND_GRAD_ATOL = 1e-7
+BAND_GRAD_RTOL = 1e-4
+SHARD_LOSS_RTOL = 1e-5
+SHARD_RANKS = 2  # gloo ranks spawned on the one card (NCCL takes one rank a card)
+SHARD_NERF_STEPS = 10
+# Step 0 of the sharded NeRF step against the single-device step on the same
+# draws: tests/test_parallel.py:69-77's tolerances.
+SHARD_NERF_LOSS_RTOL = 1e-5
+SHARD_NERF_RTOL = 1e-4
+SHARD_NERF_ATOL = 1e-6
+ICP_ITERATIONS = 20
+ICP_ANGLE = 0.1  # radians of each cloud's rotation
+FPS_K = 1024
+FPS_GATE = 1e-5  # each pick's float64 distance to the earlier picks within this of the farthest, relative
+BALL_K = 64
+BALL_RADIUS = 0.1
+BALL_SHARE = 0.9999  # slots whose ids agree with float64 (a point within rounding of the radius may flip)
+ALIGN_GATE = 1e-4  # camera alignment: max |float32 - float64| <= gate * max |float64|
+# EPnP's float32 against float64: its 12-column system sums ~5000 points'
+# constraints in float32 (a CPU rehearsal of this phase read 2.2e-4).
+EPNP_GATE = 1e-3
+ALIGN_TRUTH = 1e-3  # EPnP's and the camera alignment's R, T against the transform the inputs were made with
+
+
+def band_box_tests(fv, valid, size, blur, row0, rows):
+    """`face_box_tests` over the pixel rows [row0, row0 + rows) only."""
+    import torch
+
+    from pytorch3d_tpu_torch.renderer.mesh.rasterize_meshes import _face_culls, pixel_grid_ndc
+
+    grow = math.sqrt(blur) if blur > 0 else 0.0
+    x, y = fv[..., 0], fv[..., 1]
+    live = _face_culls(fv, valid, False)
+    ys, xs = pixel_grid_ndc(*size, fv.device)
+    ys, xs = ys[row0 : row0 + rows].flip(0).contiguous(), xs.flip(0).contiguous()  # ascending
+
+    def inside(centres, lo, hi):
+        return (torch.searchsorted(centres, hi[live].contiguous(), right=True)
+                - torch.searchsorted(centres, lo[live].contiguous(), right=False)).clamp(min=0)
+
+    return float((inside(xs, x.amin(-1) - grow, x.amax(-1) + grow)
+                  * inside(ys, y.amin(-1) - grow, y.amax(-1) + grow)).double().sum())
+
+
+def band_bound(fv, valid, bins, size, row0, rows, blur, k):
+    """#1's least time over a band: the face verts, its tile lists and the
+    pixel coordinates read once, its slots (24 B) written once, against its
+    rows' box tests x the fine kernel's operations per test."""
+    N, F = fv.shape[:2]
+    tests = band_box_tests(fv, valid, size, blur, row0, rows)
+    nbytes = N * F * 36 + bins[0].numel() * 4 + bins[1].numel() * 4 + (size[0] + size[1]) * 4
+    nbytes += N * rows * size[1] * k * 24
+    return (*bound_of(nbytes, tests * fine_ops_per_candidate(False, False)), tests)
+
+
+def phase_band_raster(device, card):
+    """bench.py's headline (ico_sphere(4), 512^2, K=8, blur 1e-4, azimuth 30,
+    elevation 20, dist 2.7) rasterized in 4 bands of 128 rows through
+    `rasterize_fragments_band_cuda`, forward and the headline loss's backward
+    (the band builds of #1 and #4); then 480^2 in 4 bands of 120 rows, off
+    the 16-row tile grid.  Gates: each band's four outputs equal to the bit
+    to those rows of `rasterize_fragments_cuda` on the full image, and to
+    the plain band version (ids equal, values within the #1 gate); the
+    bands' gradients, summed in band order, within atol 1e-7 / rtol 1e-4 of
+    the full image's #4 and within #4's gate of the float64 plain version;
+    two band backward launches bit-equal."""
+    import torch
+
+    from pytorch3d_tpu_torch.renderer.mesh import rasterize_cuda as rc
+    from pytorch3d_tpu_torch.renderer.mesh.rasterize_meshes import _face_culls, rasterize_grad_plain
+    from pytorch3d_tpu_torch.utils import ico_sphere
+
+    bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t  # noqa: E731
+    paths, fine_err, grad_err = {}, 0.0, 0.0
+    for side, n in BAND_SPLITS:
+        size, h = (side, side), side // n
+        with torch.no_grad():
+            fv, valid = face_inputs(ico_sphere(4, device=device), camera(30.0, device), size)
+        # The path: n bands through the entry point, the headline loss's
+        # backward after each (its gradient accumulates in band order).
+        torch.cuda.synchronize()
+        reset_counts()
+        v = fv.clone().requires_grad_(True)
+        bands = []
+        for b in range(n):
+            out = rc.rasterize_fragments_band_cuda(v, valid, b * h, h, size, BLUR, K)
+            headline_loss(out[1], out[3]).backward()
+            bands.append([t.detach() for t in out])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        paths[f"band-raster {side}"] = counts
+        check(counts["rasterize_fine_band"] == n and counts["rasterize_grad_band"] == n
+              and counts["rasterize_fine"] == 0 and counts["rasterize_grad"] == 0,
+              f"band-raster {side}: launches {counts} for {n} bands (1 band forward + 1 band backward each)")
+        summed = v.grad
+        w = fv.clone().requires_grad_(True)
+        full = rc.rasterize_fragments_cuda(w, valid, size, BLUR, K)
+        headline_loss(full[1], full[3]).backward()
+        full = [t.detach() for t in full]
+        same = [all(torch.equal(bits(bands[b][i]), bits(full[i][:, b * h : (b + 1) * h])) for b in range(n))
+                for i in range(4)]
+        plain_ok = True
+        for b in range(n):
+            with torch.no_grad():
+                plain = rc.rasterize_fragments_band_plain(fv, valid, b * h, h, size, BLUR, K)
+            ids = torch.equal(bands[b][0].long(), plain[0])
+            err = {name: float((g - p).abs().max()) for name, g, p in zip(("zbuf", "bary", "dists"), bands[b][1:],
+                                                                          plain[1:])}
+            fine_err = max(fine_err, *err.values())
+            plain_ok = plain_ok and ids and row_ok(1.0, err)
+        close = torch.allclose(summed, w.grad, atol=BAND_GRAD_ATOL, rtol=BAND_GRAD_RTOL)
+        grad_err = max(grad_err, float((summed - w.grad).abs().max()))
+        cots = headline_cotangents(full[1], full[3])
+        want = rasterize_grad_plain(fv, full[0], *cots, size)
+        exact = rasterize_grad_plain(fv.double(), full[0], *(None if c is None else c.double() for c in cots), size)
+        _, ratio_exact = grad_error(summed.double(), exact)
+        _, ratio_plain = grad_error(want.double(), exact)
+        kernel_share, plain_share = face_agreement(summed, want, exact)
+        twice = True
+        for b in range(n):
+            bins = rc.bin_faces(fv, _face_culls(fv, valid, False), size, BLUR, (b * h, h))
+            rows = slice(b * h, (b + 1) * h)
+            cb = [None if c is None else c[:, rows].contiguous() for c in cots]
+            first = rc.rasterize_grad_band_cuda(fv, full[0][:, rows].contiguous(), *cb, b * h, size, bins)
+            second = rc.rasterize_grad_band_cuda(fv, full[0][:, rows].contiguous(), *cb, b * h, size, bins)
+            twice = twice and torch.equal(bits(first), bits(second))
+        ok = (all(same) and plain_ok and close and twice and bool(torch.isfinite(summed).all())
+              and ratio_exact <= max(GRAD_GATE, GRAD_PLAIN_FACTOR * ratio_plain) and kernel_share >= GRAD_FACE_SHARE)
+        log(f"band-raster [{side}^2 in {n} bands of {h} rows, ico4 F={fv.shape[1]} K={K} blur {BLUR:g}]: launches"
+            f" {counts}; bands equal to the bit to the full image's rows (ids, zbuf, bary, dists) {same}; against"
+            f" the plain band version: ids equal and values within the #1 gate {plain_ok}; summed band gradients"
+            f" vs the full image's #4: max|diff| {float((summed - w.grad).abs().max()):.3e} (atol {BAND_GRAD_ATOL:g},"
+            f" rtol {BAND_GRAD_RTOL:g}: {close}); vs float64 plain: {ratio_exact:.3e} of max|grad| (float32 plain"
+            f" {ratio_plain:.3e}), faces within {GRAD_GATE:g}: {kernel_share:.6f} (plain {plain_share:.6f});"
+            f" two band backward launches bit-equal {twice} -> {'ok' if ok else 'FAIL'}")
+        check(ok, f"band-raster {side}: the bands disagree (see the line above)")
+
+        frame = []
+        for _ in range(8):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                for b in range(n):
+                    rc.rasterize_fragments_band_cuda(fv, valid, b * h, h, size, BLUR, K)
+            torch.cuda.synchronize()
+            frame.append((time.perf_counter() - t0) * 1e3)
+        frame.sort()
+        log(f"times [band-raster frame {side}^2, {card}] {n} band forwards through the entry point, binning"
+            f" included: median {frame[len(frame) // 2]:.3f} ms (min {frame[0]:.3f}, max {frame[-1]:.3f})")
+        del full, bands, summed, w, v
+        torch.cuda.empty_cache()
+    return paths, {"rasterize_fine_band": fine_err, "rasterize_grad_band": grad_err}
+
+
+def band_times(device, card):
+    """The band builds of #1 and #4 at band-raster's splits: each band's
+    device time (profiler), its bound, the plain band versions' times.  Run
+    with the other kernels' times: after slice 12-14's profiles the
+    profiler drops #1's records in every window."""
+    import torch
+
+    from pytorch3d_tpu_torch.renderer.mesh import rasterize_cuda as rc
+    from pytorch3d_tpu_torch.renderer.mesh.rasterize_meshes import _face_culls, rasterize_grad_plain
+    from pytorch3d_tpu_torch.utils import ico_sphere
+
+    out = {}
+    for side, n in BAND_SPLITS:
+        size, h = (side, side), side // n
+        with torch.no_grad():
+            fv, valid = face_inputs(ico_sphere(4, device=device), camera(30.0, device), size)
+            full = rc.rasterize_fragments_cuda(fv, valid, size, BLUR, K)
+        cots = headline_cotangents(full[1], full[3])
+        fine_ms, grad_ms, bounds, grad_bounds = [], [], [], []
+        for b in range(n):
+            row_band, rows = (b * h, h), slice(b * h, (b + 1) * h)
+            bins = rc.bin_faces(fv, _face_culls(fv, valid, False), size, BLUR, row_band)
+            fine_ms.append(device_ms(lambda: rc._run_kernel(fv, bins, size, BLUR, K, False, False, row_band,
+                                                            rc.rasterize_fragments_band_cuda),
+                                     f"rasterize_fine_kernel<{fine_bucket(K)}, false>", iters=20, warmup=5))
+            idx_b = full[0][:, rows].contiguous()
+            cb = [None if c is None else c[:, rows].contiguous() for c in cots]
+            stages = device_ms_by_kernel(lambda: rc.rasterize_grad_band_cuda(fv, idx_b, *cb, b * h, size, bins),
+                                         GRAD_KERNELS)
+            grad_ms.append(sum(stages.values()))
+            bounds.append(band_bound(fv, valid, bins, size, b * h, h, BLUR, K))
+            grad_bounds.append(grad_bound(fv, idx_b, cb, False, False))
+        with torch.no_grad():
+            plain_ms = cuda_ms(lambda: rc.rasterize_fragments_band_plain(fv, valid, 0, h, size, BLUR, K), iters=2,
+                               warmup=1)
+        grad_plain_ms = cuda_ms(lambda: rasterize_grad_plain(fv, full[0][:, :h], *(None if c is None else c[:, :h]
+                                                                                  for c in cots), size), iters=2,
+                                warmup=1)
+        log(f"times [band-raster {side}^2 in {n} bands, {card}] #1 band build per band"
+            f" {[round(t, 4) for t in fine_ms]} ms (device time; bounds {[round(x[0], 5) for x in bounds]} ms by"
+            f" {bounds[0][1]}, box tests {[round(x[2] / 1e6, 3) for x in bounds]} M); #4 band build per band"
+            f" {[round(t, 4) for t in grad_ms]} ms (both passes; bounds {[round(x[0], 5) for x in grad_bounds]} ms by"
+            f" {grad_bounds[0][1]}); plain band {plain_ms:.2f} ms, plain band backward {grad_plain_ms:.2f} ms (band 0)")
+        out[side] = {
+            "fine": dict(kernel=sum(fine_ms) / n, plain=plain_ms, bound=sum(x[0] for x in bounds) / n,
+                         bound_by=bounds[0][1]),
+            "grad": dict(kernel=sum(grad_ms) / n, plain=grad_plain_ms, bound=sum(x[0] for x in grad_bounds) / n,
+                         bound_by=grad_bounds[0][1]),
+        }
+        del full
+        torch.cuda.empty_cache()
+    return out[IMAGE]
+
+
+def headline_faces(device, size=(IMAGE, IMAGE)):
+    """The headline's (F, 3, 3) NDC faces and (F,) mask."""
+    import torch
+
+    from pytorch3d_tpu_torch.utils import ico_sphere
+
+    with torch.no_grad():
+        fv, valid = face_inputs(ico_sphere(4, device=device), camera(30.0, device), size)
+    return fv[0].contiguous(), valid[0].contiguous()
+
+
+def sharded_raster_rank(rank, world, fv_np, valid_np):
+    """One rank of the spawned group: the sharded rasterizer and silhouette
+    loss on a (1, world) mesh, on the card; numpy results and the rank's
+    launch counts."""
+    import torch
+
+    from pytorch3d_tpu_torch.parallel import get_device_mesh, rasterize_fragments_shard_map
+    from pytorch3d_tpu_torch.parallel import sharded_silhouette_loss_and_grad
+
+    device = torch.device("cuda")
+    fv, valid = torch.tensor(fv_np, device=device), torch.tensor(valid_np, device=device)
+    mesh = get_device_mesh((1, world))
+    reset_counts()
+    frags = rasterize_fragments_shard_map(fv, valid, (IMAGE, IMAGE), mesh, blur_radius=BLUR, faces_per_pixel=K)
+    loss, grad = sharded_silhouette_loss_and_grad(fv, valid, (IMAGE, IMAGE), mesh, blur_radius=BLUR,
+                                                  faces_per_pixel=K)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        sharded_silhouette_loss_and_grad(fv, valid, (IMAGE, IMAGE), mesh, blur_radius=BLUR, faces_per_pixel=K)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return {"frags": [t.cpu().numpy() for t in frags], "loss": float(loss), "grad": grad.cpu().numpy(),
+            "counts": counts, "ms": sorted(ms)[2], "device": torch.cuda.get_device_name(0)}
+
+
+def phase_sharded_raster(device, card):
+    """`sharded_silhouette_loss_and_grad` and `rasterize_fragments_shard_map`
+    at the headline (ico_sphere(4), 512^2, K=8, blur 1e-4) in a world-1 NCCL
+    group in this process, then in a 2-rank gloo group spawned on the one
+    card (NCCL takes one rank a card).  Gates: the loss within rtol 1e-5 and
+    the gradient within atol 1e-7 / rtol 1e-4 between the two; the
+    fragments equal to the bit to the full image's on every rank; both
+    groups launch the band builds of #1 and #4."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from pytorch3d_tpu_torch.parallel import get_device_mesh, rasterize_fragments_shard_map
+    from pytorch3d_tpu_torch.parallel import sharded_silhouette_loss_and_grad
+    from torch_parallel_ranks import free_port, run_ranks
+    from pytorch3d_tpu_torch.renderer.mesh import rasterize_cuda as rc
+
+    size = (IMAGE, IMAGE)
+    fv, valid = headline_faces(device)
+    with torch.no_grad():
+        full = [t[0] for t in rc.rasterize_fragments_cuda(fv[None], valid[None], size, BLUR, K)]
+    bits = lambda t: t.view(np.int32) if t.dtype == np.float32 else t  # noqa: E731
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = get_device_mesh((1, 1))
+        torch.cuda.synchronize()
+        reset_counts()
+        frags = rasterize_fragments_shard_map(fv, valid, size, mesh, blur_radius=BLUR, faces_per_pixel=K)
+        loss1, grad1 = sharded_silhouette_loss_and_grad(fv, valid, size, mesh, blur_radius=BLUR, faces_per_pixel=K)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        one = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            sharded_silhouette_loss_and_grad(fv, valid, size, mesh, blur_radius=BLUR, faces_per_pixel=K)
+            torch.cuda.synchronize()
+            one.append((time.perf_counter() - t0) * 1e3)
+        one_ms = sorted(one)[2]
+    finally:
+        dist.destroy_process_group()
+    same1 = all(torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                            b.view(torch.int32) if b.dtype == torch.float32 else b) for a, b in zip(frags, full))
+    check(counts["rasterize_fine_band"] == 2 and counts["rasterize_grad_band"] == 1,
+          f"sharded-raster: launches {counts} in the world-1 group (2 band forwards, 1 band backward)")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    outs = run_ranks(sharded_raster_rank, SHARD_RANKS, "gloo", (fv.cpu().numpy(), valid.cpu().numpy()))
+    spawn_s = time.perf_counter() - t0
+    full_np = [t.cpu().numpy() for t in full]
+    g1 = grad1.cpu().numpy()
+    ok = same1 and float(grad1.abs().max()) > 0
+    for r, out in enumerate(outs):
+        same = all(np.array_equal(bits(a), bits(b)) for a, b in zip(out["frags"], full_np))
+        loss_ok = abs(out["loss"] - float(loss1)) <= SHARD_LOSS_RTOL * abs(float(loss1))
+        grad_ok = bool(np.allclose(out["grad"], g1, atol=BAND_GRAD_ATOL, rtol=BAND_GRAD_RTOL))
+        launched = out["counts"]["rasterize_fine_band"] == 2 and out["counts"]["rasterize_grad_band"] == 1
+        log(f"sharded-raster [rank {r} of {SHARD_RANKS}, gloo on {out['device']}]: fragments equal to the bit to the"
+            f" full image {same}; loss {out['loss']:.8f} vs world-1 {float(loss1):.8f} (rtol {SHARD_LOSS_RTOL:g}:"
+            f" {loss_ok}); gradient max|diff| {float(np.abs(out['grad'] - g1).max()):.3e} (atol {BAND_GRAD_ATOL:g},"
+            f" rtol {BAND_GRAD_RTOL:g}: {grad_ok}); launches {out['counts']}")
+        ok = ok and same and loss_ok and grad_ok and launched
+    log(f"sharded-raster [world-1 NCCL group]: fragments equal to the bit to the full image {same1}; loss"
+        f" {float(loss1):.8f}, max|grad| {float(grad1.abs().max()):.3e}; launches {counts}")
+    log(f"times [sharded-raster, {card}] world-1 group: loss and gradient median {one_ms:.3f} ms;"
+        f" {SHARD_RANKS}-rank gloo group on one card: loss and gradient median {[round(o['ms'], 3) for o in outs]} ms"
+        f" a rank; spawning the group and its first calls {spawn_s:.1f} s")
+    check(ok, "sharded-raster: the sharded rasterizer disagrees (see the lines above)")
+    return {"sharded-raster": counts}
+
+
+def nerf_model(device, seed):
+    """The full-width RadianceFieldRenderer on cow.npz's depths with seeded
+    xavier weights (zero biases, as flax initialises them)."""
+    import numpy as np
+    import torch
+
+    from pytorch3d_tpu_torch.models import RadianceFieldRenderer
+
+    data = np.load(NERF_DATA)
+    return RadianceFieldRenderer(
+        image_width=NERF_FRAME, image_height=NERF_FRAME, n_pts_per_ray=64, n_pts_per_ray_fine=64,
+        n_rays_per_image=NERF_RAYS, min_depth=float(data["znear"]), max_depth=float(data["zfar"]),
+        bg_color=(1.0, 1.0, 1.0), device=device, generator=torch.Generator(device=device).manual_seed(seed),
+    )
+
+
+def sharded_nerf_rank(rank, world, state, views, draws):
+    """One rank of the spawned group: SHARD_NERF_STEPS sharded NeRF steps on
+    a (1, world) mesh; after each, whether every rank holds the same
+    parameters (an all_gather of the flat parameters, compared bit for bit)."""
+    import torch
+    import torch.distributed as dist
+
+    from pytorch3d_tpu_torch.parallel import get_device_mesh, make_nerf_train_step
+
+    device = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    scene = NeRFScene(device)
+    model = scene.model
+    if rank == 0:  # the others take rank 0's weights from the step's broadcast
+        model.load_state_dict({k: torch.tensor(v, device=device) for k, v in state.items()})
+    step = make_nerf_train_step(model, torch.optim.Adam(model.parameters(), lr=NERF_LR),
+                                mesh=get_device_mesh((1, world)))
+    losses, equal, ms, first = [], [], [], None
+    reset_counts()
+    for i, v in enumerate(views):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(scene.camera(v), scene.images[v : v + 1],
+                       draws={k: torch.tensor(a, device=device) for k, a in draws[i].items()})
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+        flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+        parts = [torch.empty_like(flat) for _ in range(world)]
+        dist.all_gather(parts, flat)
+        equal.append(all(torch.equal(parts[0].view(torch.int32), p.view(torch.int32)) for p in parts))
+        if i == 0 and rank == 0:
+            first = {k: t.detach().cpu().numpy() for k, t in model.state_dict().items()}
+    counts = {k: n for k, n in read_counts().items() if k in ("nerf_field", "nerf_field_grad")}
+    return {"losses": losses, "equal": equal, "ms": ms, "first": first, "counts": counts}
+
+
+def phase_sharded_nerf(device, card):
+    """The NeRF step of PR 4 (`RadianceFieldRenderer` defaults: 8 x 256,
+    64 + 64 points, 1024 rays, cow.npz) sharded over a (1, 2) mesh of gloo
+    ranks spawned on the one card, SHARD_NERF_STEPS Adam steps on the same
+    views and draws.  Gates: step 0 against the single-device step on the
+    same draws (loss rtol 1e-5, parameters rtol 1e-4 / atol 1e-6); the
+    ranks' parameters equal to the bit after every step; a falling loss;
+    #12 and #13 launched on both ranks (2 each a step)."""
+    import numpy as np
+    import torch
+
+    from pytorch3d_tpu_torch.parallel import make_nerf_train_step
+    from torch_parallel_ranks import run_ranks
+
+    scene = NeRFScene(device)
+    order = np.random.RandomState(15).permutation(scene.train_idx)
+    views = [int(order[i]) for i in range(SHARD_NERF_STEPS)]
+    model = nerf_model(device, 5)
+    state = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+    gen = torch.Generator(device=device).manual_seed(16)
+    draws = [{k: t.cpu().numpy() for k, t in model.make_draws(1, True, gen).items()} for _ in views]
+    step = make_nerf_train_step(model, torch.optim.Adam(model.parameters(), lr=NERF_LR))
+    single = step(scene.camera(views[0]), scene.images[views[0] : views[0] + 1],
+                  draws={k: torch.tensor(a, device=device) for k, a in draws[0].items()})
+    single_loss = float(single["loss"])
+    single_params = {k: t.detach().cpu().numpy() for k, t in model.state_dict().items()}
+    del model, step, scene
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    outs = run_ranks(sharded_nerf_rank, SHARD_RANKS, "gloo", (state, views, draws))
+    spawn_s = time.perf_counter() - t0
+    losses = outs[0]["losses"]
+    loss_ok = abs(losses[0] - single_loss) <= SHARD_NERF_LOSS_RTOL * abs(single_loss)
+    worst, failing = 0.0, []
+    for k, want in single_params.items():
+        got = outs[0]["first"][k]
+        worst = max(worst, float(np.abs(got - want).max()))
+        if not np.allclose(got, want, rtol=SHARD_NERF_RTOL, atol=SHARD_NERF_ATOL):
+            failing.append(k)
+    equal = all(all(o["equal"]) for o in outs)
+    same_losses = all(o["losses"] == losses for o in outs)
+    launched = all(o["counts"] == {"nerf_field": 2 * SHARD_NERF_STEPS, "nerf_field_grad": 2 * SHARD_NERF_STEPS}
+                   for o in outs)
+    first, last = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
+    log(f"sharded-nerf [(1, {SHARD_RANKS}) mesh of gloo ranks on one card, {NERF_RAYS} rays a step,"
+        f" {NERF_RAYS // SHARD_RANKS} a rank]: step 0 loss {losses[0]:.8f} vs the single-device step {single_loss:.8f} (rtol"
+        f" {SHARD_NERF_LOSS_RTOL:g}: {loss_ok}); parameters after step 0 max|diff| {worst:.3e}, tensors outside"
+        f" rtol {SHARD_NERF_RTOL:g} / atol {SHARD_NERF_ATOL:g}: {failing}; ranks' parameters equal to the bit after"
+        f" every step {equal} ({[o['equal'] for o in outs]}), the same losses {same_losses}; losses"
+        f" {[round(v, 6) for v in losses]}; launches per rank {[o['counts'] for o in outs]}")
+    step_ms = sorted(outs[0]["ms"][2:])
+    log(f"times [sharded-nerf step, {card}] median of steps 3-{SHARD_NERF_STEPS} on rank 0"
+        f" {step_ms[len(step_ms) // 2]:.3f} ms (ranks' steps {[[round(t, 2) for t in o['ms']] for o in outs]});"
+        f" spawning the group and its steps {spawn_s:.1f} s")
+    check(loss_ok and not failing, "sharded-nerf: step 0 differs from the single-device step")
+    check(equal and same_losses, "sharded-nerf: the ranks' parameters or losses differ")
+    check(all(math.isfinite(v) for v in losses) and last < first,
+          f"sharded-nerf: the loss did not fall (first 3 {first:.6f}, last 3 {last:.6f})")
+    check(launched, f"sharded-nerf: launches {[o['counts'] for o in outs]}, not #12 and #13 twice a step on each rank")
+    return {f"sharded-nerf rank {r}": o["counts"] for r, o in enumerate(outs)}
+
+
+class Float64Cameras:
+    """A float64 witness of a camera batch for the alignment: R, T and the
+    centres (x_cam = x R + T, so the centre is -T R^T) in float64 (the
+    port's cameras compute their centres through float32 transforms)."""
+
+    def __init__(self, R, T):
+        self.R, self.T = R.double(), T.double()
+
+    def get_camera_center(self):
+        return -(self.T[:, None] @ self.R.transpose(1, 2))[:, 0]
+
+    def replace(self, R, T):
+        return Float64Cameras(R, T)
+
+
+def random_rotations_from(gen, n, angle, device):
+    """n rotations of `angle` radians about seeded random axes (row-vector
+    convention, Rodrigues)."""
+    import torch
+
+    axis = torch.randn((n, 3), generator=gen, device=device)
+    axis = axis / axis.norm(dim=-1, keepdim=True)
+    k = torch.zeros((n, 3, 3), device=device)
+    k[:, 0, 1], k[:, 0, 2], k[:, 1, 2] = -axis[:, 2], axis[:, 1], -axis[:, 0]
+    k = k - k.transpose(1, 2)
+    eye = torch.eye(3, device=device).expand(n, 3, 3)
+    return eye + math.sin(angle) * k + (1.0 - math.cos(angle)) * k @ k
+
+
+def phase_alignment_ops(device, card):
+    """points-serving's 30 000-point cloud as 8 clouds: ICP
+    (`iterative_closest_point`, estimate_scale) to seeded rotated (0.1 rad),
+    scaled and shifted copies through #9, against the plain KNN route (the
+    same bits); `sample_farthest_points` takes K=1024 of each cloud (each
+    pick, in float64, the farthest point from the earlier picks to 1e-5);
+    `ball_query` K=64 within 0.1 of those centres against float64 (ids on
+    >= 99.99 % of slots); `efficient_pnp` on pose-fit's 8 OpenCV cameras'
+    projections of the joined scene's vertices, and
+    `corresponding_cameras_alignment` (both modes) of those cameras to a
+    similarity-transformed copy, against float64 (1e-4 of the largest) and
+    the transforms the inputs were made with (1e-3)."""
+    import torch
+
+    from pytorch3d_tpu_torch.ops import (
+        ball_query, corresponding_cameras_alignment, efficient_pnp, iterative_closest_point, knn_points,
+        sample_farthest_points,
+    )
+    from pytorch3d_tpu_torch.renderer import cameras_from_opencv_projection
+
+    cloud, _ = colored_points_scene(device)
+    X = cloud.points_padded().expand(PTS_REQUESTS, -1, -1).contiguous()
+    gen = torch.Generator(device=device).manual_seed(17)
+    R_true = random_rotations_from(gen, PTS_REQUESTS, ICP_ANGLE, device)
+    s_true = 0.9 + 0.2 * torch.rand(PTS_REQUESTS, generator=gen, device=device)
+    T_true = 0.1 * torch.randn((PTS_REQUESTS, 3), generator=gen, device=device)
+    Y = (s_true[:, None, None] * X @ R_true + T_true[:, None]).contiguous()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    sol = iterative_closest_point(X, Y, estimate_scale=True, max_iterations=ICP_ITERATIONS)
+    torch.cuda.synchronize()
+    icp_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    iterations = len(sol.t_history)
+    check(counts["knn"] == iterations, f"alignment-ops: ICP launches {counts} for {iterations} iterations")
+    with plain_knn():
+        ref = iterative_closest_point(X, Y, estimate_scale=True, max_iterations=ICP_ITERATIONS)
+    same = (sol.converged == ref.converged and len(ref.t_history) == iterations
+            and all(torch.equal(a, b) for a, b in zip(sol.RTs, ref.RTs)) and torch.equal(sol.Xt, ref.Xt))
+    icp_err = max(float((a - b).abs().max()) for a, b in zip(sol.RTs, ref.RTs))
+    # CUDA events over back-to-back calls: a call lasts milliseconds, far
+    # above the wrapper's host time.
+    knn_ms = cuda_ms(lambda: knn_points(X, Y, K=1), iters=20, warmup=3)
+    log(f"alignment-ops [ICP, {PTS_REQUESTS} clouds of {X.shape[1]} points, estimate_scale]: {iterations} iterations,"
+        f" converged {sol.converged}, rmse {[f'{float(v):.2e}' for v in sol.rmse]}; off the true R by"
+        f" {float((sol.RTs.R - R_true).abs().max()):.2e}, s by {float((sol.RTs.s - s_true).abs().max()):.2e};"
+        f" #9 route equal to the bit to the plain KNN route {same} (max|diff| {icp_err:.1e}); launches {counts}")
+    log(f"times [ICP, {card}] {icp_ms:.1f} ms for {iterations} iterations ({icp_ms / iterations:.2f} ms an iteration,"
+        f" first call); #9 at {PTS_REQUESTS} x {X.shape[1]}^2, K=1: {knn_ms:.4f} ms (CUDA events over back-to-back"
+        f" calls)")
+    check(same, "alignment-ops: ICP through #9 differs from the plain KNN route")
+
+    t0 = time.perf_counter()
+    centres, picked = sample_farthest_points(X, K=FPS_K)
+    torch.cuda.synchronize()
+    fps_ms = (time.perf_counter() - t0) * 1e3
+    X64 = X.double()
+    batch = torch.arange(PTS_REQUESTS, device=device)
+    min_d = torch.full(X.shape[:2], math.inf, dtype=torch.float64, device=device)
+    fps_worst = 0.0
+    for k in range(FPS_K):
+        if k > 0:
+            d = min_d[batch, picked[:, k]]
+            fps_worst = max(fps_worst, float(((min_d.amax(dim=1) - d) / min_d.amax(dim=1)).max()))
+        min_d = torch.minimum(min_d, ((X64 - X64[batch, picked[:, k]][:, None]) ** 2).sum(-1))
+    log(f"alignment-ops [sample_farthest_points, K={FPS_K}]: each pick's float64 distance to the earlier picks"
+        f" within {fps_worst:.2e} of the farthest, relative (gate {FPS_GATE:g}); {fps_ms:.1f} ms")
+    check(fps_worst <= FPS_GATE, f"alignment-ops: farthest point sampling off by {fps_worst:.2e}")
+
+    t0 = time.perf_counter()
+    bq = ball_query(centres, X, K=BALL_K, radius=BALL_RADIUS)
+    torch.cuda.synchronize()
+    ball_ms = (time.perf_counter() - t0) * 1e3
+    bq64 = ball_query(centres.double(), X64, K=BALL_K, radius=BALL_RADIUS)
+    share = float((bq.idx == bq64.idx).double().mean())
+    both = (bq.idx == bq64.idx) & (bq.idx >= 0)
+    ball_err = float((bq.dists.double() - bq64.dists)[both].abs().max())
+    log(f"alignment-ops [ball_query, K={BALL_K}, radius {BALL_RADIUS:g}, {FPS_K} centres a cloud]: ids equal to"
+        f" float64's on {share:.6f} of the slots (gate {BALL_SHARE}), filled {float((bq.idx >= 0).double().mean()):.4f};"
+        f" distances {ball_err:.2e} off; {ball_ms:.1f} ms")
+    check(share >= BALL_SHARE and ball_err <= 1e-6, "alignment-ops: ball query off float64")
+    del bq, bq64, X64, min_d
+    torch.cuda.empty_cache()
+
+    scene, _ = joined_spheres(device)
+    cams = cameras_from_opencv_projection(*opencv_views(device))
+    x = scene.verts_padded()[0].expand(FIT_VIEWS, -1, -1).contiguous()
+    x_cam = x @ cams.R + cams.T[:, None]
+    y = x_cam[..., :2] / x_cam[..., 2:]
+    pnp = efficient_pnp(x, y)
+    pnp64 = efficient_pnp(x.double(), y.double())
+    pnp_errs = {n: max_ratio(getattr(pnp, n), getattr(pnp64, n)) for n in ("R", "T", "x_cam")}
+    truth = max(float((pnp.R - cams.R).abs().max()), float((pnp.T - cams.T).abs().max()) / float(cams.T.abs().max()))
+    log(f"alignment-ops [efficient_pnp, {FIT_VIEWS} views of {x.shape[1]} vertices]: off float64, of each max:"
+        f" {', '.join(f'{k} {v:.2e}' for k, v in pnp_errs.items())} (gate {EPNP_GATE:g}); off the cameras' pose by"
+        f" {truth:.2e} (gate {ALIGN_TRUTH:g}); reprojection error {float(pnp.err_2d.max()):.2e}")
+    check(max(pnp_errs.values()) <= EPNP_GATE and truth <= ALIGN_TRUTH, "alignment-ops: EPnP off")
+
+    Ra = random_rotations_from(gen, 1, 0.7, device)[0]
+    Ta, sa = torch.tensor([0.3, -0.2, 0.5], device=device), 1.3
+    # x' = sa x Ra + Ta: camera (R, T) sees it as (Ra^T R, sa T - Ta Ra^T R).
+    R_tgt = Ra.T[None] @ cams.R
+    T_tgt = sa * cams.T - torch.einsum("i,nij->nj", Ta @ Ra.T, cams.R)
+    tgt = cams.replace(R=R_tgt, T=T_tgt)
+    for mode in ("extrinsics", "centers"):
+        got = corresponding_cameras_alignment(cams, tgt, estimate_scale=True, mode=mode)
+        got64 = corresponding_cameras_alignment(Float64Cameras(cams.R, cams.T), Float64Cameras(R_tgt, T_tgt),
+                                                estimate_scale=True, mode=mode)
+        err = max(max_ratio(got.R, got64.R), max_ratio(got.T, got64.T))
+        truth = max(max_ratio(got.R, R_tgt), max_ratio(got.T, T_tgt))
+        log(f"alignment-ops [corresponding_cameras_alignment, {mode}]: {err:.2e} of each max off float64 (gate"
+            f" {ALIGN_GATE:g}), {truth:.2e} off the target cameras (gate {ALIGN_TRUTH:g})")
+        check(err <= ALIGN_GATE and truth <= ALIGN_TRUTH, f"alignment-ops: camera alignment ({mode}) off")
+    return {"alignment-ops": counts}
+
+
+def kernel_rows(launches, errors, fine, grad, knn_t, points, points_grad, mlp, mlp_grad, field, field_grad, slice5,
+                band):
     rows = []
     fused = "pytorch3d_tpu_torch/csrc/fused_mlp.cu"
     for name, source, replaces, t, library in (
@@ -5554,6 +6160,10 @@ def kernel_rows(launches, errors, fine, grad, knn_t, points, points_grad, mlp, m
         ("pulsar_grad", "pytorch3d_tpu_torch/csrc/pulsar_grad.cu",
          "pytorch3d_tpu/renderer/points/rasterize_points_pallas.py:618", slice5["pulsar_grad"],
          slice5["pulsar_grad"]["library"]),
+        ("rasterize_fine_band", "pytorch3d_tpu_torch/csrc/rasterize_fine.cu",
+         "pytorch3d_tpu/renderer/mesh/rasterize_pallas.py:1313", band["fine"], None),
+        ("rasterize_grad_band", "pytorch3d_tpu_torch/csrc/rasterize_grad.cu",
+         "pytorch3d_tpu/renderer/mesh/rasterize_pallas.py:1346", band["grad"], None),
     ):
         rows.append({
             "name": name,
@@ -5581,6 +6191,7 @@ def main() -> int:
         print(f"chip_smoke: no pytorch3d_tpu_torch package beside {Path(__file__).name}", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
+    sys.path.append(str(REPO / "tests"))  # torch_parallel_ranks: the spawned groups of ranks
     t_start = time.perf_counter()
     phase = "device"
     try:
@@ -5608,7 +6219,7 @@ def main() -> int:
             "select_points": phase_select_kernel(device, serving5),
             "pulsar_grad": phase_pulsar_grad_kernel(device, serving5, fit5),
         }
-        launches = dict.fromkeys(KERNELS, 0)
+        launches = dict.fromkeys(KERNELS + BAND_KERNELS, 0)
         phase = "serving"
         counts, meshes, renderers = phase_serving(device)
         paths = {"serving": counts}
@@ -5654,6 +6265,7 @@ def main() -> int:
         slice5 = phase_slice5_times(device, serving5, fit5, topk_plain_ms, hard_plain_ms, {
             "big": (big, big_ren), "mesh": (gl_meshes, gl_renderers), "points": (pulsar_points, pulsar_clouds),
         })
+        band_t = band_times(device, card)
         # Slice 12's paths run after the times: their profiles (CPU and CUDA
         # activity) ahead of the times' CUDA-only windows made the profiler
         # drop one #1 record in every window at the headline shape.
@@ -5698,7 +6310,24 @@ def main() -> int:
             for kernel, n in counts.items():
                 launches[kernel] += n
         log(f"launches by path (slice 14): {slice14}; summed over every path {launches}")
-        kernels = kernel_rows(launches, errors, fine, grad, knn_t, points_t, points_grad_t, *nerf_t, slice5)
+        slice15 = {}
+        phase = "band-raster"
+        band_paths, band_errors = phase_band_raster(device, card)
+        slice15.update(band_paths)
+        errors.update(band_errors)
+        phase = "sharded-raster"
+        slice15.update(phase_sharded_raster(device, card))
+        phase = "training: sharded-nerf"
+        slice15.update(phase_sharded_nerf(device, card))
+        phase = "alignment-ops"
+        slice15.update(phase_alignment_ops(device, card))
+        for counts in slice15.values():
+            for kernel, n in counts.items():
+                launches[kernel] += n
+        for kernel in BAND_KERNELS:
+            check(launches[kernel] > 0, f"{kernel} was launched no time on the paths")
+        log(f"launches by path (slice 15): {slice15}; summed over every path {launches}")
+        kernels = kernel_rows(launches, errors, fine, grad, knn_t, points_t, points_grad_t, *nerf_t, slice5, band_t)
     except Exception as e:  # report which phase failed, then exit non-zero
         import traceback
 

@@ -306,7 +306,7 @@ def sync_cost(cs, rc, device, pairs=20, warmup=2):
     losses = []
     for i in range(2 * (warmup + pairs)):
         read = i % 2 == 0
-        rc._raise_on_missing = package if read else (lambda error: None)
+        rc._raise_on_missing = package if read else (lambda error, name: None)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fit.optimizer.zero_grad()

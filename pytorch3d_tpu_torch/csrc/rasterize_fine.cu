@@ -34,6 +34,22 @@
 // id first, as the plain version's stable sort does.  K is a template
 // bucket (1..64); the runtime K masks the live prefix.
 //
+// A band of rows (#1 and #4 over rows [row0, row0 + rows) of the H x W
+// image, the counterpart of `rasterize_fragments_pallas_band`,
+// rasterize_pallas.py:1313, whose forward runs this kernel's TPU
+// counterpart with a tile-row offset).  The launch covers the band's
+// tiles, 16x16 tiles starting at pixel row row0 (any row0: the TPU's band
+// offset counts whole tiles of a size that depends on K and F); a thread's
+// pixel row is row0 + ty * 16 + r.  Pixel centres, pixel boxes and the
+// warp rectangles stay in the image's rows, so each pixel is tested
+// against the faces whose box holds it, in ascending id, exactly as in the
+// full image, and its slots equal that image's row bit for bit; only the
+// stores go to the band's own rows.  The full image is the band (0, H),
+// the same code.  That holds for a face crossing z = 0 under perspective
+// correction too: its pixel box is the whole image (below), and the
+// binning lists it in every tile, so it is tested at every pixel wherever
+// the tiles fall.
+//
 // Why the cull is exact.  It drops a (pixel, face) pair only where the
 // pixel centre lies outside the face's xy bounding box grown by
 // sqrt(blur_radius) and half a pixel, and a face covers a pixel only if
@@ -51,12 +67,15 @@
 // unbounded wedge where w0 > 0 > w1, w2 is `inside`, and its pz =
 // z0 z1 z2 (w0 + w1 + w2) / denom > 0 covers it.  So under perspective
 // correction every face whose smallest z is < 0 gets the whole image as
-// its pixel box, and the kernel tests it at every pixel of
-// the tiles its bounding box reaches, as before the cull: it is the tile
-// binning, as in the TPU kernel (rasterize_pallas.py:148-173), that leaves
-// out the rest of such a wedge.  tests/test_torch_raster_fine_cull.py
-// checks on the CPU that every pair the plain version covers lies in its
-// face's pixel box, with faces crossing z = 0 among them.
+// its pixel box, and the binning (`bin_faces(..., perspective_correct=)`)
+// lists it in every tile, so the kernel tests it at every pixel, as the
+// plain version does.  (The TPU kernel bins it by its bounding box,
+// rasterize_pallas.py:148-173, and so leaves out the rest of such a wedge,
+// which depends on where its tiles fall.)
+// tests/test_torch_raster_fine_cull.py checks on the CPU that every pair
+// the plain version covers lies in its face's pixel box, with faces
+// crossing z = 0 among them; tests/test_torch_band_raster.py that it lies
+// in a tile that lists its face, in bands on and off the 16-row grid.
 //
 // The per-test arithmetic is the plain version's, operation for operation
 // and in its order: edge functions divided by (area + eps) (the TPU kernel,
@@ -282,13 +301,15 @@ rasterize_fine_kernel(const float* __restrict__ face_verts,  // (N*F, 9)
                       const int* __restrict__ tile_start,    // (N*n_ty*n_tx + 1,)
                       const float* __restrict__ xs,          // (W,) NDC x of columns
                       const float* __restrict__ ys,          // (H,) NDC y of rows
-                      int F, int H, int W, int n_ty, int n_tx, float blur_radius,
+                      int F, int H, int W,
+                      int band0, int band_rows,  // the rasterized rows [band0, band0 + band_rows)
+                      int n_ty, int n_tx, float blur_radius,
                       float box_grow,  // sqrt(blur_radius) + half a pixel
                       int K, bool perspective_correct, bool clip_barycentric_coords,
-                      int* __restrict__ out_idx,     // (N, H, W, K)
-                      float* __restrict__ out_z,     // (N, H, W, K)
-                      float* __restrict__ out_bary,  // (N, H, W, K, 3)
-                      float* __restrict__ out_dist)  // (N, H, W, K)
+                      int* __restrict__ out_idx,     // (N, band_rows, W, K)
+                      float* __restrict__ out_z,     // (N, band_rows, W, K)
+                      float* __restrict__ out_bary,  // (N, band_rows, W, K, 3)
+                      float* __restrict__ out_dist)  // (N, band_rows, W, K)
 {
   __shared__ Shared shared;
   Stage& s = shared.s;
@@ -303,11 +324,13 @@ rasterize_fine_kernel(const float* __restrict__ face_verts,  // (N*F, 9)
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const unsigned below = (1u << lane) - 1u;
-  const int row0 = ty * kTileH + (warp / kRectsPerRow) * kRectH;  // the warp's rectangle
+  const int tile_row0 = band0 + ty * kTileH;  // the tile's first image row
+  const int band_end = band0 + band_rows;
+  const int row0 = tile_row0 + (warp / kRectsPerRow) * kRectH;  // the warp's rectangle, image rows
   const int col0 = tx * kTileW + (warp % kRectsPerRow) * kRectW;
   const int row = row0 + lane / kRectW;
   const int col = col0 + lane % kRectW;
-  const bool live = row < H && col < W;
+  const bool live = row < band_end && col < W;
   const float px = live ? xs[col] : 0.0f;
   const float py = live ? ys[row] : 0.0f;
 
@@ -344,7 +367,7 @@ rasterize_fine_kernel(const float* __restrict__ face_verts,  // (N*F, 9)
       if (!(face.flags & kZeroArea) && b.x <= b.y && b.z <= b.w) {
 #pragma unroll
         for (int w = 0; w < kWarps; ++w) {
-          const int r0 = ty * kTileH + (w / kRectsPerRow) * kRectH;
+          const int r0 = tile_row0 + (w / kRectsPerRow) * kRectH;
           const int c0 = tx * kTileW + (w % kRectsPerRow) * kRectW;
           const bool meets = b.x < r0 + kRectH && b.y >= r0 && b.z < c0 + kRectW && b.w >= c0;
           mask |= meets ? 1u << w : 0u;
@@ -436,8 +459,8 @@ rasterize_fine_kernel(const float* __restrict__ face_verts,  // (N*F, 9)
   // staging memory, which every warp has finished reading.
   __syncthreads();
   float* buf = shared.buf[warp];
-  const size_t rect_base = (static_cast<size_t>(n) * H + row0) * W + col0;
-  const int rows_live = min(kRectH, H - row0), cols_live = min(kRectW, W - col0);
+  const size_t rect_base = (static_cast<size_t>(n) * band_rows + (row0 - band0)) * W + col0;
+  const int rows_live = min(kRectH, band_end - row0), cols_live = min(kRectW, W - col0);
   constexpr int kP1 = KB < 16 ? KB : 16;  // 32 x (16 + 1) words of one-value outputs fit kBufWords
   constexpr int kP3 = KB < 8 ? KB : 8;    // 32 x (8 x 3 + 1) of bary
   static_assert(32 * (kP1 + 1) <= kBufWords && 32 * (kP3 * 3 + 1) <= kBufWords,
@@ -456,13 +479,15 @@ rasterize_fine_kernel(const float* __restrict__ face_verts,  // (N*F, 9)
 
 template <int KB, bool kIdsOnly>
 void launch(const float* face_verts, const int* tile_faces, const int* tile_start,
-            const float* xs, const float* ys, int N, int F, int H, int W, int n_ty, int n_tx,
+            const float* xs, const float* ys, int N, int F, int H, int W, int band0,
+            int band_rows, int n_ty, int n_tx,
             float blur_radius, float box_grow, int K, int perspective_correct,
             int clip_barycentric_coords, int* idx, float* z, float* bary, float* dist,
             cudaStream_t stream) {
   const dim3 grid(static_cast<unsigned>(N) * n_ty * n_tx);
   rasterize_fine_kernel<KB, kIdsOnly><<<grid, kThreads, 0, stream>>>(
-      face_verts, tile_faces, tile_start, xs, ys, F, H, W, n_ty, n_tx, blur_radius, box_grow, K,
+      face_verts, tile_faces, tile_start, xs, ys, F, H, W, band0, band_rows, n_ty, n_tx,
+      blur_radius, box_grow, K,
       perspective_correct != 0, clip_barycentric_coords != 0, idx, z, bary, dist);
 }
 
@@ -478,17 +503,19 @@ namespace {
 
 template <bool kIdsOnly>
 int dispatch(const float* face_verts, const int* tile_faces, const int* tile_start,
-             const float* xs, const float* ys, int N, int F, int H, int W, int n_ty, int n_tx,
+             const float* xs, const float* ys, int N, int F, int H, int W, int band0,
+             int band_rows, int n_ty, int n_tx,
              float blur_radius, float box_grow, int K, int perspective_correct,
              int clip_barycentric_coords, int* idx, float* z, float* bary, float* dist,
              void* stream) {
-  if (K < 1 || K > 64 || N < 1 || n_ty != (H + kTileH - 1) / kTileH ||
-      n_tx != (W + kTileW - 1) / kTileW) {
+  if (K < 1 || K > 64 || N < 1 || band0 < 0 || band_rows < 1 || band0 + band_rows > H ||
+      n_ty != (band_rows + kTileH - 1) / kTileH || n_tx != (W + kTileW - 1) / kTileW) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define P3D_LAUNCH(KB)                                                                  \
-  launch<KB, kIdsOnly>(face_verts, tile_faces, tile_start, xs, ys, N, F, H, W, n_ty, n_tx, \
+  launch<KB, kIdsOnly>(face_verts, tile_faces, tile_start, xs, ys, N, F, H, W, band0,       \
+                       band_rows, n_ty, n_tx,                                              \
                        blur_radius, box_grow, K, perspective_correct,                     \
                        clip_barycentric_coords, idx, z, bary, dist, s)
   if (K <= 1) P3D_LAUNCH(1);
@@ -504,17 +531,21 @@ int dispatch(const float* face_verts, const int* tile_faces, const int* tile_sta
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue when K, N or the tile counts are not ones this
-// build takes.  box_grow is the binning's growth of a face's box,
-// sqrt(blur_radius) + half a pixel, rounded to float32.
+// Rasterizes rows [row0, row0 + rows) of N H x W images into (N, rows, W,
+// K) outputs; the band's n_ty = ceil(rows / 16) tile rows start at row0
+// (the full image: row0 = 0, rows = H).  Returns cudaGetLastError() after
+// the launch (0 on success), or cudaErrorInvalidValue when K, N, the band
+// or the tile counts are not ones this build takes.  box_grow is the
+// binning's growth of a face's box, sqrt(blur_radius) + half a pixel,
+// rounded to float32.
 extern "C" int rasterize_fine(const float* face_verts, const int* tile_faces,
                               const int* tile_start, const float* xs, const float* ys, int N,
-                              int F, int H, int W, int n_ty, int n_tx, float blur_radius,
-                              float box_grow, int K, int perspective_correct,
+                              int F, int H, int W, int row0, int rows, int n_ty, int n_tx,
+                              float blur_radius, float box_grow, int K, int perspective_correct,
                               int clip_barycentric_coords, int* idx, float* z, float* bary,
                               float* dist, void* stream) {
-  return dispatch<false>(face_verts, tile_faces, tile_start, xs, ys, N, F, H, W, n_ty, n_tx,
+  return dispatch<false>(face_verts, tile_faces, tile_start, xs, ys, N, F, H, W, row0, rows,
+                         n_ty, n_tx,
                          blur_radius, box_grow, K, perspective_correct,
                          clip_barycentric_coords, idx, z, bary, dist, stream);
 }
@@ -525,7 +556,7 @@ extern "C" int rasterize_topk(const float* face_verts, const int* tile_faces,
                               int F, int H, int W, int n_ty, int n_tx, float blur_radius,
                               float box_grow, int K, int perspective_correct,
                               int clip_barycentric_coords, int* idx, void* stream) {
-  return dispatch<true>(face_verts, tile_faces, tile_start, xs, ys, N, F, H, W, n_ty, n_tx,
+  return dispatch<true>(face_verts, tile_faces, tile_start, xs, ys, N, F, H, W, 0, H, n_ty, n_tx,
                         blur_radius, box_grow, K, perspective_correct,
                         clip_barycentric_coords, idx, nullptr, nullptr, nullptr, stream);
 }

@@ -57,6 +57,16 @@
 // between its two arguments, in the plain version's order
 // min(min(e01, e02), e12).
 //
+// A band of rows (the backward of `rasterize_fragments_pallas_band`,
+// rasterize_pallas.py:1346, which runs the TPU kernel with a tile-row
+// offset): ids and cotangents of rows [row0, row0 + rows) of the H x W
+// image, binned into 16x16 tiles starting at row0, as the forward's band
+// was.  A pixel's centre is read at its image row (row0 + its band row),
+// so every slot's partials are the full image's; the band's face sums
+// cover its own pixels, and the caller adds the bands' gradients (a
+// collective across the devices that rasterized them).  The full image is
+// the band (0, H), the same code.
+//
 // What bounds it on an H100 (data sheet: 3.35 TB/s, 67 TFLOP/s fp32, half
 // of that without FMA contraction).  Every slot's id is read once (4
 // bytes), the cotangents of the filled slots (20 bytes a slot when all
@@ -365,13 +375,13 @@ __global__ void __launch_bounds__(kThreads, 3)
 rasterize_grad_tiles_kernel(const float* __restrict__ face_verts,  // (N*F, 9)
                             const int* __restrict__ tile_faces,    // (pairs,) local ids
                             const int* __restrict__ tile_start,    // (N*n_ty*n_tx + 1,)
-                            const int* __restrict__ idx,           // (N, H, W, K) local ids
-                            const float* __restrict__ gz,          // (N, H, W, K) or null
-                            const float* __restrict__ gbary,       // (N, H, W, K, 3) or null
-                            const float* __restrict__ gdists,      // (N, H, W, K) or null
+                            const int* __restrict__ idx,           // (N, rows, W, K) local ids
+                            const float* __restrict__ gz,          // (N, rows, W, K) or null
+                            const float* __restrict__ gbary,       // (N, rows, W, K, 3) or null
+                            const float* __restrict__ gdists,      // (N, rows, W, K) or null
                             const float* __restrict__ xs,          // (W,) NDC x of columns
-                            const float* __restrict__ ys,          // (H,) NDC y of rows
-                            int F, int H, int W, int K, int n_ty, int n_tx,
+                            const float* __restrict__ ys,          // (H,) NDC y of the image's rows
+                            int F, int band0, int rows, int W, int K, int n_ty, int n_tx,
                             bool perspective_correct, bool clip_barycentric_coords,
                             float* __restrict__ gpair,  // (pairs, 9)
                             int* __restrict__ error)    // set to 1 on a face missing from its list
@@ -387,18 +397,18 @@ rasterize_grad_tiles_kernel(const float* __restrict__ face_verts,  // (N*F, 9)
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1u;
-  const int row0 = ty * kTileH + 2 * warp;  // the warp's first row
+  const int row0 = ty * kTileH + 2 * warp;  // the warp's first row of the band
   const int col0 = tx * kTileW;
-  const bool live = row0 + (lane >> 4) < H && col0 + (lane & 15) < W;
+  const bool live = row0 + (lane >> 4) < rows && col0 + (lane & 15) < W;
   const float* verts = face_verts + static_cast<long long>(n) * F * 9;
   float* acc = s_acc[warp];
   int* queue = s_queue[warp];
   const int begin = tile_start[tile];
   const int end = tile_start[tile + 1];
 
-  // The offset of lane l's slot at depth k into the (N, H, W, K) arrays.
+  // The offset of lane l's slot at depth k into the (N, rows, W, K) arrays.
   auto slot = [&](int l, int k) -> long long {
-    return ((static_cast<long long>(n) * H + row0 + (l >> 4)) * W + col0 + (l & 15)) * K + k;
+    return ((static_cast<long long>(n) * rows + row0 + (l >> 4)) * W + col0 + (l & 15)) * K + k;
   };
 
   // Differentiate 32 queued slots from ring position `head` (the first
@@ -422,7 +432,7 @@ rasterize_grad_tiles_kernel(const float* __restrict__ face_verts,  // (N*F, 9)
         if (pos < 0) {
           *error = 1;
         } else {
-          slot_grad(verts + static_cast<long long>(f) * 9, xs[col0 + (l & 15)], ys[row0 + (l >> 4)],
+          slot_grad(verts + static_cast<long long>(f) * 9, xs[col0 + (l & 15)], ys[band0 + row0 + (l >> 4)],
                     c.z, c.b0, c.b1, c.b2, c.d, perspective_correct, clip_barycentric_coords, g);
         }
       }
@@ -537,27 +547,30 @@ extern "C" void rasterize_grad_tile(int* rows, int* cols) {
   *cols = kTileW;
 }
 
-// Both passes on `stream`: writes every entry of `grad` (N*F*9 floats) and
-// sets *error (zeroed by the caller) where a slot's face is missing from its
-// tile's list.  gpair is the wrapper's (max(pairs, 1), 9) scratch.  Returns
-// cudaGetLastError() after the launches (0 on success), or
-// cudaErrorInvalidValue for a shape this build does not take.
+// Both passes on `stream` over rows [row0, row0 + rows) of N H x W images
+// (the full image: row0 = 0, rows = H; idx and the cotangents are (N, rows,
+// W, K), binned into n_ty = ceil(rows / 16) tile rows from row0): writes
+// every entry of `grad` (N*F*9 floats) and sets *error (zeroed by the
+// caller) where a slot's face is missing from its tile's list.  gpair is
+// the wrapper's (max(pairs, 1), 9) scratch.  Returns cudaGetLastError()
+// after the launches (0 on success), or cudaErrorInvalidValue for a shape
+// this build does not take.
 extern "C" int rasterize_grad(const float* face_verts, const int* tile_faces, const int* tile_start,
                               const int* pair_rows, const int* face_start, const int* idx,
                               const float* gz, const float* gbary, const float* gdists,
-                              const float* xs, const float* ys, int N, int F, int H, int W, int K,
-                              int n_ty, int n_tx, int perspective_correct,
-                              int clip_barycentric_coords, float* gpair, int* error, float* grad,
-                              void* stream) {
+                              const float* xs, const float* ys, int N, int F, int H, int W,
+                              int row0, int rows, int K, int n_ty, int n_tx,
+                              int perspective_correct, int clip_barycentric_coords, float* gpair,
+                              int* error, float* grad, void* stream) {
   const long long n_tiles = static_cast<long long>(N) * n_ty * n_tx;
-  if (N < 1 || F < 1 || H < 1 || W < 1 || K < 1 ||
-      n_ty != (H + kTileH - 1) / kTileH || n_tx != (W + kTileW - 1) / kTileW ||
+  if (N < 1 || F < 1 || H < 1 || W < 1 || K < 1 || row0 < 0 || rows < 1 || row0 + rows > H ||
+      n_ty != (rows + kTileH - 1) / kTileH || n_tx != (W + kTileW - 1) / kTileW ||
       n_tiles > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   rasterize_grad_tiles_kernel<<<static_cast<unsigned>(n_tiles), kThreads, 0, s>>>(
-      face_verts, tile_faces, tile_start, idx, gz, gbary, gdists, xs, ys, F, H, W, K, n_ty, n_tx,
+      face_verts, tile_faces, tile_start, idx, gz, gbary, gdists, xs, ys, F, row0, rows, W, K, n_ty, n_tx,
       perspective_correct != 0, clip_barycentric_coords != 0, gpair, error);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -17,12 +17,19 @@ again with autograd (#12's saving build) and takes the gradients from that
 four times instead of two, and holds no field activations between its
 forward and backward.
 
-Left for later slices: dtypes other than float32 and `ray_sharding`; each
-raises NotImplementedError.
+`ray_sharding` (`parallel.shard_rays(mesh)`) keeps this rank's share of
+each (B, R, ...) ray tensor, and of the batch of `image` and of the draws
+that follow the rays: the call renders and scores only those rays, as one
+device of the JAX package's sharded call does.  The draws are the global
+ones, so the ranks together sample exactly the rays one device samples.
+
+Left for later slices: dtypes other than float32, which raise
+NotImplementedError.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Sequence, Union
 
 import torch
@@ -168,10 +175,9 @@ class RadianceFieldRenderer(nn.Module):
         """Render rays (MC at training, a grid chunk at evaluation).
 
         Returns (out, metrics): out holds rgb_coarse, rgb_fine (and rgb_gt
-        with `image`), metrics mse and psnr of both passes (with `image`).
+        with `image`), metrics mse and psnr of both passes (with `image`);
+        with `ray_sharding`, of this rank's share of the rays.
         """
-        if ray_sharding is not None:
-            raise NotImplementedError("ray sharding waits for the port's parallel slice")
         if draws is None:
             n_rays = None
             if not training:
@@ -182,6 +188,13 @@ class RadianceFieldRenderer(nn.Module):
             cameras, chunksize=chunksize, chunk_idx=chunk_idx, training=training,
             u_xy=draws.get("xy"), u_jiggle=draws.get("jiggle"),
         )
+        if ray_sharding is not None:
+            local = ray_sharding.local
+            ray_bundle = ray_bundle.replace(origins=local(ray_bundle.origins), directions=local(ray_bundle.directions),
+                                            lengths=local(ray_bundle.lengths), xys=local(ray_bundle.xys))
+            draws = {k: local(v) if k in ("pdf", "noise_coarse", "noise_fine") else v for k, v in draws.items()}
+            if image is not None:  # the batch split as the rays' first dimension
+                image = dataclasses.replace(ray_sharding, spec=ray_sharding.spec[:1]).local(image)
         bg = self.bg_color
         densities, colors = _field_call(
             self._renderer_coarse_field, ray_bundle, self.density_noise_std, draws.get("noise_coarse"), self.remat

@@ -31,6 +31,14 @@ in `rasterize_topk_pallas` :549): the ids-only build of
 in the warps whose 4x8 pixel rectangle meets its pixel box (the same cull
 as `csrc/rasterize_fine.cu`'s), with `rasterize_hard_plain` as its plain
 version.
+
+`rasterize_fragments_band_cuda` replaces `rasterize_fragments_pallas_band`
+(:1313): the fragments and their backward over rows [row0, row0 + rows)
+of the image, the same two kernels launched over a binning of the band
+(`bin_faces(..., row_band=)`: 16x16 tiles starting at pixel row row0), so
+a band's slots equal the full image's rows bit for bit at any row0
+(`parallel/raster.py` hands each device one band).  Its plain version is
+`rasterize_fragments_band_plain`.  The full-image entry is the band (0, H).
 """
 
 from __future__ import annotations
@@ -46,26 +54,33 @@ from torch.autograd.function import once_differentiable
 from ... import _build
 from .rasterize_meshes import (
     _face_culls,
+    _fragments_from_gathered,
     interpolate_fragments,
     non_square_ndc_range,
+    pixel_centers_ndc,
     pixel_grid_ndc,
     rasterize_grad_plain,
     rasterize_topk,
+    rasterize_topk_at_pixels,
 )
 
 TILE = (16, 16)  # pixel tile (rows, cols) of one thread block; checked against the .cu at load
 MAX_FACES_PER_PIXEL = 64  # largest K bucket the kernel is built for
 
 
-def _tile_range(lo: torch.Tensor, hi: torch.Tensor, n_pix: int, t: int):
+def _tile_range(lo: torch.Tensor, hi: torch.Tensor, n_pix: int, t: int, band: Optional[Tuple[int, int]] = None):
     """First tile and tile count along one axis for float pixel ranges
     [lo, hi]; NaN bounds widen to the whole axis, ranges off the image give
-    count 0."""
+    count 0.  With `band` = (first pixel, pixels), the tiles are those of
+    that band of the axis, counted from its first pixel."""
+    first_pix, n_band = (0, n_pix) if band is None else band
     lo = torch.nan_to_num(lo, nan=-1.0).clamp(-1.0, float(n_pix)).floor().long()
     hi = torch.nan_to_num(hi, nan=float(n_pix)).clamp(-1.0, float(n_pix)).ceil().long()
-    hit = (hi >= 0) & (lo <= n_pix - 1)
+    if first_pix:  # no extra launch on the full image's path
+        lo, hi = lo - first_pix, hi - first_pix
+    hit = (hi >= 0) & (lo <= n_band - 1)
     first = lo.clamp(min=0) // t
-    last = hi.clamp(max=n_pix - 1) // t
+    last = hi.clamp(max=n_band - 1) // t
     return first, torch.where(hit, last - first + 1, 0)
 
 
@@ -75,9 +90,11 @@ def half_pixel(H: int, W: int) -> float:
     return max(non_square_ndc_range(H, W) / H, non_square_ndc_range(W, H) / W) / 2.0
 
 
-def box_tiles(xmin, xmax, ymin, ymax, image_size: Tuple[int, int]):
+def box_tiles(xmin, xmax, ymin, ymax, image_size: Tuple[int, int], row_band: Optional[Tuple[int, int]] = None):
     """((first tile row, tile rows), (first tile column, tile columns)) of
-    NDC boxes: the tiles holding a pixel center inside each box."""
+    NDC boxes: the tiles holding a pixel center inside each box.  With
+    `row_band` = (row0, rows) the tile rows are the band's, counted from
+    its pixel row row0."""
     H, W = image_size
     # Pixel c's center is x = -o + (r * (W - 1 - c) + o) / W (r the NDC span,
     # o = r / 2): x falls as c grows, so the largest x gives the first column.
@@ -86,10 +103,21 @@ def box_tiles(xmin, xmax, ymin, ymax, image_size: Tuple[int, int]):
     c_hi = W - 1 - ((xmin + rx / 2) * W - rx / 2) / rx
     r_lo = H - 1 - ((ymax + ry / 2) * H - ry / 2) / ry
     r_hi = H - 1 - ((ymin + ry / 2) * H - ry / 2) / ry
-    return _tile_range(r_lo, r_hi, H, TILE[0]), _tile_range(c_lo, c_hi, W, TILE[1])
+    return _tile_range(r_lo, r_hi, H, TILE[0], row_band), _tile_range(c_lo, c_hi, W, TILE[1])
 
 
-def bin_boxes(xmin, xmax, ymin, ymax, ok, image_size: Tuple[int, int]):
+def check_row_band(row_band: Optional[Tuple[int, int]], H: int) -> Tuple[int, int]:
+    """(row0, rows) of a band of an image of H rows; None is the whole
+    image.  Raises ValueError on a band that is empty or leaves the image."""
+    if row_band is None:
+        return 0, H
+    row0, rows = (int(v) for v in row_band)
+    if row0 < 0 or rows < 1 or row0 + rows > H:
+        raise ValueError(f"row band ({row0}, {rows}) is not a band of an image of {H} rows")
+    return row0, rows
+
+
+def bin_boxes(xmin, xmax, ymin, ymax, ok, image_size: Tuple[int, int], row_band: Optional[Tuple[int, int]] = None):
     """Per-tile lists of NDC boxes as CSR: (tile_items, tile_start, n_ty, n_tx).
 
     The boxes are (N, M) tensors of bounds, one batch item of M boxes per
@@ -97,13 +125,15 @@ def bin_boxes(xmin, xmax, ymin, ymax, ok, image_size: Tuple[int, int]):
     `tile_items[tile_start[i]:tile_start[i + 1]]`, the local ids of the ok
     boxes that reach a pixel center of the tile, in ascending id.  The
     lists are exact: no capacity, nothing dropped.  The face and the point
-    binnings share it.
+    binnings share it.  With `row_band` = (row0, rows) the tiles cover that
+    band of rows only, tile row ty holding pixel rows row0 + 16 ty onward.
     """
     N, M = ok.shape
     H, W = image_size
-    n_ty, n_tx = -(-H // TILE[0]), -(-W // TILE[1])
+    row0, rows = check_row_band(row_band, H)
+    n_ty, n_tx = -(-rows // TILE[0]), -(-W // TILE[1])
     device = ok.device
-    (ty0, ny), (tx0, nx) = box_tiles(xmin, xmax, ymin, ymax, image_size)
+    (ty0, ny), (tx0, nx) = box_tiles(xmin, xmax, ymin, ymax, image_size, (row0, rows))
 
     counts = torch.where(ok, nx * ny, 0).reshape(-1)  # (N*M,)
     P = int(counts.sum())
@@ -126,11 +156,27 @@ def bin_faces(
     ok: torch.Tensor,  # (N, F) bool: faces that may cover any pixel
     image_size: Tuple[int, int],
     blur_radius: float,
+    row_band: Optional[Tuple[int, int]] = None,
+    perspective_correct: bool = False,
 ):
     """Per-tile face lists as CSR: (tile_faces, tile_start, n_ty, n_tx), from
     `bin_boxes` on each face's bounding box grown by sqrt(blur_radius) and
-    half a pixel (as `_tile_overlap` at rasterize_pallas.py:148-173)."""
-    return bin_boxes(*face_boxes(face_verts, image_size, blur_radius), ok, image_size)
+    half a pixel (as `_tile_overlap` at rasterize_pallas.py:148-173); over
+    the band of rows (row0, rows) when `row_band` is given (as
+    `_bin_faces(row_band=)`, :205-233, with a band starting at any row).
+
+    With `perspective_correct`, a face with a vertex behind the camera
+    (z < 0) is listed in every tile: it can cover pixels far outside its
+    box, and the kernel gives it the whole image as its pixel box
+    (csrc/rasterize_fine.cu's header), so the pixels it is tested at, and
+    the slots, do not depend on where the tiles fall: a band equals the
+    full image's rows, and the kernel its plain version."""
+    xmin, xmax, ymin, ymax = face_boxes(face_verts, image_size, blur_radius)
+    if perspective_correct:
+        whole = face_verts[..., 2].amin(-1) < 0
+        xmin, ymin = (torch.where(whole, -math.inf, v) for v in (xmin, ymin))
+        xmax, ymax = (torch.where(whole, math.inf, v) for v in (xmax, ymax))
+    return bin_boxes(xmin, xmax, ymin, ymax, ok, image_size, row_band)
 
 
 def box_grow(image_size: Tuple[int, int], blur_radius: float) -> float:
@@ -191,20 +237,51 @@ def rasterize_fragments_plain(
     clip_barycentric_coords: bool = False,
     cull_backfaces: bool = False,
 ):
-    """The plain PyTorch version of the kernel: `rasterize_topk` then
-    `interpolate_fragments`, image by image.
+    """The plain PyTorch version of the kernel: the selection then the
+    recompute of the fragments, image by image (the band of every row).
 
     Returns (pix_to_face, zbuf, bary, dists) with per-image local face ids.
     zbuf/bary/dists are differentiable with respect to `face_verts`.
     """
+    return rasterize_fragments_band_plain(
+        face_verts, valid, 0, image_size[0], image_size, blur_radius, faces_per_pixel,
+        perspective_correct, clip_barycentric_coords, cull_backfaces,
+    )
+
+
+def rasterize_fragments_band_plain(
+    face_verts: torch.Tensor,  # (N, F, 3, 3)
+    valid: torch.Tensor,  # (N, F) bool
+    row0: int,
+    rows: int,
+    image_size: Tuple[int, int],
+    blur_radius: float = 0.0,
+    faces_per_pixel: int = 1,
+    perspective_correct: bool = False,
+    clip_barycentric_coords: bool = False,
+    cull_backfaces: bool = False,
+):
+    """The plain PyTorch version of the band kernel: `rasterize_topk_at_pixels`
+    then `_fragments_from_gathered` on the pixel centres of rows
+    [row0, row0 + rows) of the image, image by image (as the JAX package's
+    XLA band, parallel/raster.py:86-106).  Per-pixel results are
+    independent, so they are those rows of the full image's.
+
+    Returns (N, rows, W, K) (pix_to_face, zbuf, bary, dists) with
+    per-image local face ids; zbuf/bary/dists are differentiable with
+    respect to `face_verts`.
+    """
+    H, W = image_size
+    row0, rows = check_row_band((row0, rows), H)
+    pxy = pixel_centers_ndc(H, W, face_verts.device, face_verts.dtype)[row0 : row0 + rows]
     pix, zbuf, bary, dists = [], [], [], []
     for fv, m in zip(face_verts, valid):
-        idx = rasterize_topk(
-            fv.detach(), m, image_size, blur_radius, faces_per_pixel,
+        idx = rasterize_topk_at_pixels(
+            fv.detach(), m, pxy, blur_radius, faces_per_pixel,
             perspective_correct, clip_barycentric_coords, cull_backfaces,
         )
-        z, b, d = interpolate_fragments(
-            fv, idx, image_size, perspective_correct, clip_barycentric_coords
+        z, b, d = _fragments_from_gathered(
+            fv[idx.clamp(min=0)], idx, image_size, perspective_correct, clip_barycentric_coords, pxy=pxy
         )
         pix.append(idx)
         zbuf.append(z)
@@ -224,7 +301,7 @@ def _library() -> ctypes.CDLL:
                 f" the binning makes {TILE[0]}x{TILE[1]} tiles"
             )
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rasterize_fine.argtypes = [p] * 5 + [i] * 6 + [ctypes.c_float, ctypes.c_float, i, i, i] + [p] * 5
+        lib.rasterize_fine.argtypes = [p] * 5 + [i] * 8 + [ctypes.c_float, ctypes.c_float, i, i, i] + [p] * 5
         lib.rasterize_fine.restype = ctypes.c_int
         lib.rasterize_topk.argtypes = [p] * 5 + [i] * 6 + [ctypes.c_float, ctypes.c_float, i, i, i] + [p] * 2
         lib.rasterize_topk.restype = ctypes.c_int
@@ -232,31 +309,35 @@ def _library() -> ctypes.CDLL:
 
 
 def _run_kernel(face_verts, bins, image_size, blur_radius, K, perspective_correct,
-                clip_barycentric_coords):
-    """One launch of the fine kernel over binned faces; counts the launch."""
+                clip_barycentric_coords, row_band=None, wrapper=None):
+    """One launch of the fine kernel over faces binned to the band of rows
+    `row_band` = (row0, rows) (None: the whole image); counts the launch in
+    `wrapper.launches` (`rasterize_fragments_cuda`'s by default)."""
     tile_faces, tile_start, n_ty, n_tx = bins
     N, F = face_verts.shape[:2]
     H, W = image_size
+    row0, rows = check_row_band(row_band, H)
+    wrapper = wrapper or rasterize_fragments_cuda
     device = face_verts.device
     ys, xs = _pixel_grid(H, W, device)
-    idx = torch.empty((N, H, W, K), dtype=torch.int32, device=device)
-    zbuf = torch.empty((N, H, W, K), dtype=torch.float32, device=device)
-    bary = torch.empty((N, H, W, K, 3), dtype=torch.float32, device=device)
-    dists = torch.empty((N, H, W, K), dtype=torch.float32, device=device)
+    idx = torch.empty((N, rows, W, K), dtype=torch.int32, device=device)
+    zbuf = torch.empty((N, rows, W, K), dtype=torch.float32, device=device)
+    bary = torch.empty((N, rows, W, K, 3), dtype=torch.float32, device=device)
+    dists = torch.empty((N, rows, W, K), dtype=torch.float32, device=device)
     if N == 0:
         return idx, zbuf, bary, dists
     lib = _library()
     with torch.cuda.device(device):  # launch in the tensors' context
         err = lib.rasterize_fine(
             face_verts.data_ptr(), tile_faces.data_ptr(), tile_start.data_ptr(),
-            xs.data_ptr(), ys.data_ptr(), N, F, H, W, n_ty, n_tx, float(blur_radius),
+            xs.data_ptr(), ys.data_ptr(), N, F, H, W, row0, rows, n_ty, n_tx, float(blur_radius),
             box_grow(image_size, blur_radius), K, int(perspective_correct), int(clip_barycentric_coords),
             idx.data_ptr(), zbuf.data_ptr(), bary.data_ptr(), dists.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"rasterize_fine launch failed: CUDA error {err}")
-    rasterize_fragments_cuda.launches += 1
+    wrapper.launches += 1
     return idx, zbuf, bary, dists
 
 
@@ -276,17 +357,17 @@ def _grad_library() -> ctypes.CDLL:
                 f" the binning makes {TILE[0]}x{TILE[1]} tiles"
             )
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rasterize_grad.argtypes = [p] * 11 + [i] * 9 + [p] * 4
+        lib.rasterize_grad.argtypes = [p] * 11 + [i] * 11 + [p] * 4
         lib.rasterize_grad.restype = ctypes.c_int
     return lib
 
 
-def _raise_on_missing(error: torch.Tensor) -> None:
+def _raise_on_missing(error: torch.Tensor, name: str) -> None:
     """Raise where pass 1 set its error flag: a filled slot whose face is
     missing from its tile's list.  Reading the flag is the backward's one
     host sync."""
     if int(error.item()):
-        raise RuntimeError("rasterize_grad_cuda: a filled slot's face is missing from its tile's list in bins")
+        raise RuntimeError(f"{name}: a filled slot's face is missing from its tile's list in bins")
 
 
 def rasterize_grad_cuda(
@@ -311,40 +392,68 @@ def rasterize_grad_cuda(
     backward's one host sync reads that flag).  No atomics: two runs on
     the same inputs give the same bits.
     """
+    return _grad(face_verts, pix_to_face, gz, gbary, gdists, 0, image_size, bins, perspective_correct,
+                 clip_barycentric_coords, rasterize_grad_cuda)
+
+
+def rasterize_grad_band_cuda(
+    face_verts: torch.Tensor,  # (N, F, 3, 3)
+    pix_to_face: torch.Tensor,  # (N, rows, W, K) int32 local ids of rows [row0, row0 + rows)
+    gz: Optional[torch.Tensor],  # (N, rows, W, K) or None (= 0)
+    gbary: Optional[torch.Tensor],  # (N, rows, W, K, 3) or None
+    gdists: Optional[torch.Tensor],  # (N, rows, W, K) or None
+    row0: int,
+    image_size: Tuple[int, int],
+    bins,  # the band forward's `bin_faces(..., row_band=(row0, rows))`
+    perspective_correct: bool = False,
+    clip_barycentric_coords: bool = False,
+) -> torch.Tensor:
+    """`rasterize_grad_cuda` over a band of rows (the backward of
+    `rasterize_fragments_pallas_band`, rasterize_pallas.py:1346): the
+    (N, F, 3, 3) gradient of the band's fragments, to be summed over the
+    bands.  Counts its launches in `rasterize_grad_band_cuda.launches`."""
+    return _grad(face_verts, pix_to_face, gz, gbary, gdists, row0, image_size, bins, perspective_correct,
+                 clip_barycentric_coords, rasterize_grad_band_cuda)
+
+
+def _grad(face_verts, pix_to_face, gz, gbary, gdists, row0, image_size, bins, perspective_correct,
+          clip_barycentric_coords, wrapper):
+    name = wrapper.__name__
+    H, W = image_size
     if face_verts.device.type == "cpu":
         return rasterize_grad_plain(
             face_verts, pix_to_face, gz, gbary, gdists, image_size,
-            perspective_correct, clip_barycentric_coords,
+            perspective_correct, clip_barycentric_coords, row0=row0,
         )
     if face_verts.device.type != "cuda":
-        raise ValueError(f"rasterize_grad_cuda: unsupported device {face_verts.device}")
+        raise ValueError(f"{name}: unsupported device {face_verts.device}")
     if face_verts.dtype != torch.float32 or face_verts.ndim != 4 or face_verts.shape[2:] != (3, 3):
-        raise TypeError("rasterize_grad_cuda: face_verts must be a float32 (N, F, 3, 3) tensor")
+        raise TypeError(f"{name}: face_verts must be a float32 (N, F, 3, 3) tensor")
     N, F = face_verts.shape[:2]
     if pix_to_face.dtype != torch.int32 or pix_to_face.ndim != 4 or pix_to_face.shape[0] != N:
-        raise TypeError("rasterize_grad_cuda: pix_to_face must be an int32 (N, H, W, K) tensor")
-    H, W = image_size
-    if pix_to_face.shape[1:3] != (H, W):
-        raise ValueError(f"rasterize_grad_cuda: pix_to_face {tuple(pix_to_face.shape)} is not {H}x{W}")
+        raise TypeError(f"{name}: pix_to_face must be an int32 (N, rows, W, K) tensor")
+    row0, rows = check_row_band((row0, pix_to_face.shape[1]), H)
+    if pix_to_face.shape[2] != W:
+        raise ValueError(f"{name}: pix_to_face {tuple(pix_to_face.shape)} is not of {W} columns")
     shapes = (pix_to_face.shape, (*pix_to_face.shape, 3), pix_to_face.shape)
-    for name, g, shape in zip(("gz", "gbary", "gdists"), (gz, gbary, gdists), shapes):
+    for gname, g, shape in zip(("gz", "gbary", "gdists"), (gz, gbary, gdists), shapes):
         if g is None:
             continue
         if g.dtype != torch.float32 or g.shape != shape or g.device != face_verts.device:
-            raise TypeError(f"rasterize_grad_cuda: {name} must be float32 {tuple(shape)} on the faces' device")
+            raise TypeError(f"{name}: {gname} must be float32 {tuple(shape)} on the faces' device")
         if not g.is_contiguous():
-            raise ValueError(f"rasterize_grad_cuda: {name} must be contiguous")
+            raise ValueError(f"{name}: {gname} must be contiguous")
     if not (face_verts.is_contiguous() and pix_to_face.is_contiguous()):
-        raise ValueError("rasterize_grad_cuda: face_verts and pix_to_face must be contiguous")
+        raise ValueError(f"{name}: face_verts and pix_to_face must be contiguous")
     K = pix_to_face.shape[3]
     if N * F == 0 or pix_to_face.numel() == 0:
         return torch.zeros((N, F, 3, 3), dtype=torch.float32, device=face_verts.device)
     tile_faces, tile_start, n_ty, n_tx = bins
-    if (n_ty, n_tx) != (-(-H // TILE[0]), -(-W // TILE[1])) or tile_start.numel() != N * n_ty * n_tx + 1:
-        raise ValueError(f"rasterize_grad_cuda: bins of {n_ty}x{n_tx} tiles are not of {N} {H}x{W} images")
+    if (n_ty, n_tx) != (-(-rows // TILE[0]), -(-W // TILE[1])) or tile_start.numel() != N * n_ty * n_tx + 1:
+        raise ValueError(f"{name}: bins of {n_ty}x{n_tx} tiles are not of {N} bands of {rows}x{W}")
     if any(t.dtype != torch.int32 or t.device != face_verts.device or not t.is_contiguous()
            for t in (tile_faces, tile_start)):
-        raise TypeError("rasterize_grad_cuda: bins must be contiguous int32 tensors on the faces' device")
+        raise TypeError(f"{name}: bins must be contiguous int32 tensors on the faces' device")
     device = face_verts.device
     pair_rows, face_start = face_pair_rows(tile_faces, tile_start, N, F)
     gpair = torch.empty((max(tile_faces.numel(), 1), 9), dtype=torch.float32, device=device)
@@ -356,50 +465,65 @@ def rasterize_grad_cuda(
         err = lib.rasterize_grad(
             face_verts.data_ptr(), tile_faces.data_ptr(), tile_start.data_ptr(), pair_rows.data_ptr(),
             face_start.data_ptr(), pix_to_face.data_ptr(), _ptr(gz), _ptr(gbary), _ptr(gdists),
-            xs.data_ptr(), ys.data_ptr(), N, F, H, W, K, n_ty, n_tx, int(perspective_correct),
+            xs.data_ptr(), ys.data_ptr(), N, F, H, W, row0, rows, K, n_ty, n_tx, int(perspective_correct),
             int(clip_barycentric_coords), gpair.data_ptr(), error.data_ptr(), grad.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"rasterize_grad launch failed: CUDA error {err}")
-    rasterize_grad_cuda.launches += 1
-    _raise_on_missing(error)
+    wrapper.launches += 1
+    _raise_on_missing(error, name)
     return grad
 
 
 rasterize_grad_cuda.launches = 0
+rasterize_grad_band_cuda.launches = 0
 
 
 class _RasterizeFine(torch.autograd.Function):
-    """The CUDA fine rasterizer as an autograd op: forward and backward are
-    the two kernels."""
+    """The CUDA fine rasterizer as an autograd op over a band of rows (the
+    whole image: the band (0, H)): forward and backward are the two
+    kernels, each over the band's binning."""
 
     @staticmethod
-    def forward(ctx, face_verts, valid, image_size, blur_radius, K,
-                perspective_correct, clip_barycentric_coords, cull_backfaces):
+    def forward(ctx, face_verts, valid, image_size, row_band, blur_radius, K,
+                perspective_correct, clip_barycentric_coords, cull_backfaces, band):
         fv = face_verts.detach()
-        bins = bin_faces(fv, _face_culls(fv, valid, cull_backfaces), image_size, blur_radius)
+        bins = bin_faces(fv, _face_culls(fv, valid, cull_backfaces), image_size, blur_radius, row_band,
+                         perspective_correct)
+        wrapper = rasterize_fragments_band_cuda if band else rasterize_fragments_cuda
         idx, zbuf, bary, dists = _run_kernel(
-            fv, bins, image_size, blur_radius, K, perspective_correct,
-            clip_barycentric_coords,
+            fv, bins, image_size, blur_radius, K, perspective_correct, clip_barycentric_coords, row_band, wrapper,
         )
         ctx.mark_non_differentiable(idx)
         ctx.set_materialize_grads(False)  # an unused output's cotangent stays None
         ctx.save_for_backward(fv, idx, bins[0], bins[1])  # the backward sums over the same tiles
-        ctx.raster = (image_size, perspective_correct, clip_barycentric_coords, bins[2], bins[3])
+        ctx.raster = (image_size, row_band[0], band, perspective_correct, clip_barycentric_coords, bins[2], bins[3])
         return idx, zbuf, bary, dists
 
     @staticmethod
     @once_differentiable
     def backward(ctx, _gidx, gz, gbary, gdists):
         fv, idx, tile_faces, tile_start = ctx.saved_tensors
-        image_size, perspective_correct, clip_barycentric_coords, n_ty, n_tx = ctx.raster
+        image_size, row0, band, perspective_correct, clip_barycentric_coords, n_ty, n_tx = ctx.raster
         gz, gbary, gdists = (None if g is None else g.float().contiguous() for g in (gz, gbary, gdists))
-        grad = rasterize_grad_cuda(
-            fv, idx, gz, gbary, gdists, image_size, (tile_faces, tile_start, n_ty, n_tx),
-            perspective_correct, clip_barycentric_coords,
+        bins = (tile_faces, tile_start, n_ty, n_tx)
+        if band:
+            grad = rasterize_grad_band_cuda(fv, idx, gz, gbary, gdists, row0, image_size, bins,
+                                            perspective_correct, clip_barycentric_coords)
+        else:
+            grad = rasterize_grad_cuda(fv, idx, gz, gbary, gdists, image_size, bins,
+                                       perspective_correct, clip_barycentric_coords)
+        return grad, None, None, None, None, None, None, None, None, None
+
+
+def _check_fine_inputs(name: str, face_verts: torch.Tensor, valid: torch.Tensor, faces_per_pixel: int) -> None:
+    """Raise on what the fine kernel does not take."""
+    _check_faces(name, face_verts, valid, 4)
+    if not 1 <= faces_per_pixel <= MAX_FACES_PER_PIXEL:
+        raise ValueError(
+            f"{name}: faces_per_pixel={faces_per_pixel} is outside the kernel's 1..{MAX_FACES_PER_PIXEL}"
         )
-        return grad, None, None, None, None, None, None, None
 
 
 def rasterize_fragments_cuda(
@@ -423,28 +547,56 @@ def rasterize_fragments_cuda(
             face_verts, valid, image_size, blur_radius, faces_per_pixel,
             perspective_correct, clip_barycentric_coords, cull_backfaces,
         )
-    if face_verts.device.type != "cuda":
-        raise ValueError(f"rasterize_fragments_cuda: unsupported device {face_verts.device}")
-    if face_verts.dtype != torch.float32:
-        raise TypeError(f"rasterize_fragments_cuda: face_verts must be float32, got {face_verts.dtype}")
-    if face_verts.ndim != 4 or face_verts.shape[2:] != (3, 3):
-        raise ValueError(f"rasterize_fragments_cuda: face_verts must be (N, F, 3, 3), got {tuple(face_verts.shape)}")
-    if not face_verts.is_contiguous():
-        raise ValueError("rasterize_fragments_cuda: face_verts must be contiguous")
-    if valid.shape != face_verts.shape[:2] or valid.dtype != torch.bool or valid.device != face_verts.device:
-        raise ValueError("rasterize_fragments_cuda: valid must be an (N, F) bool tensor on the faces' device")
-    if not 1 <= faces_per_pixel <= MAX_FACES_PER_PIXEL:
-        raise ValueError(
-            f"rasterize_fragments_cuda: faces_per_pixel={faces_per_pixel} is outside"
-            f" the kernel's 1..{MAX_FACES_PER_PIXEL}"
-        )
+    _check_fine_inputs("rasterize_fragments_cuda", face_verts, valid, faces_per_pixel)
     return _RasterizeFine.apply(
-        face_verts, valid, tuple(image_size), float(blur_radius), int(faces_per_pixel),
-        bool(perspective_correct), bool(clip_barycentric_coords), bool(cull_backfaces),
+        face_verts, valid, tuple(image_size), (0, int(image_size[0])), float(blur_radius), int(faces_per_pixel),
+        bool(perspective_correct), bool(clip_barycentric_coords), bool(cull_backfaces), False,
     )
 
 
 rasterize_fragments_cuda.launches = 0
+
+
+def rasterize_fragments_band_cuda(
+    face_verts: torch.Tensor,  # (N, F, 3, 3) NDC xy + view z
+    valid: torch.Tensor,  # (N, F) bool
+    row0: int,
+    rows: int,
+    image_size: Tuple[int, int],
+    blur_radius: float = 0.0,
+    faces_per_pixel: int = 1,
+    perspective_correct: bool = False,
+    clip_barycentric_coords: bool = False,
+    cull_backfaces: bool = False,
+):
+    """(N, rows, W, K) (pix_to_face, zbuf, bary, dists) of rows
+    [row0, row0 + rows) of the `image_size` images, equal bit for bit to
+    those rows of `rasterize_fragments_cuda` (JAX
+    `rasterize_fragments_pallas_band`, whose band starts at a tile row; here
+    any row0 and rows in the image).  Differentiable with respect to
+    `face_verts`: the backward is the band's build of the backward kernel,
+    the gradient of this band alone.
+
+    CUDA tensors launch the fine kernel over the band's binning (counted in
+    `rasterize_fragments_band_cuda.launches`; the backward in
+    `rasterize_grad_band_cuda.launches`); CPU tensors run
+    `rasterize_fragments_band_plain`.  Anything the kernel does not take
+    raises, as does a band outside the image.
+    """
+    row_band = check_row_band((row0, rows), int(image_size[0]))
+    if face_verts.device.type == "cpu":
+        return rasterize_fragments_band_plain(
+            face_verts, valid, *row_band, image_size, blur_radius, faces_per_pixel,
+            perspective_correct, clip_barycentric_coords, cull_backfaces,
+        )
+    _check_fine_inputs("rasterize_fragments_band_cuda", face_verts, valid, faces_per_pixel)
+    return _RasterizeFine.apply(
+        face_verts, valid, tuple(image_size), row_band, float(blur_radius), int(faces_per_pixel),
+        bool(perspective_correct), bool(clip_barycentric_coords), bool(cull_backfaces), True,
+    )
+
+
+rasterize_fragments_band_cuda.launches = 0
 
 
 def _check_faces(name: str, face_verts: torch.Tensor, valid: torch.Tensor, ndim: int) -> None:
@@ -494,7 +646,7 @@ def rasterize_topk_cuda(
     K = int(faces_per_pixel)
     fv = face_verts.detach()[None]
     tile_faces, tile_start, n_ty, n_tx = bin_faces(
-        fv, _face_culls(fv, valid[None], cull_backfaces), (H, W), blur_radius
+        fv, _face_culls(fv, valid[None], cull_backfaces), (H, W), blur_radius, None, perspective_correct
     )
     idx = torch.empty((H, W, K), dtype=torch.int32, device=fv.device)
     ys, xs = _pixel_grid(H, W, fv.device)

@@ -299,21 +299,25 @@ def rasterize_grad_plain(
     image_size: Tuple[int, int],
     perspective_correct: bool = False,
     clip_barycentric_coords: bool = False,
+    row0: int = 0,
 ) -> torch.Tensor:
     """(N, F, 3, 3) gradient of (zbuf, bary, dists) w.r.t. `face_verts`.
 
     The JAX package's `_interp_bwd`: the VJP of `_fragments_from_gathered`
     on the per-pixel gathered verts (`torch.autograd.grad`), empty slots
     masked, scattered back to faces with `index_add_`.  It is the plain
-    version of the CUDA backward kernel in `rasterize_cuda.py`.
+    version of the CUDA backward kernel in `rasterize_cuda.py`.  The ids
+    and cotangents may be a band of rows of the image, starting at `row0`.
     """
     N, F = face_verts.shape[:2]
     idx = pix_to_face.long()
     flat = (idx.clamp(min=0) + (torch.arange(N, device=idx.device) * F)[:, None, None, None])
+    rows = idx.shape[1]
+    pxy = pixel_centers_ndc(*image_size, face_verts.device, face_verts.dtype)[row0 : row0 + rows]
     with torch.enable_grad():
         fv = face_verts.detach().reshape(N * F, 3, 3)[flat].requires_grad_(True)
         outs = _fragments_from_gathered(
-            fv, idx, image_size, perspective_correct, clip_barycentric_coords
+            fv, idx, image_size, perspective_correct, clip_barycentric_coords, pxy=pxy
         )
         pairs = [(o, g) for o, g in zip(outs, (gz, gbary, gdists)) if g is not None]
         if pairs:

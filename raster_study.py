@@ -16,6 +16,18 @@ end-to-end paths that run them.
     git show 3144b18:pytorch3d_tpu_torch/csrc/rasterize_points_grad.cu > build/points_grad_parent.cu
     python3 raster_study.py points-grad --source build/points_grad_parent.cu
     python3 raster_study.py e2e [--tree DIR] [--reps N] [--paths NAME ...]
+    mkdir -p build/band_parent
+    git show 7ecb4ee:pytorch3d_tpu_torch/csrc/rasterize_fine.cu > build/band_parent/rasterize_fine.cu
+    git show 7ecb4ee:pytorch3d_tpu_torch/csrc/rasterize_grad.cu > build/band_parent/rasterize_grad.cu
+    python3 raster_study.py band --source build/band_parent
+
+`band`: DIR holds a `rasterize_fine.cu` and a `rasterize_grad.cu` without
+the row band in their C interfaces, such as 7ecb4ee's.  At the serving
+batch, the headline and the render-fit shape (#1) and at the render-fit
+and headline backward inputs (#4, `chip_smoke.grad_path_inputs`), the
+package's full-image calls (the band (0, H)) must give DIR's bits, and
+both are timed by the profiler's device time in the order DIR, package,
+package, DIR.
 
 `fine`: FILE is a `rasterize_fine.cu` without the box growth in its C
 interface, such as b30e36d's, where every pixel of a tile tests every
@@ -476,7 +488,8 @@ def study_fine(cs, device, source):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for name, (lib, log) in built.items():
         grow = sources[name][2]
-        lib.rasterize_fine.argtypes = [p] * 5 + [i] * 6 + [f] * (2 if grow else 1) + [i] * 3 + [p] * 5
+        # The package's copies take the row band (row0, rows) after W; the parent takes neither it nor the growth.
+        lib.rasterize_fine.argtypes = [p] * 5 + [i] * (8 if grow else 6) + [f] * (2 if grow else 1) + [i] * 3 + [p] * 5
         lib.rasterize_fine.restype = ctypes.c_int
         libs[name] = (lib, grow, sources[name][3])
         for kernel, figures in cs.ptxas_figures(log).items():
@@ -492,11 +505,12 @@ def study_fine(cs, device, source):
                 torch.empty((N, H, W, k), device=device), torch.empty((N, H, W, k, 3), device=device),
                 torch.empty((N, H, W, k), device=device))
         grow = (rc.box_grow(size, blur),) if grow_arg else ()
+        band = (0, H) if grow_arg else ()
 
         def run():
             err = lib.rasterize_fine(
                 fv.data_ptr(), tile_faces.data_ptr(), tile_start.data_ptr(), xs.data_ptr(), ys.data_ptr(),
-                N, F, H, W, n_ty, n_tx, float(blur), *grow, k, int(persp), int(clip),
+                N, F, H, W, *band, n_ty, n_tx, float(blur), *grow, k, int(persp), int(clip),
                 *(t.data_ptr() for t in outs), torch.cuda.current_stream().cuda_stream,
             )
             assert err == 0, err
@@ -952,6 +966,85 @@ def study_points_grad(cs, device, source):
     return 0
 
 
+def study_band(cs, device, source):
+    import torch
+
+    from pytorch3d_tpu_torch import _build
+    from pytorch3d_tpu_torch.renderer.mesh import rasterize_cuda as rc
+    from pytorch3d_tpu_torch.renderer.mesh.rasterize_meshes import _face_culls
+
+    fine, _ = _build.build_copy("rasterize_fine", "band_parent_fine", (source / "rasterize_fine.cu").read_text(), OUT)
+    grad, _ = _build.build_copy("rasterize_grad", "band_parent_grad", (source / "rasterize_grad.cu").read_text(), OUT)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fine.rasterize_fine.argtypes = [p] * 5 + [i] * 6 + [f, f, i, i, i] + [p] * 5
+    grad.rasterize_grad.argtypes = [p] * 11 + [i] * 9 + [p] * 4
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t  # noqa: E731
+    failed = []
+
+    def parent_fine(fv, bins, size, blur, k, persp, clip):
+        N, F = fv.shape[:2]
+        ys, xs = rc.pixel_grid_ndc(*size, device)
+        outs = (torch.empty((N, *size, k), dtype=torch.int32, device=device), torch.empty((N, *size, k), device=device),
+                torch.empty((N, *size, k, 3), device=device), torch.empty((N, *size, k), device=device))
+        assert fine.rasterize_fine(fv.data_ptr(), bins[0].data_ptr(), bins[1].data_ptr(), xs.data_ptr(), ys.data_ptr(),
+                                   N, F, *size, bins[2], bins[3], float(blur), rc.box_grow(size, blur), k, int(persp),
+                                   int(clip), *(t.data_ptr() for t in outs), stream()) == 0
+        return outs
+
+    for label, fv, valid, size, blur, k, persp, clip, _ in fine_settings(cs, device):
+        if label not in ("main path batch", "headline ico4", "render-fit"):
+            continue
+        bins = rc.bin_faces(fv, _face_culls(fv, valid, False), size, blur)
+        want = parent_fine(fv, bins, size, blur, k, persp, clip)
+        got = rc._run_kernel(fv, bins, size, blur, k, persp, clip)
+        same = all(torch.equal(bits(a), bits(b)) for a, b in zip(got, want))
+        name = f"rasterize_fine_kernel<{cs.fine_bucket(k)}, false>"
+        ms = [cs.device_ms(run, name, iters=20, warmup=5) for run in (
+            lambda: parent_fine(fv, bins, size, blur, k, persp, clip),
+            lambda: rc._run_kernel(fv, bins, size, blur, k, persp, clip),
+            lambda: rc._run_kernel(fv, bins, size, blur, k, persp, clip),
+            lambda: parent_fine(fv, bins, size, blur, k, persp, clip))]
+        print(f"band [#1 {label}] N={fv.shape[0]} F={fv.shape[1]} {size[0]}x{size[1]} K={k}: full-image bits equal to"
+              f" the parent's {same}; device ms parent {ms[0]:.4f}, package {ms[1]:.4f}, package {ms[2]:.4f},"
+              f" parent {ms[3]:.4f}", flush=True)
+        if not same:
+            failed.append(f"#1 {label}")
+
+    def parent_grad(fv, idx, cots, size, bins, persp, clip):
+        N, F = fv.shape[:2]
+        ys, xs = rc.pixel_grid_ndc(*size, device)
+        pair_rows, face_start = rc.face_pair_rows(bins[0], bins[1], N, F)
+        gpair = torch.empty((max(bins[0].numel(), 1), 9), device=device)
+        error = torch.zeros((1,), dtype=torch.int32, device=device)
+        out = torch.empty((N, F, 3, 3), device=device)
+        assert grad.rasterize_grad(fv.data_ptr(), bins[0].data_ptr(), bins[1].data_ptr(), pair_rows.data_ptr(),
+                                   face_start.data_ptr(), idx.data_ptr(), *(None if c is None else c.data_ptr()
+                                                                            for c in cots),
+                                   xs.data_ptr(), ys.data_ptr(), N, F, *size, idx.shape[3], bins[2], bins[3],
+                                   int(persp), int(clip), gpair.data_ptr(), error.data_ptr(), out.data_ptr(),
+                                   stream()) == 0
+        return out
+
+    size = (cs.IMAGE, cs.IMAGE)
+    for label, fv, idx, cots, persp, clip, bins in cs.grad_path_inputs(device, cs.RenderFit(device)):
+        want = parent_grad(fv, idx, cots, size, bins, persp, clip)
+        got = rc.rasterize_grad_cuda(fv, idx, *cots, size, bins, persp, clip)
+        same = torch.equal(bits(got), bits(want))
+        ms = [sum(cs.device_ms_by_kernel(run, cs.GRAD_KERNELS).values()) for run in (
+            lambda: parent_grad(fv, idx, cots, size, bins, persp, clip),
+            lambda: rc.rasterize_grad_cuda(fv, idx, *cots, size, bins, persp, clip),
+            lambda: rc.rasterize_grad_cuda(fv, idx, *cots, size, bins, persp, clip),
+            lambda: parent_grad(fv, idx, cots, size, bins, persp, clip))]
+        print(f"band [#4 {label}]: full-image bits equal to the parent's {same}; device ms (both passes) parent"
+              f" {ms[0]:.4f}, package {ms[1]:.4f}, package {ms[2]:.4f}, parent {ms[3]:.4f}", flush=True)
+        if not same:
+            failed.append(f"#4 {label}")
+    print(f"band: {'bits differ at ' + str(failed) if failed else 'every full-image output equals the parent bit for bit'}",
+          flush=True)
+    return 1 if failed else 0
+
+
 def study_e2e(cs, device, tree, reps, names):
     import torch
 
@@ -1008,6 +1101,8 @@ def main() -> int:
                                         help="a rasterize_hard.cu without the box growth")
     sub.add_parser("points-grad").add_argument("--source", type=Path, required=True,
                                                help="a rasterize_points_grad.cu with atomic adds")
+    sub.add_parser("band").add_argument("--source", type=Path, required=True,
+                                        help="a directory with rasterize_fine.cu and rasterize_grad.cu without the row band")
     e2e = sub.add_parser("e2e")
     e2e.add_argument("--tree", default=str(REPO))
     e2e.add_argument("--reps", type=int, default=16)
@@ -1028,7 +1123,7 @@ def main() -> int:
                          capture_output=True, text=True)
     print(smi.stdout.strip(), flush=True)
     studies = {"fine": study_fine, "pulsar": study_pulsar, "points": study_points, "hard": study_hard,
-               "points-grad": study_points_grad}
+               "points-grad": study_points_grad, "band": study_band}
     return studies[args.study](cs, device, args.source)
 
 

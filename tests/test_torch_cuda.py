@@ -1066,3 +1066,124 @@ def test_implicit_renderer_through_the_field_kernels_matches_plain(cuda_device):
     assert float((out[0][0] - out[1][0]).abs().max()) <= 1e-5
     for n, g in out[1][1].items():
         assert float((out[0][1][n] - g).abs().max()) <= 1e-4 * float(g.abs().max()), n
+
+
+# --------------------------------------------------------------------------- #
+# The row-band entry (#1 and #4 over a band of rows) and ICP through #9
+# --------------------------------------------------------------------------- #
+
+_BANDS = ((0, 40), (40, 24), (64, 32))  # rows of a 96-row image: off and on the 16-row tile grid
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.parametrize("persp,clip", [(False, False), (True, True)])
+def test_band_fragments_equal_the_full_image_rows(cuda_device, persp, clip):
+    size = (96, 80)
+    fv, valid = _batch_faces(cuda_device, size, aspect_ratio=size[1] / size[0])
+    full = trc.rasterize_fragments_cuda(fv, valid, size, 1e-4, 8, persp, clip)
+    before = trc.rasterize_fragments_band_cuda.launches
+    for row0, rows in _BANDS:
+        band = trc.rasterize_fragments_band_cuda(fv, valid, row0, rows, size, 1e-4, 8, persp, clip)
+        for got, want in zip(band, full):
+            assert torch.equal(_bits(got), _bits(want[:, row0 : row0 + rows]))
+    assert trc.rasterize_fragments_band_cuda.launches == before + len(_BANDS)
+
+
+def _strip_faces(device, size):
+    """(1, 8, 3, 3) NDC verts of a seeded strip of large faces on a floor
+    below a camera at the origin, each with one or two vertices behind it
+    (z < 0), and their valid mask."""
+    gen = torch.Generator().manual_seed(0)
+    x = torch.linspace(-2.0, 2.0, 5)
+    verts = torch.cat([torch.stack([x, torch.full((5,), -0.6), torch.full((5,), z)], -1) for z in (2.0, -2.0)])
+    verts = verts + 0.4 * torch.rand(verts.shape, generator=gen) - 0.2
+    faces = torch.tensor([(i, 5 + i, 6 + i) for i in range(4)] + [(i, i + 1, 6 + i) for i in range(4)])
+    cams = FoVPerspectiveCameras.create(R=torch.eye(3, device=device)[None], T=torch.zeros((1, 3), device=device),
+                                        aspect_ratio=size[1] / size[0], device=device)
+    ndc = MeshRasterizer(cams).transform(Meshes.create([verts.to(device)], [faces.to(device)], device=device))
+    fv = ndc.verts_packed()[ndc.faces_packed()][None].contiguous()
+    return fv, torch.ones(fv.shape[:2], dtype=torch.bool, device=device)
+
+
+def test_band_fragments_with_faces_crossing_z0(cuda_device):
+    """Under perspective correction a face with a vertex behind the camera
+    covers pixels far outside its bounding box; its pixel box is the whole
+    image and the binning lists it in every tile.  So the full image equals
+    its plain version (the #1 gate of test_fine_kernel_matches_plain), and
+    bands on and off the 16-row grid equal its rows bit for bit; their
+    backward sums to the full image's within 1e-4 of the largest entry."""
+    size = (96, 80)
+    fv, valid = _strip_faces(cuda_device, size)
+    assert (fv[..., 2].amin(-1) < 0).all()
+    w = fv.clone().requires_grad_(True)
+    full = trc.rasterize_fragments_cuda(w, valid, size, 1e-4, 4, True, False)
+    want = trc.rasterize_fragments_plain(fv, valid, size, 1e-4, 4, True, False)
+    same = full[0].long() == want[0]
+    assert (full[0] >= 0).any() and bool(same.all())
+    assert (full[1] - want[1]).abs()[same].max() < 5e-3
+    assert (full[2] - want[2]).abs().max() <= 1e-4
+    assert (full[3] - want[3]).abs().max() <= 1e-6
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    cz, cd = (torch.randn(full[1].shape, generator=gen, device=cuda_device) for _ in range(2))
+    (want_grad,) = torch.autograd.grad((full[1] * cz).sum() + (full[3] * cd).sum(), w)
+    total = torch.zeros_like(want_grad)
+    for row0, rows in _BANDS:
+        band = trc.rasterize_fragments_band_cuda(w, valid, row0, rows, size, 1e-4, 4, True, False)
+        for got, ref in zip(band, full):
+            assert torch.equal(_bits(got), _bits(ref[:, row0 : row0 + rows]))
+        loss = (band[1] * cz[:, row0 : row0 + rows]).sum() + (band[3] * cd[:, row0 : row0 + rows]).sum()
+        total += torch.autograd.grad(loss, w)[0]
+    scale = float(want_grad.abs().max())
+    assert scale > 0 and float((total - want_grad).abs().max()) <= 1e-4 * scale
+
+
+def test_band_backward_is_deterministic_and_sums_to_the_full_backward(cuda_device):
+    """Two launches of #4's band build give the same bits; the bands'
+    gradients of the headline loss (bench.py:117-119), summed, are the full
+    image's within atol 1e-7 / rtol 1e-4 (JAX's tolerance for its sharded
+    dry run)."""
+    size = (96, 80)
+    fv, valid = _batch_faces(cuda_device, size, aspect_ratio=size[1] / size[0])
+    idx, zbuf, bary, dists = trc.rasterize_fragments_cuda(fv, valid, size, 1e-4, 8, True, True)
+    gz, _, gdists = _CHIP_SMOKE.headline_cotangents(zbuf, dists)
+    cots = (gz, torch.zeros_like(bary), gdists)
+    want = trc.rasterize_grad_cuda(fv, idx, *cots, size, trc.bin_faces(fv, valid, size, 1e-4), True, True)
+    total = torch.zeros_like(want)
+    before = trc.rasterize_grad_band_cuda.launches
+    for row0, rows in _BANDS:
+        bins = trc.bin_faces(fv, trm._face_culls(fv, valid, False), size, 1e-4, (row0, rows))
+        part = [c[:, row0 : row0 + rows].contiguous() for c in cots]
+        first = trc.rasterize_grad_band_cuda(fv, idx[:, row0 : row0 + rows].contiguous(), *part, row0, size, bins,
+                                             True, True)
+        second = trc.rasterize_grad_band_cuda(fv, idx[:, row0 : row0 + rows].contiguous(), *part, row0, size, bins,
+                                              True, True)
+        assert torch.equal(_bits(first), _bits(second))
+        total += first
+    assert trc.rasterize_grad_band_cuda.launches == before + 2 * len(_BANDS)
+    assert torch.allclose(total, want, atol=1e-7, rtol=1e-4)
+
+
+def test_icp_through_the_knn_kernel_equals_the_plain_route(cuda_device):
+    """ICP's K=1 neighbours through #9 give the plain KNN route's bits, so
+    the whole solution is the same."""
+    from unittest import mock
+
+    from pytorch3d_tpu_torch.ops import iterative_closest_point
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    X = torch.randn((2, 2000, 3), generator=gen, device=cuda_device)
+    angle = torch.tensor(0.2)
+    R = torch.tensor([[torch.cos(angle), -torch.sin(angle), 0.0], [torch.sin(angle), torch.cos(angle), 0.0],
+                      [0.0, 0.0, 1.0]], device=cuda_device)
+    Y = 1.1 * X @ R + torch.tensor([0.1, 0.0, -0.2], device=cuda_device)
+    before = tknn.knn_points_cuda.launches
+    got = iterative_closest_point(X, Y, estimate_scale=True, max_iterations=15)
+    assert tknn.knn_points_cuda.launches == before + len(got.t_history)
+    with mock.patch.object(tknn, "knn_points_cuda", tknn.knn_points_plain):
+        want = iterative_closest_point(X, Y, estimate_scale=True, max_iterations=15)
+    assert got.converged == want.converged and len(got.t_history) == len(want.t_history)
+    assert all(torch.equal(a, b) for a, b in zip(got.RTs, want.RTs))
+    assert torch.equal(got.Xt, want.Xt)

@@ -14,18 +14,17 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 MODULES = ["transforms", "renderer", "renderer/mesh", "renderer/points", "renderer/implicit", "structures", "ops",
-           "loss", "utils", "common"]
+           "loss", "utils", "common", "parallel"]
 
 # ROADMAP.md queue 1 item -> the JAX names it brings to the port.
 NOT_YET = {
     "3. the rest of NeRF that needs nothing of Implicitron": [],
     "4. the remaining ops and losses": [
-        "GraphConv", "SubdivideMeshes", "ball_query", "box3d_overlap", "corresponding_cameras_alignment",
-        "corresponding_points_alignment", "cubify", "efficient_pnp", "gather_scatter", "gather_scatter_python",
-        "interpolate_face_attributes_python", "iterative_closest_point", "marching_cubes", "marching_cubes_naive",
-        "rasterize_points_python", "sample_farthest_points", "sample_farthest_points_naive", "taubin_smoothing",
-        "vert_align",
+        "GraphConv", "SubdivideMeshes", "box3d_overlap", "cubify", "gather_scatter", "gather_scatter_python",
+        "interpolate_face_attributes_python", "marching_cubes", "marching_cubes_naive", "rasterize_points_python",
+        "taubin_smoothing", "vert_align",
     ],
+    "6. Implicitron and the trainers": ["make_sharded_generic_train_step"],
 }
 _QUEUED = {name: item for item, names in NOT_YET.items() for name in names}
 

@@ -259,11 +259,20 @@ def test_weights_round_trip(graft_entry):
 
 
 def test_left_out_options_raise():
-    """bf16 and ray sharding still raise; remat is ported
-    (tests/test_torch_implicit_renderer.py)."""
+    """bf16 still raises, for the renderer and the training step; remat is
+    ported (tests/test_torch_implicit_renderer.py), and so is ray sharding:
+    the one rank of a (1, 1) mesh renders every ray, as without it
+    (tests/test_torch_parallel.py shards over ranks)."""
+    from pytorch3d_tpu_torch.parallel import get_device_mesh, make_nerf_train_step, shard_rays
+
     assert RadianceFieldRenderer(32, 32, **TINY, remat=True, device="cpu").remat
     with pytest.raises(NotImplementedError):
         RadianceFieldRenderer(32, 32, **TINY, dtype=torch.bfloat16, device="cpu")
     model = RadianceFieldRenderer(32, 32, **TINY, device="cpu")
     with pytest.raises(NotImplementedError):
-        model(_port_cameras(graft._tiny_inputs()[0]), training=False, ray_sharding=object())
+        make_nerf_train_step(model, torch.optim.Adam(model.parameters()), compute_dtype=torch.bfloat16)
+    cams = _port_cameras(graft._tiny_inputs()[0])
+    with torch.no_grad():
+        want, _ = model(cams, training=False, chunksize=256)
+        got, _ = model(cams, training=False, chunksize=256, ray_sharding=shard_rays(get_device_mesh((1, 1))))
+    assert all(torch.equal(got[k], want[k]) for k in want)
