@@ -156,6 +156,17 @@ final result line:
     single-device step; alignment-ops runs ICP through #9 on
     points-serving's 8 clouds against the plain KNN route, farthest point
     sampling, ball query, EPnP and camera alignment against float64.
+14. slice 16, after slice 15: mesh-ops runs cubify (4 x 32^3), marching
+    cubes (a 64^3 sphere SDF), box3d_overlap (10^4 pairs), SubdivideMeshes,
+    vert_align (Mesh R-CNN's 4-level pyramid), GraphConv (128 channels) and
+    Taubin smoothing on the card against the same calls on the CPU;
+    nerf-trainer runs the flagship's trainer at full width as a user does
+    (`train_nerf.main`: 2 epochs on the rendered-sphere dataset through #1,
+    #12 and #13, a falling loss, then a resume that must hold the saved
+    weights, Adam state and Stats to the bit and run epoch 2 alone), then
+    `test_nerf` (the trained model's PSNR above its init's on every test
+    frame, a frame against use_fused_kernel=False, the 40-frame export
+    trajectory through #12 and its video where PIL is installed).
 
 The last lines are a `{"kernels": [...]}` JSON line and then
 `{"ok": true, "device": {...}}`.  Without CUDA, or outside a checkout of
@@ -6133,6 +6144,269 @@ def phase_alignment_ops(device, card):
     return {"alignment-ops": counts}
 
 
+
+MESH_OPS_CUBIFY = (4, 32)  # grids, side
+MESH_OPS_MC = 64  # marching cubes: a 64^3 sphere SDF
+MESH_OPS_BOXES = 100  # box3d_overlap: 100 x 100 = 10^4 pairs
+MESH_OPS_PYRAMID = ((256, 56), (512, 28), (1024, 14), (2048, 7))  # Mesh R-CNN's ResNet-50 stages (C, side)
+MESH_OPS_CHANNELS = 128  # GraphConv's width in Mesh R-CNN's refinement
+MESH_OPS_EXACT = 1e-6  # cubify, subdivision: the card against the CPU (the same float32 operations)
+MESH_OPS_GATE = 1e-5  # marching cubes, box IoU, vert align, GraphConv, Taubin: max |card - CPU|
+NERF_TRAINER_ARGS = ["--image_size", "128", "--hidden", "256", "--layers", "8", "--n_rays", "1024", "--n_pts", "64"]
+NERF_TRAINER_EPOCHS = 2
+
+
+def _boxes_from(gen, n, device):
+    """n seeded oriented boxes (PyTorch3D's corner order) of sides 0.5-1.5
+    about centres in [-1, 1]^3."""
+    import torch
+
+    unit = torch.tensor([[0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0], [0, 0, 1], [1, 0, 1], [1, 1, 1], [0, 1, 1]],
+                        dtype=torch.float32, device=device)
+    R = random_rotations_from(gen, n, math.pi, device)
+    size = 0.5 + torch.rand((n, 1, 3), generator=gen, device=device)
+    centre = torch.rand((n, 1, 3), generator=gen, device=device) * 2 - 1
+    return ((unit - 0.5) * size) @ R + centre
+
+
+def phase_mesh_ops(device, card):
+    """Slice 16's mesh and box ops at sizes their users run, on the card,
+    each against the same call on the CPU (the same code on another device;
+    no kernel runs here): cubify of 4 seeded 32^3 occupancies, marching
+    cubes of a 64^3 sphere SDF, box3d_overlap of 100 x 100 = 10^4 seeded box
+    pairs, SubdivideMeshes of ico_sphere(4) with per-vertex features,
+    vert_align of the headline mesh's NDC vertices against Mesh R-CNN's
+    4-level ResNet-50 feature pyramid (256 x 56^2 ... 2048 x 7^2),
+    GraphConv at 128 channels over ico_sphere(4)'s edges, and 10 Taubin
+    iterations of a noisy ico_sphere(4).  Faces equal, values within
+    MESH_OPS_EXACT or MESH_OPS_GATE."""
+    import torch
+
+    from pytorch3d_tpu_torch.ops import (
+        GraphConv, SubdivideMeshes, box3d_overlap, cubify, marching_cubes, taubin_smoothing, vert_align,
+    )
+    from pytorch3d_tpu_torch.renderer import MeshRasterizer
+    from pytorch3d_tpu_torch.utils import ico_sphere
+
+    cpu = torch.device("cpu")
+    gen = torch.Generator(device=device).manual_seed(16)
+    times = {}
+
+    def run(name, fn, *args):
+        """fn on the card (timed with CUDA events over 3 calls after one)
+        and on the CPU copies of `args`."""
+        out = fn(*args)
+        times[name] = cuda_ms(lambda: fn(*args), iters=3, warmup=0)
+        return out, fn(*[a.to(cpu) for a in args])
+
+    def worst(a, b):
+        return float((a.cpu() - b).abs().max()) if a.numel() else 0.0
+
+    torch.cuda.synchronize()
+    reset_counts()
+    n, side = MESH_OPS_CUBIFY
+    vox = torch.rand((n, side, side, side), generator=gen, device=device)
+    got, want = run("cubify", lambda v: cubify(v, 0.7), vox)
+    same = torch.equal(got.faces_padded().cpu(), want.faces_padded()) and torch.equal(
+        got.num_verts_per_mesh().cpu(), want.num_verts_per_mesh())
+    err = worst(got.verts_padded(), want.verts_padded())
+    log(f"mesh-ops [cubify, {n} x {side}^3, thresh 0.7]: {got.num_faces_per_mesh().tolist()} faces, faces equal to the"
+        f" CPU's {same}, vertices {err:.1e} off (gate {MESH_OPS_EXACT:g})")
+    check(same and err <= MESH_OPS_EXACT, "mesh-ops: cubify on the card differs from the CPU")
+
+    g = torch.linspace(-1.0, 1.0, MESH_OPS_MC, device=device)
+    z, y, x = torch.meshgrid(g, g, g, indexing="ij")
+    sdf = (torch.sqrt(x * x + y * y + z * z) - 0.6)[None]
+    (gv, gf), (wv, wf) = run("marching_cubes", lambda v: marching_cubes(v, 0.0), sdf)
+    same, err = torch.equal(gf[0].cpu(), wf[0]), worst(gv[0], wv[0])
+    radius = float(gv[0].norm(dim=-1).mean())  # local coordinates are the SDF grid's [-1, 1]
+    log(f"mesh-ops [marching_cubes, {MESH_OPS_MC}^3 sphere SDF]: {gv[0].shape[0]} vertices, {gf[0].shape[0]} faces,"
+        f" faces equal to the CPU's {same}, vertices {err:.1e} off (gate {MESH_OPS_GATE:g}); mean |v| {radius:.4f}"
+        f" (the sphere's 0.6)")
+    check(same and err <= MESH_OPS_GATE and abs(radius - 0.6) < 0.01, "mesh-ops: marching cubes off")
+
+    b1, b2 = _boxes_from(gen, MESH_OPS_BOXES, device), _boxes_from(gen, MESH_OPS_BOXES, device)
+    (gvol, giou), (wvol, wiou) = run("box3d_overlap", box3d_overlap, b1, b2)
+    err = max(worst(gvol, wvol), worst(giou, wiou))
+    log(f"mesh-ops [box3d_overlap, {MESH_OPS_BOXES} x {MESH_OPS_BOXES} pairs]: {float((giou > 0).double().mean()):.3f}"
+        f" of the pairs overlap, max IoU {float(giou.max()):.4f}; volume and IoU {err:.1e} off the CPU's"
+        f" (gate {MESH_OPS_GATE:g})")
+    check(err <= MESH_OPS_GATE and bool(torch.isfinite(giou).all()), "mesh-ops: box IoU off")
+
+    ico = ico_sphere(4, device=device)
+    feats = torch.rand((ico.verts_packed().shape[0], 16), generator=gen, device=device)
+    got, want = run("SubdivideMeshes", lambda m, f: SubdivideMeshes()(m, f), ico, feats)
+    same = torch.equal(got[0].faces_padded().cpu(), want[0].faces_padded())
+    err = max(worst(got[0].verts_padded(), want[0].verts_padded()), worst(got[1], want[1]))
+    log(f"mesh-ops [SubdivideMeshes, ico_sphere(4) + 16 features]: {int(got[0].num_verts_per_mesh())} vertices,"
+        f" {int(got[0].num_faces_per_mesh())} faces, faces equal to the CPU's {same}, vertices and features"
+        f" {err:.1e} off (gate {MESH_OPS_EXACT:g})")
+    check(same and err <= MESH_OPS_EXACT, "mesh-ops: subdivision on the card differs from the CPU")
+
+    ndc = MeshRasterizer(camera(30.0, device)).transform(ico).verts_padded()
+    pyramid = [torch.randn((1, c, s, s), generator=gen, device=device) for c, s in MESH_OPS_PYRAMID]
+    got, want = run("vert_align", lambda *f: vert_align(list(f[:-1]), f[-1]), *pyramid, ndc)
+    err = worst(got, want)
+    log(f"mesh-ops [vert_align, {ndc.shape[1]} vertices x {got.shape[-1]} channels of 4 levels]: {err:.1e} off the"
+        f" CPU's (gate {MESH_OPS_GATE:g})")
+    check(err <= MESH_OPS_GATE, "mesh-ops: vert_align off")
+
+    conv = GraphConv(MESH_OPS_CHANNELS, MESH_OPS_CHANNELS, device=device, generator=gen)
+    conv_cpu = GraphConv(MESH_OPS_CHANNELS, MESH_OPS_CHANNELS, device=cpu)
+    conv_cpu.load_state_dict({k: v.cpu() for k, v in conv.state_dict().items()})
+    x = torch.randn((ico.verts_packed().shape[0], MESH_OPS_CHANNELS), generator=gen, device=device)
+    edges = ico.edges_packed()
+    with torch.no_grad():
+        got = conv(x, edges)
+        times["GraphConv"] = cuda_ms(lambda: conv(x, edges), iters=3, warmup=0)
+        err = worst(got, conv_cpu(x.cpu(), edges.cpu())) / max(float(got.abs().max()), 1e-30)
+    log(f"mesh-ops [GraphConv {MESH_OPS_CHANNELS} -> {MESH_OPS_CHANNELS}, {int(ico.num_edges())} edges]: {err:.1e} of"
+        f" the largest off the CPU's (gate {MESH_OPS_GATE:g})")
+    check(err <= MESH_OPS_GATE, "mesh-ops: GraphConv off")
+
+    noisy = ico.offset_verts(0.02 * torch.randn(ico.verts_packed().shape, generator=gen, device=device))
+    got, want = run("taubin_smoothing", taubin_smoothing, noisy)
+    err = worst(got.verts_padded(), want.verts_padded())
+    moved = float((got.verts_padded() - noisy.verts_padded()).abs().max())
+    log(f"mesh-ops [taubin_smoothing, ico_sphere(4), 10 iterations]: {err:.1e} off the CPU's (gate"
+        f" {MESH_OPS_GATE:g}); moved the vertices by up to {moved:.3e}")
+    check(err <= MESH_OPS_GATE and moved > 1e-3, "mesh-ops: Taubin smoothing off")
+    counts = read_counts()
+    log(f"times [mesh-ops, {card}] ms a call (CUDA events, mean of 3): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    return {"mesh-ops": counts}
+
+
+def _state_equal(a, b):
+    """Nested state dicts (tensors, numbers, lists) equal to the bit."""
+    import torch
+
+    if torch.is_tensor(a):
+        return torch.is_tensor(b) and a.dtype == b.dtype and torch.equal(a, b.to(a.device))
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(_state_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_state_equal(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def phase_nerf_trainer(device, card):
+    """The flagship's trainer at full width (8 x 256, 64 + 64 points, 1024
+    rays at 128^2) through its entry points, as a user runs it
+    (`python -m pytorch3d_tpu_torch.projects.nerf.train_nerf ...`):
+    `train_nerf.main` for 2 epochs on the rendered-sphere dataset (40 views
+    rendered through #1; every step runs #12 and #13), whose mean train
+    loss must fall; `main` again with no epoch left, which must hold the
+    saved weights, Adam state and Stats to the bit, and with `--epochs 3`,
+    which must resume at epoch 2 and run it alone; `test_nerf`'s evaluation
+    (each test frame's PSNR above the untrained init's on the same frame,
+    one frame against use_fused_kernel=False at nerf-serving's gate) and
+    the 40-frame trajectory of its export (#12; finite frames in [0, 1];
+    the video written where PIL is there)."""
+    import importlib.util
+    import shutil
+
+    import torch
+
+    from pytorch3d_tpu_torch.implicitron.tools import model_io
+    from pytorch3d_tpu_torch.projects.nerf import test_nerf, train_nerf
+
+    t_phase = time.perf_counter()
+    exp_dir = REPO / "build" / "nerf_trainer"
+    shutil.rmtree(exp_dir, ignore_errors=True)
+    argv = NERF_TRAINER_ARGS + ["--exp_dir", str(exp_dir)]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    run = train_nerf.main(argv + ["--epochs", str(NERF_TRAINER_EPOCHS)])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = read_counts()
+    steps = len(run.stats.stats["train"]["loss"].history[-1])
+    losses = run.stats.stats["train"]["loss"].get_epoch_averages()
+    step_ms = run.stats.stats["train"]["sec/it"].val * 1e3  # the last epoch's time over its steps
+    log(f"nerf-trainer [train_nerf.main, {' '.join(NERF_TRAINER_ARGS)} --epochs {NERF_TRAINER_EPOCHS}]: {steps} steps"
+        f" an epoch, mean loss by epoch {[round(v, 5) for v in losses]}, val psnr_fine {run.val_psnr}; launches"
+        f" {counts}; {train_s:.1f} s")
+    check(counts["rasterize_fine"] > 0, "nerf-trainer: the dataset render launched no #1")
+    check(counts["nerf_field"] >= 2 * steps * NERF_TRAINER_EPOCHS
+          and counts["nerf_field_grad"] == 2 * steps * NERF_TRAINER_EPOCHS,
+          f"nerf-trainer: launches {counts} for {steps * NERF_TRAINER_EPOCHS} steps")
+    check(all(math.isfinite(v) for v in losses) and losses[1] < losses[0], f"nerf-trainer: loss {losses} did not fall")
+
+    last = model_io.find_last_checkpoint(str(exp_dir))
+    saved_model, saved_opt, saved_stats = model_io.load_model(last, map_location=device)
+    loaded = train_nerf.main(argv + ["--epochs", str(NERF_TRAINER_EPOCHS)])
+    exact = (loaded.start_epoch == NERF_TRAINER_EPOCHS and not loaded.val_psnr
+             and _state_equal(loaded.model.state_dict(), saved_model)
+             and _state_equal(loaded.model.state_dict(), run.model.state_dict())
+             and _state_equal(loaded.optimizer.state_dict(), saved_opt)
+             and _state_equal(loaded.optimizer.state_dict(), run.optimizer.state_dict())
+             and loaded.stats.state_dict() == saved_stats.state_dict() == run.stats.state_dict())
+    more = train_nerf.main(argv + ["--epochs", str(NERF_TRAINER_EPOCHS + 1)])
+    history = more.stats.state_dict()["histories"]["train"]["loss"]
+    resumed = (more.start_epoch == NERF_TRAINER_EPOCHS and len(more.val_psnr) == 1
+               and history[:NERF_TRAINER_EPOCHS] == saved_stats.state_dict()["histories"]["train"]["loss"])
+    log(f"nerf-trainer [resume from {Path(last).name}]: weights, Adam state and Stats equal to the saved ones bit for"
+        f" bit {exact}; --epochs {NERF_TRAINER_EPOCHS + 1} started at epoch {more.start_epoch} and ran"
+        f" {len(more.val_psnr)} epoch (mean loss {more.stats.stats['train']['loss'].get_epoch_averages()[-1]:.5f})")
+    check(exact, "nerf-trainer: the resumed state differs from the saved one")
+    check(resumed, "nerf-trainer: --epochs 3 did not resume at epoch 2 alone")
+    del run, loaded
+
+    args = test_nerf.parser().parse_args(argv)
+    _, _, test = test_nerf.get_nerf_datasets("rendered_sphere", (args.image_size,) * 2, device=device)
+    averages = test_nerf.main(argv + ["--mode", "evaluation"])
+    trained, init = more.model, train_nerf.build_model(args, device)
+    per_frame = {}
+    for name, model in (("trained", trained), ("init", init)):
+        stats = test_nerf.evaluate(model, test)
+        per_frame[name] = {k: stats.stats["test"][k].history[0] for k in ("psnr_coarse", "psnr_fine")}
+    beats = all(a > b for a, b in zip(per_frame["trained"]["psnr_fine"], per_frame["init"]["psnr_fine"]))
+    log(f"nerf-trainer [test_nerf evaluation, {len(test)} test frames]: {averages}; per-frame psnr_fine trained"
+        f" {[round(v, 3) for v in per_frame['trained']['psnr_fine']]} against the init's"
+        f" {[round(v, 3) for v in per_frame['init']['psnr_fine']]} (coarse"
+        f" {[round(v, 3) for v in per_frame['trained']['psnr_coarse']]} against"
+        f" {[round(v, 3) for v in per_frame['init']['psnr_coarse']]})")
+    check(beats, "nerf-trainer: the trained model does not beat its init on every test frame")
+
+    frame = test[0]
+    rgb, frame_ms = timed_ms(lambda: test_nerf.render_full(trained, frame.camera)[0])
+    trained.use_fused_kernel = False
+    try:
+        plain = test_nerf.render_full(trained, frame.camera)[0]
+    finally:
+        trained.use_fused_kernel = True
+    diff = (rgb - plain).abs().amax(dim=-1)
+    share = float((diff <= NERF_FRAME_TOL).double().mean())
+    log(f"nerf-trainer [test frame 0 vs use_fused_kernel=False]: |rgb_fine diff| <= {NERF_FRAME_TOL:g} on {share:.6f}"
+        f" of pixels (max {float(diff.max()):.3e})")
+    check(share >= NERF_FRAME_SHARE, f"nerf-trainer: only {share:.6f} of pixels match the plain render")
+
+    train, _, _ = test_nerf.get_nerf_datasets("rendered_sphere", (args.image_size,) * 2, device=device)
+    reset_counts()
+    frames = test_nerf.trajectory_frames(trained, train, args)
+    torch.cuda.synchronize()
+    video_counts = read_counts()
+    stack = torch.stack(frames)
+    ok = bool(torch.isfinite(stack).all()) and float(stack.min()) >= 0.0 and float(stack.max()) <= 1.0
+    log(f"nerf-trainer [export_video trajectory]: {len(frames)} frames of {tuple(frames[0].shape)}, range"
+        f" [{float(stack.min()):.4f}, {float(stack.max()):.4f}], launches {video_counts}")
+    check(ok and video_counts["nerf_field"] == 2 * args.n_frames, "nerf-trainer: trajectory frames off")
+    if importlib.util.find_spec("PIL") is not None:
+        path = test_nerf.main(argv + ["--mode", "export_video"])
+        log(f"nerf-trainer [export_video]: wrote {Path(path).relative_to(REPO)} ({Path(path).stat().st_size} bytes)")
+        check(Path(path).is_file(), "nerf-trainer: no video written")
+    else:
+        log("nerf-trainer [export_video]: PIL is not installed on this machine, so the video was not written;"
+            " the frames above were rendered and checked")
+    for kernel, n in video_counts.items():
+        counts[kernel] += n
+    log(f"times [nerf-trainer, {card}] step {step_ms:.3f} ms (epoch {NERF_TRAINER_EPOCHS - 1}'s wall time over its"
+        f" {steps} steps, Stats' sec/it), full {args.image_size}^2 test frame {frame_ms:.3f} ms (host clock), the"
+        f" first train_nerf.main {train_s:.1f} s, phase {time.perf_counter() - t_phase:.1f} s")
+    return {"nerf-trainer": counts}
+
 def kernel_rows(launches, errors, fine, grad, knn_t, points, points_grad, mlp, mlp_grad, field, field_grad, slice5,
                 band):
     rows = []
@@ -6327,6 +6601,17 @@ def main() -> int:
         for kernel in BAND_KERNELS:
             check(launches[kernel] > 0, f"{kernel} was launched no time on the paths")
         log(f"launches by path (slice 15): {slice15}; summed over every path {launches}")
+        slice16 = {}
+        phase = "mesh-ops"
+        slice16.update(phase_mesh_ops(device, card))
+        phase = "training: nerf-trainer"
+        slice16.update(phase_nerf_trainer(device, card))
+        for counts in slice16.values():
+            for kernel, n in counts.items():
+                launches[kernel] += n
+        for kernel in ("rasterize_fine", "nerf_field", "nerf_field_grad"):
+            check(slice16["nerf-trainer"][kernel] > 0, f"{kernel} was launched no time by the trainer")
+        log(f"launches by path (slice 16): {slice16}; summed over every path {launches}")
         kernels = kernel_rows(launches, errors, fine, grad, knn_t, points_t, points_grad_t, *nerf_t, slice5, band_t)
     except Exception as e:  # report which phase failed, then exit non-zero
         import traceback

@@ -10,8 +10,8 @@ state is its sphere table (positions, colours, radii, opacities), which
 passes across as float32 arrays.  The NeRF
 model's weights convert between a flax `RadianceFieldRenderer` param tree
 (as nested dicts of numpy arrays) and the port's `state_dict`, and a flax
-`LinearWithRepeat`'s into the port's module.  A `Volumes`' densities,
-features and locator pass across as float32 arrays.
+`LinearWithRepeat`'s and a flax `GraphConv`'s into the port's modules.  A
+`Volumes`' densities, features and locator pass across as float32 arrays.
 """
 
 from __future__ import annotations
@@ -277,6 +277,18 @@ def linear_with_repeat_state_dict_from_flax(params: Mapping, device: Device = DE
     tree = params.get("params", params)
     return {leaf: torch.as_tensor(np.array(tree[leaf]), dtype=torch.float32, device=device)
             for leaf in ("kernel", "bias")}
+
+
+def graph_conv_state_dict_from_flax(params: Mapping, device: Device = DEFAULT_DEVICE) -> Dict[str, torch.Tensor]:
+    """A `GraphConv` state_dict from the flax module's params (`{"params":
+    {"w0", "w1"}}` or its inside) as numpy: each flax (in, out) kernel
+    becomes its `nn.Linear`'s (out, in) weight."""
+    tree = params.get("params", params)
+    state = {}
+    for layer in ("w0", "w1"):
+        state[f"{layer}.weight"] = torch.as_tensor(np.array(tree[layer]["kernel"]).T, dtype=torch.float32, device=device)
+        state[f"{layer}.bias"] = torch.as_tensor(np.array(tree[layer]["bias"]), dtype=torch.float32, device=device)
+    return state
 
 
 _NERF_FIELDS = ("_renderer_coarse_field", "_renderer_fine_field")

@@ -1,0 +1,6 @@
+"""Implicitron tools (port of pytorch3d_tpu/implicitron/tools): config
+markers, stats, checkpoints, circle fitting, evaluation trajectories and
+video writing so far."""
+from . import config, model_io, stats
+
+__all__ = ["config", "model_io", "stats"]

@@ -23,3 +23,8 @@ def interpolate_face_attributes(
     attrs = gather_rows(face_attributes, pix_to_face)  # (N, H, W, K, 3, D)
     vals = torch.sum(barycentric_coords[..., None] * attrs, dim=-2)
     return torch.where((pix_to_face >= 0)[..., None], vals, 0.0)
+
+
+def interpolate_face_attributes_python(pix_to_face, barycentric_coords, face_attributes):
+    """PyTorch3D's name for its plain version: the same function."""
+    return interpolate_face_attributes(pix_to_face, barycentric_coords, face_attributes)

@@ -2,7 +2,7 @@
 from .compositing import alpha_composite, norm_weighted_sum, weighted_sum
 from .compositor import AlphaCompositor, NormWeightedCompositor
 from .pulsar import PulsarPointsRenderer
-from .rasterize_points import rasterize_points
+from .rasterize_points import rasterize_points, rasterize_points_python
 from .rasterizer import PointFragments, PointsRasterizationSettings, PointsRasterizer
 from .renderer import PointsRenderer
 

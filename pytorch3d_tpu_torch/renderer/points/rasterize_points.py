@@ -187,3 +187,9 @@ def rasterize_points(
     offsets = (torch.arange(N, device=idx_local.device) * P)[:, None, None, None]
     idx = torch.where(idx_local >= 0, idx_local.long() + offsets, -1)
     return idx, zbuf, dists
+
+
+def rasterize_points_python(pointclouds, image_size=256, radius=0.01, points_per_pixel=8):
+    """PyTorch3D's name for the plain version: `rasterize_points` on the
+    plain path (`bin_size=0`) on any device."""
+    return rasterize_points(pointclouds, image_size, radius, points_per_pixel, bin_size=0)

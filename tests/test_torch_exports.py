@@ -19,11 +19,6 @@ MODULES = ["transforms", "renderer", "renderer/mesh", "renderer/points", "render
 # ROADMAP.md queue 1 item -> the JAX names it brings to the port.
 NOT_YET = {
     "3. the rest of NeRF that needs nothing of Implicitron": [],
-    "4. the remaining ops and losses": [
-        "GraphConv", "SubdivideMeshes", "box3d_overlap", "cubify", "gather_scatter", "gather_scatter_python",
-        "interpolate_face_attributes_python", "marching_cubes", "marching_cubes_naive", "rasterize_points_python",
-        "taubin_smoothing", "vert_align",
-    ],
     "6. Implicitron and the trainers": ["make_sharded_generic_train_step"],
 }
 _QUEUED = {name: item for item, names in NOT_YET.items() for name in names}
