@@ -167,6 +167,25 @@ final result line:
     `test_nerf` (the trained model's PSNR above its init's on every test
     frame, a frame against use_fused_kernel=False, the 40-frame export
     trajectory through #12 and its video where PIL is installed).
+15. slice 17, after slice 16: mesh and point cloud IO and Implicitron's
+    frame loading through #1 and #5: mesh-io writes mesh-uv-serving's
+    sphere and 1024^2 map with `save_obj` (OBJ + MTL + PNG), loads it on
+    the card with `load_objs_as_meshes` as TexturesUV and as TexturesAtlas
+    (verts within 6 decimals, faces and UV indices equal, the map within
+    1/255) and serves the tutorial's 20 views at 512^2 through #1 (2
+    against the plain route); the same mesh through `IO` as binary and
+    ASCII PLY, OFF with vertex colours and GLB, each rasterized against its
+    plain route; an ico_sphere(7) OBJ through the native parser (which must
+    have built) and the Python scanner, equal; points-serving's cloud
+    through binary PLY, served for the 8 azimuths through #5 with both
+    compositors (ids and zbuf equal to the in-memory cloud's, images within
+    1/255).  implicitron-data builds `RenderedMeshDatasetMapProvider` from a
+    `get_default_args` dict with that OBJ as `data_file` (40 views through
+    #1, 2 against the plain route), writes its frames as a CO3D-style tree
+    and rebuilds them with `GenericFrameDataBuilder(box_crop=True)` at
+    256^2, and subsamples a PLY of the scene with `load_pointcloud`, both on
+    the card against the CPU within 1e-6.  Files go to temporary
+    directories that the phases remove.
 
 The last lines are a `{"kernels": [...]}` JSON line and then
 `{"ok": true, "device": {...}}`.  Without CUDA, or outside a checkout of
@@ -6407,6 +6426,433 @@ def phase_nerf_trainer(device, card):
         f" first train_nerf.main {train_s:.1f} s, phase {time.perf_counter() - t_phase:.1f} s")
     return {"nerf-trainer": counts}
 
+# Slice 17: mesh and point cloud IO, Implicitron's frame loading.
+IO_VERTS_GATE = 5e-7 + 6e-8  # a vertex written with 6 decimals: half a unit of the last one and a float32 ulp at 1
+# A map or colours through 8 bits: (c * 255) truncated to uint8, then / 255, is off by less than 1/255; the
+# float32 difference of a texel off by 1/255 - 1e-8 can round to float32(1/255), above float64's 1/255.
+IO_MAP_GATE = 1.0 / 255.0 + 1e-7
+IO_IMAGE_GATE = 1.0 / 255.0 + 1e-6  # a blend of such colours with weights summing to <= 1, and its float32 rounding
+IO_NATIVE_LEVEL = 7  # ico_sphere(7): 163 842 verts, 327 680 faces, for the two OBJ parsers
+IO_CHECK_VIEWS = 2  # views of each loaded format rendered against the plain route
+DATA_CHECK_VIEWS = 2  # the provider's views held against the plain route
+DATA_IDS_SHARE = 0.999
+DATA_RGB_GATE = 1e-4  # HardPhong's atomic vertex normals move a pixel by ~3e-6 between renders
+DATA_IMAGE = 256  # GenericFrameDataBuilder's image_height / image_width
+DATA_CLOUD_POINTS = 20_000  # the scene's point cloud, subsampled to half by load_pointcloud
+DATA_CPU_GATE = 1e-6  # the frame builder and load_pointcloud on the card against device="cpu"
+
+
+def _phase_clock():
+    """A CUDA event recorded now; `_phase_ms(start)` reads the phase's
+    milliseconds on the card's clock."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    return start
+
+
+def _phase_ms(start):
+    import torch
+
+    stop = torch.cuda.Event(enable_timing=True)
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop)
+
+
+def _fragments_against_plain(label, mesh, cams):
+    """MeshRasterizer's fragments of `mesh` at 512^2, K=1 through #1 against
+    the plain route (bin_size=0): the share of equal ids and the largest
+    zbuf difference where they agree."""
+    import torch
+
+    from pytorch3d_tpu_torch.renderer import MeshRasterizer, RasterizationSettings
+
+    with torch.no_grad():
+        frags = MeshRasterizer(cams, RasterizationSettings(image_size=IMAGE, faces_per_pixel=1))(mesh)
+        plain = MeshRasterizer(cams, RasterizationSettings(image_size=IMAGE, faces_per_pixel=1, bin_size=0))(mesh)
+    same = frags.pix_to_face == plain.pix_to_face
+    ids = float(same.float().mean())
+    hit = same & (plain.pix_to_face >= 0)
+    zerr = float((frags.zbuf - plain.zbuf).abs()[hit].max()) if bool(hit.any()) else 0.0
+    covered = int((frags.pix_to_face >= 0).sum())
+    check(covered > 0, f"{label}: the loaded mesh covers no pixel")
+    return ids, zerr, covered
+
+
+def phase_mesh_io(device, card):
+    """PyTorch3D's render_textured_meshes tutorial from files:
+    mesh-uv-serving's ico_sphere(4) with its per-corner UVs and seeded
+    1024^2 map written by `save_obj` (OBJ + MTL + PNG), loaded on the card
+    by `load_objs_as_meshes` as TexturesUV and as TexturesAtlas (R = 8),
+    checked against the source and served as 20 views at 512^2 through #1,
+    2 of them against a bin_size=0 render of the loaded mesh; the same mesh
+    through `IO().save_mesh` / `load_mesh` as binary and ASCII PLY, OFF with
+    vertex colours and GLB, each rasterized against its plain route; an
+    ico_sphere(7) OBJ through the native parser and the Python scanner; and
+    points-serving's torus cloud through binary PLY and `IO().load_pointcloud`,
+    served for the 8 azimuths through #5 with both compositors against the
+    in-memory cloud's render.  Files go to a temporary directory."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from pytorch3d_tpu_torch.io import IO, fast_io, load_obj, load_objs_as_meshes, save_obj
+    from pytorch3d_tpu_torch.renderer import AlphaCompositor, NormWeightedCompositor, TexturesVertex
+    from pytorch3d_tpu_torch.utils import ico_sphere
+
+    start = _phase_clock()
+    tmp = Path(tempfile.mkdtemp(prefix="mesh_io_"))
+    counts = dict.fromkeys(KERNELS, 0)
+    times = {}
+    try:
+        mesh = ico_sphere(4, device=device)
+        verts, faces = mesh.verts_padded()[0], mesh.faces_padded()[0]
+        uvs, faces_uvs = sphere_uvs(verts, faces)
+        source_map = uv_map(device)[0]
+        path = tmp / "sphere.obj"
+        t0 = time.perf_counter()
+        save_obj(path, verts, faces, verts_uvs=uvs, faces_uvs=faces_uvs, texture_map=source_map)
+        times["save_obj"] = (time.perf_counter() - t0) * 1e3
+        log(f"mesh-io [save_obj]: {sorted(p.name for p in tmp.iterdir())}, {path.stat().st_size} bytes of OBJ,"
+            f" {times['save_obj']:.1f} ms")
+
+        cams = tutorial_cameras(device)
+        cams_check = tutorial_cameras(device, UV_CHECK_VIEWS)
+        loaded = {}
+        for label, atlas in (("uv", False), ("atlas", True)):
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            m = load_objs_as_meshes([path], device=device, create_texture_atlas=atlas, texture_atlas_size=UV_ATLAS_R)
+            load_ms = (time.perf_counter() - t0) * 1e3
+            batch = m.extend(UV_VIEWS)
+            with torch.no_grad():
+                images, frags = tutorial_renderer(cams, device)(batch)
+            torch.cuda.synchronize()
+            run = read_counts()
+            loaded[label] = m
+            check(m.verts_padded().device.type == "cuda" and m.faces_padded().device.type == "cuda",
+                  f"mesh-io [{label}]: the loaded mesh is not on the card")
+            verr = float((m.verts_padded()[0] - verts).abs().max())
+            faces_equal = bool(torch.equal(m.faces_padded()[0], faces))
+            if atlas:
+                tex = m.textures.atlas_padded()
+                tex_ok = tex.shape == (1, faces.shape[0], UV_ATLAS_R, UV_ATLAS_R, 3) and tex.device.type == "cuda"
+                tex_note = f"atlas {tuple(tex.shape)} in [{float(tex.min()):.4f}, {float(tex.max()):.4f}]"
+            else:
+                tex = m.textures
+                map_err = float((tex.maps_padded()[0] - source_map).abs().max())
+                uv_err = float((tex.verts_uvs_padded()[0] - uvs).abs().max())
+                tex_ok = (bool(torch.equal(tex.faces_uvs_padded()[0], faces_uvs)) and uv_err <= IO_VERTS_GATE
+                          and map_err <= IO_MAP_GATE)
+                tex_note = f"faces_uvs equal, uvs {uv_err:.3e} off, map {map_err:.3e} off (gate {IO_MAP_GATE:.3e})"
+            with torch.no_grad():
+                plain, plain_frags = tutorial_renderer(cams_check, device, bin_size=0)(batch[list(range(UV_CHECK_VIEWS))])
+            ids = float((frags.pix_to_face[:UV_CHECK_VIEWS] == plain_frags.pix_to_face).float().mean())
+            frac, worst = image_agreement(images[:UV_CHECK_VIEWS], plain, 1e-3)
+            log(f"mesh-io [load_objs_as_meshes, {label}]: load {load_ms:.1f} ms; verts {verr:.3e} off (gate"
+                f" {IO_VERTS_GATE:.2e}), faces equal {faces_equal}, {tex_note}; {UV_VIEWS} views at {IMAGE}^2 K=1:"
+                f" launches {run}; views 0-{UV_CHECK_VIEWS - 1} against the plain route: ids equal {ids:.6f},"
+                f" |image - plain| <= 1e-3 on {frac:.6f} of pixels (max {worst:.3e})")
+            check(verr <= IO_VERTS_GATE and faces_equal and tex_ok, f"mesh-io [{label}]: the loaded mesh is off")
+            check(run["rasterize_fine"] == 1, f"mesh-io [{label}]: launches {run} for one batch of {UV_VIEWS}")
+            check(bool(torch.isfinite(images).all()) and bool(((images[..., 3] > 0).sum(dim=(1, 2)) > 0).all()),
+                  f"mesh-io [{label}]: non-finite pixels or an empty view")
+            check(ids > 0.999 and frac >= 0.995, f"mesh-io [{label}]: the render differs from the plain route")
+            for k in counts:
+                counts[k] += run[k]
+            with torch.no_grad():
+                ren = tutorial_renderer(cams, device)
+                ms = host_frames(lambda: ren(batch), UV_FRAMES)
+                times[f"frame {label}"] = ms[len(ms) // 2]
+                times[f"#1 {label}"] = device_ms(lambda: ren.rasterizer(batch), "rasterize_fine_kernel", iters=10)
+            log(f"times [mesh-io frame, {label}, {card}] {UV_VIEWS} views: median {ms[len(ms) // 2]:.3f} ms (min"
+                f" {ms[0]:.3f}, max {ms[-1]:.3f}); #1 {times[f'#1 {label}']:.4f} ms device time")
+            del images, frags, plain, plain_frags
+
+        src = loaded["uv"]
+        colors = verts * 0.5 + 0.5
+        coloured = src.replace(textures=TexturesVertex.create(colors[None], device=device))
+        pio = IO()
+        for label, suffix, binary, data in (("binary PLY", ".ply", True, src), ("ASCII PLY", ".ply", False, src),
+                                            ("OFF with vertex colours", ".off", True, coloured),
+                                            ("GLB", ".glb", True, src)):
+            fpath = tmp / f"sphere_{label.split()[0].lower()}{suffix}"
+            t0 = time.perf_counter()
+            pio.save_mesh(data, fpath, binary=binary)
+            save_ms = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = pio.load_mesh(fpath, device=device)
+            load_ms = (time.perf_counter() - t0) * 1e3
+            check(m.verts_padded().device.type == "cuda", f"mesh-io [{label}]: the loaded mesh is not on the card")
+            verr = float((m.verts_padded()[0] - data.verts_padded()[0]).abs().max())  # against what was saved
+            faces_equal = bool(torch.equal(m.faces_padded()[0], faces))
+            exact = binary and suffix != ".off"
+            cerr = None
+            if suffix == ".off":
+                cerr = float((m.textures.verts_features_padded()[0] - colors).abs().max())
+            reset_counts()
+            ids, zerr, covered = _fragments_against_plain(f"mesh-io [{label}]", m.extend(IO_CHECK_VIEWS),
+                                                          cams_check)
+            torch.cuda.synchronize()
+            run = read_counts()
+            log(f"mesh-io [IO {label}]: save {save_ms:.1f} ms ({fpath.stat().st_size} bytes), load {load_ms:.1f} ms;"
+                f" faces equal {faces_equal}, verts {verr:.3e} off ({'exact' if exact else f'gate {IO_VERTS_GATE:.2e}'})"
+                f"{'' if cerr is None else f', colours {cerr:.3e} off'}; {IO_CHECK_VIEWS} views through #1 (launches"
+                f" {run['rasterize_fine']}): ids equal to the plain route on {ids:.6f} of {covered} covered pixels,"
+                f" zbuf {zerr:.3e} off")
+            check(faces_equal and verr <= (0.0 if exact else IO_VERTS_GATE), f"mesh-io [{label}]: geometry off")
+            check(cerr is None or cerr <= IO_VERTS_GATE, f"mesh-io [{label}]: colours off")
+            check(run["rasterize_fine"] == 1 and ids > 0.999 and zerr <= 1e-6, f"mesh-io [{label}]: render off")
+            for k in counts:
+                counts[k] += run[k]
+
+        t0 = time.perf_counter()
+        native = fast_io.native_available()
+        times["native build"] = (time.perf_counter() - t0) * 1e3
+        check(native, "mesh-io: the native OBJ parser did not build or load (g++)")
+        big = ico_sphere(IO_NATIVE_LEVEL, device=device)
+        big_path = tmp / f"ico{IO_NATIVE_LEVEL}.obj"
+        save_obj(big_path, big.verts_padded()[0], big.faces_padded()[0])
+        parsed = {}
+        for label in ("native", "python"):
+            saved = fast_io.fast_parse_obj
+            if label == "python":
+                fast_io.fast_parse_obj = lambda text: None
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                v, f, _ = load_obj(big_path, device=device)
+                torch.cuda.synchronize()
+                times[f"parse {label}"] = (time.perf_counter() - t0) * 1e3
+            finally:
+                fast_io.fast_parse_obj = saved
+            parsed[label] = (v, f)
+        # Which parser ran shows in the output: on a geometry-only file the
+        # native parser gives no materials_idx, the Python scanner one of -1s.
+        check(parsed["native"][1].materials_idx is None and parsed["python"][1].materials_idx is not None,
+              "mesh-io: the two OBJ parses did not go through the native parser and the Python scanner")
+        parsed = {k: (v, f.verts_idx) for k, (v, f) in parsed.items()}
+        same = (torch.equal(parsed["native"][0], parsed["python"][0])
+                and torch.equal(parsed["native"][1], parsed["python"][1]))
+        verr = float((parsed["native"][0] - big.verts_padded()[0]).abs().max())
+        log(f"mesh-io [OBJ parsers, ico_sphere({IO_NATIVE_LEVEL}): {tuple(parsed['native'][0].shape)} verts,"
+            f" {tuple(parsed['native'][1].shape)} faces, {big_path.stat().st_size} bytes]: native library"
+            f" {fast_io.library_path().relative_to(REPO)} ({times['native build']:.0f} ms to build or load), native"
+            f" {times['parse native']:.1f} ms, Python scanner {times['parse python']:.1f} ms (host clock, load_obj onto"
+            f" the card); equal {same}; verts {verr:.3e} off the source")
+        check(same and verr <= IO_VERTS_GATE, "mesh-io: the native parser and the Python scanner disagree")
+        del big, parsed
+
+        cloud, pcams = colored_points_scene(device)
+        ply = tmp / "torus_cloud.ply"
+        pio.save_pointcloud(cloud, ply)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded_cloud = pio.load_pointcloud(ply, device=device)
+        load_ms = (time.perf_counter() - t0) * 1e3
+        pts_equal = bool(torch.equal(loaded_cloud.points_padded(), cloud.points_padded()))
+        col_err = float((loaded_cloud.features_padded() - cloud.features_padded()).abs().max())
+        log(f"mesh-io [IO point cloud]: {PTS_SAMPLES} points as binary PLY ({ply.stat().st_size} bytes), load"
+            f" {load_ms:.1f} ms onto {loaded_cloud.points_padded().device}; points equal {pts_equal}, colours"
+            f" {col_err:.3e} off (gate {IO_MAP_GATE:.3e})")
+        check(loaded_cloud.points_padded().device.type == "cuda" and pts_equal and col_err <= IO_MAP_GATE,
+              "mesh-io: the loaded point cloud is off")
+        clouds, ref_clouds = loaded_cloud.extend(PTS_REQUESTS), cloud.extend(PTS_REQUESTS)
+        compositors = {"alpha": AlphaCompositor, "norm-weighted": NormWeightedCompositor}
+        renderers = {name: points_renderer(pcams, c()) for name, c in compositors.items()}
+        torch.cuda.synchronize()
+        reset_counts()
+        with torch.no_grad():
+            images = {name: r(clouds) for name, r in renderers.items()}
+        torch.cuda.synchronize()
+        run = read_counts()
+        check(run["rasterize_points"] == len(renderers), f"mesh-io [points]: launches {run}")
+        for k in counts:
+            counts[k] += run[k]
+        with torch.no_grad():
+            frags = renderers["alpha"].rasterizer(clouds)
+            ref_frags = renderers["alpha"].rasterizer(ref_clouds)
+            exact = bool(torch.equal(frags.idx, ref_frags.idx)) and bool(torch.equal(frags.zbuf, ref_frags.zbuf))
+            for name, r in renderers.items():
+                ref = r(ref_clouds)
+                err = float((images[name] - ref).abs().max())
+                log(f"mesh-io [points, {name}]: {PTS_REQUESTS} requests of the loaded cloud through #5: ids and zbuf"
+                    f" equal to the in-memory cloud's {exact}; |image - in-memory image| max {err:.3e} (gate"
+                    f" {IO_IMAGE_GATE:.3e})")
+                check(exact and err <= IO_IMAGE_GATE and bool(torch.isfinite(images[name]).all()),
+                      f"mesh-io [points, {name}]: the loaded cloud renders off")
+            rasterizer = renderers["alpha"].rasterizer
+            times["#5 cloud"] = device_ms(lambda: rasterizer(clouds), "rasterize_points_kernel", iters=10)
+            ms = host_frames(lambda: renderers["alpha"](clouds), UV_FRAMES)
+            times["points frame"] = ms[len(ms) // 2]
+        log(f"times [mesh-io points, {card}] {PTS_REQUESTS} requests (alpha): median {times['points frame']:.3f} ms;"
+            f" #5 {times['#5 cloud']:.4f} ms device time")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    times["phase"] = _phase_ms(start)
+    log(f"times [mesh-io, {card}] phase {times['phase'] / 1e3:.1f} s (CUDA events); launches {counts}")
+    return {"mesh-io": counts}
+
+
+def phase_implicitron_data(device, card):
+    """Implicitron's frame loading on the card: `RenderedMeshDatasetMapProvider`
+    built from a `get_default_args` dict with `data_file` the textured
+    sphere OBJ of mesh-io, rendering its 40 views at 128^2 through #1 (2 of
+    them against the plain route); its frames written as a CO3D-style tree
+    (PNG images and masks, 16-bit depths from a K=1 rasterization, a jgzip
+    of FrameAnnotations), rebuilt on the card by
+    `GenericFrameDataBuilder(box_crop=True)` at 256^2, and a PLY of the
+    scene subsampled by `load_pointcloud`, both against the same calls on
+    the CPU.  The builder's image pipeline (PNG decoding, crop, resize) runs
+    on the host in numpy on both sides, so its gate checks that every tensor
+    lands on the card and the camera arithmetic done there, not the image
+    computation; the cloud's subsampling (a sort of the scores) runs on the
+    card."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from typing import List
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from pytorch3d_tpu_torch.implicitron.dataset import GenericFrameDataBuilder, RenderedMeshDatasetMapProvider
+    from pytorch3d_tpu_torch.implicitron.dataset import types as dtypes
+    from pytorch3d_tpu_torch.implicitron.dataset import utils as dutils
+    from pytorch3d_tpu_torch.implicitron.tools.config import get_default_args
+    from pytorch3d_tpu_torch.io import load_objs_as_meshes, save_obj, save_ply
+    from pytorch3d_tpu_torch.ops import sample_points_from_meshes
+    from pytorch3d_tpu_torch.renderer import (
+        HardPhongShader, MeshRasterizer, MeshRenderer, PointLights, RasterizationSettings, join_cameras_as_batch,
+    )
+    from pytorch3d_tpu_torch.utils import ico_sphere
+
+    start = _phase_clock()
+    tmp = Path(tempfile.mkdtemp(prefix="implicitron_data_"))
+    try:
+        mesh = ico_sphere(4, device=device)
+        verts, faces = mesh.verts_padded()[0], mesh.faces_padded()[0]
+        uvs, faces_uvs = sphere_uvs(verts, faces)
+        obj = tmp / "sphere.obj"
+        save_obj(obj, verts, faces, verts_uvs=uvs, faces_uvs=faces_uvs, texture_map=uv_map(device)[0])
+        args = get_default_args(RenderedMeshDatasetMapProvider)
+        args.update(data_file=str(obj), device=device)
+        provider = RenderedMeshDatasetMapProvider(**args)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        dataset = provider.get_dataset_map()
+        torch.cuda.synchronize()
+        build_ms = (time.perf_counter() - t0) * 1e3
+        counts = read_counts()
+        frames = dataset["train"] + dataset["test"]
+        n, res = len(frames), provider.resolution
+        log(f"implicitron-data [RenderedMeshDatasetMapProvider(data_file=sphere.obj), {n} views at {res}^2]: load and"
+            f" render {build_ms:.1f} ms, launches {counts}; splits {[len(dataset[k]) for k in ('train', 'val', 'test')]}")
+        check(n == args["num_views"] and counts["rasterize_fine"] == 1, f"implicitron-data: {n} frames, launches {counts}")
+        check(frames[0].image_rgb.device.type == "cuda", "implicitron-data: the frames are not on the card")
+
+        cams = join_cameras_as_batch([f.camera for f in frames])
+        loaded = load_objs_as_meshes([obj], device=device)
+        check_cams = join_cameras_as_batch([f.camera for f in frames[:DATA_CHECK_VIEWS]])
+        settings = dict(image_size=res, faces_per_pixel=1)
+        lights = PointLights.create(location=[[0.0, 0.0, -3.0]], device=device)
+        with torch.no_grad():
+            ids = MeshRasterizer(check_cams, RasterizationSettings(**settings))(
+                loaded.extend(DATA_CHECK_VIEWS)).pix_to_face
+            plain_ren = MeshRenderer(MeshRasterizer(check_cams, RasterizationSettings(**settings, bin_size=0)),
+                                     HardPhongShader(cameras=check_cams, lights=lights, device=device))
+            plain_ids = plain_ren.rasterizer(loaded.extend(DATA_CHECK_VIEWS)).pix_to_face
+            plain = plain_ren(loaded.extend(DATA_CHECK_VIEWS))[..., :3]
+        same = (ids == plain_ids)[..., 0]
+        share = float(same.float().mean())
+        got = torch.cat([f.image_rgb for f in frames[:DATA_CHECK_VIEWS]])
+        rgb_err = float((got - plain).abs().amax(dim=-1)[same].max())
+        log(f"implicitron-data [views 0-{DATA_CHECK_VIEWS - 1} against the plain route]: ids equal on {share:.6f} of"
+            f" pixels, |rgb - plain| max {rgb_err:.3e} where they agree (gate {DATA_RGB_GATE:g})")
+        check(share >= DATA_IDS_SHARE and rgb_err <= DATA_RGB_GATE, "implicitron-data: the provider's render is off")
+
+        with torch.no_grad():
+            zbuf = MeshRasterizer(cams, RasterizationSettings(**settings))(loaded.extend(n)).zbuf[..., 0]
+        focal = 1.0 / math.tan(math.radians(30.0))  # FoVPerspectiveCameras' default fov of 60 degrees
+        annotations = []
+        for sub in ("images", "masks", "depths"):
+            (tmp / "sphere_seq" / sub).mkdir(parents=True)
+        for i, f in enumerate(frames):
+            names = {k: f"sphere_seq/{k}/frame{i:06d}.png" for k in ("images", "masks", "depths")}
+            rgb = (f.image_rgb[0].clamp(0, 1) * 255).to(torch.uint8).cpu().numpy()
+            Image.fromarray(rgb).save(tmp / names["images"])
+            Image.fromarray((f.fg_probability[0, ..., 0] * 255).to(torch.uint8).cpu().numpy()).save(tmp / names["masks"])
+            depth_mm = (zbuf[i].clamp(min=0) * 1000).round().to(torch.int32).cpu().numpy().astype(np.uint16)
+            Image.fromarray(depth_mm).save(tmp / names["depths"])
+            annotations.append(dtypes.FrameAnnotation(
+                sequence_name="sphere_seq", frame_number=i, frame_timestamp=float(i),
+                image=dtypes.ImageAnnotation(path=names["images"], size=(res, res)),
+                depth=dtypes.DepthAnnotation(path=names["depths"], scale_adjustment=1e-3),
+                mask=dtypes.MaskAnnotation(path=names["masks"]),
+                viewpoint=dtypes.ViewpointAnnotation(
+                    R=tuple(map(tuple, f.camera.R[0].tolist())), T=tuple(f.camera.T[0].tolist()),
+                    focal_length=(focal, focal), principal_point=(0.0, 0.0)),
+                meta={"frame_type": "train_known"},
+            ))
+        dtypes.dump_dataclass_jgzip(str(tmp / "frame_annotations.jgz"), annotations)
+        annotations = dtypes.load_dataclass_jgzip(str(tmp / "frame_annotations.jgz"), List[dtypes.FrameAnnotation])
+        kw = dict(dataset_root=str(tmp), box_crop=True, image_height=DATA_IMAGE, image_width=DATA_IMAGE)
+        built = {}
+        for label, dev in (("card", device), ("cpu", torch.device("cpu"))):
+            builder = GenericFrameDataBuilder(device=dev, **kw)
+            t0 = time.perf_counter()
+            built[label] = [builder.build(a, {"sequence_name": "sphere_seq", "category": "sphere"})
+                            for a in annotations]
+            torch.cuda.synchronize()
+            log(f"implicitron-data [GenericFrameDataBuilder(box_crop=True) at {DATA_IMAGE}^2 on {dev}]:"
+                f" {len(annotations)} frames in {(time.perf_counter() - t0) * 1e3:.1f} ms")
+        worst = 0.0
+        for fc, fh in zip(built["card"], built["cpu"]):
+            for field in dataclasses.fields(fc):
+                a, b = getattr(fc, field.name), getattr(fh, field.name)
+                if torch.is_tensor(a):
+                    check(a.device.type == "cuda" and a.dtype == b.dtype, f"implicitron-data: {field.name} off the card")
+                    worst = max(worst, float((a.cpu().double() - b.double()).abs().max()))
+                elif field.name == "camera":
+                    check(a.device.type == "cuda", "implicitron-data: the camera is not on the card")
+                    for attr in ("R", "T", "focal_length", "principal_point"):
+                        worst = max(worst, float((getattr(a, attr).cpu() - getattr(b, attr)).abs().max()))
+                else:
+                    check(a == b, f"implicitron-data: {field.name} {a} against {b}")
+        f0 = built["card"][0]
+        log(f"implicitron-data [frames on the card against device='cpu', placement and camera arithmetic; the"
+            f" image pipeline runs on the host on both]: max |difference| {worst:.3e} over every"
+            f" tensor and camera (gate {DATA_CPU_GATE:g}); frame 0 crop {f0.crop_bbox_xywh.tolist()}, image"
+            f" {tuple(f0.image_rgb.shape)}, mask_crop mean {float(f0.mask_crop.mean()):.4f}")
+        check(worst <= DATA_CPU_GATE, "implicitron-data: the builder on the card differs from the CPU")
+
+        gen = torch.Generator(device=device).manual_seed(0)
+        pts = sample_points_from_meshes(loaded, DATA_CLOUD_POINTS, generator=gen)[0]
+        ply = tmp / "sphere_seq" / "pointcloud.ply"
+        save_ply(ply, pts, colors=pts * 0.5 + 0.5)
+        scores = torch.rand((1, DATA_CLOUD_POINTS), generator=torch.Generator().manual_seed(1))
+        card_cloud = dutils.load_pointcloud(ply, DATA_CLOUD_POINTS // 2, device=device, scores=scores)
+        cpu_cloud = dutils.load_pointcloud(ply, DATA_CLOUD_POINTS // 2, device="cpu", scores=scores)
+        perr = max(float((card_cloud.points_padded().cpu() - cpu_cloud.points_padded()).abs().max()),
+                   float((card_cloud.features_padded().cpu() - cpu_cloud.features_padded()).abs().max()))
+        log(f"implicitron-data [load_pointcloud, {DATA_CLOUD_POINTS} points to {DATA_CLOUD_POINTS // 2}]:"
+            f" {tuple(card_cloud.points_padded().shape)} on {card_cloud.points_padded().device}, {perr:.3e} off the CPU")
+        check(card_cloud.points_padded().device.type == "cuda" and perr <= DATA_CPU_GATE,
+              "implicitron-data: load_pointcloud on the card differs from the CPU")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"times [implicitron-data, {card}] provider {build_ms:.1f} ms (host clock), phase"
+        f" {_phase_ms(start) / 1e3:.1f} s (CUDA events)")
+    return {"implicitron-data": counts}
+
+
 def kernel_rows(launches, errors, fine, grad, knn_t, points, points_grad, mlp, mlp_grad, field, field_grad, slice5,
                 band):
     rows = []
@@ -6612,6 +7058,18 @@ def main() -> int:
         for kernel in ("rasterize_fine", "nerf_field", "nerf_field_grad"):
             check(slice16["nerf-trainer"][kernel] > 0, f"{kernel} was launched no time by the trainer")
         log(f"launches by path (slice 16): {slice16}; summed over every path {launches}")
+        slice17 = {}
+        phase = "mesh-io"
+        slice17.update(phase_mesh_io(device, card))
+        phase = "implicitron-data"
+        slice17.update(phase_implicitron_data(device, card))
+        for counts in slice17.values():
+            for kernel, n in counts.items():
+                launches[kernel] += n
+        for kernel in ("rasterize_fine", "rasterize_points"):
+            check(slice17["mesh-io"][kernel] > 0, f"{kernel} was launched no time on the loaded data")
+        check(slice17["implicitron-data"]["rasterize_fine"] > 0, "the provider's render launched no #1")
+        log(f"launches by path (slice 17): {slice17}; summed over every path {launches}")
         kernels = kernel_rows(launches, errors, fine, grad, knn_t, points_t, points_grad_t, *nerf_t, slice5, band_t)
     except Exception as e:  # report which phase failed, then exit non-zero
         import traceback

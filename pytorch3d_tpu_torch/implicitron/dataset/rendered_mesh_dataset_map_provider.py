@@ -1,7 +1,8 @@
 """A synthetic dataset rendered in the process (port of
 pytorch3d_tpu/implicitron/dataset/rendered_mesh_dataset_map_provider.py):
-`ico_sphere(3)` coloured by its vertex positions, rendered through
-`MeshRenderer(MeshRasterizer(K=1), HardPhongShader)` from a ring of
+the mesh of `data_file` (an .obj loaded by `load_objs_as_meshes`, with its
+textures) or else `ico_sphere(3)` coloured by its vertex positions, rendered
+through `MeshRenderer(MeshRasterizer(K=1), HardPhongShader)` from a ring of
 viewpoints.  On the card the render runs the fine rasterizer kernel."""
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from .frame_data import FrameData
 @dataclasses.dataclass
 class RenderedMeshDatasetMapProvider(Configurable):
     num_views: int = 40
-    data_file: Optional[str] = None  # a mesh file: needs the IO slice of the port
+    data_file: Optional[str] = None  # path to an .obj; None: the ico sphere
     azimuth_range: float = 180.0
     distance: float = 2.7
     resolution: int = 128
@@ -44,12 +45,12 @@ class RenderedMeshDatasetMapProvider(Configurable):
     def _build(self) -> List[FrameData]:
         device = torch.device(self.device)
         if self.data_file is not None:
-            raise NotImplementedError(
-                "RenderedMeshDatasetMapProvider(data_file=...) loads the mesh through io.load_objs_as_meshes,"
-                " which waits for the IO slice of the port (ROADMAP queue 1 item 5)"
-            )
-        mesh = ico_sphere(3, device=device)
-        mesh = mesh.replace(textures=TexturesVertex.create(mesh.verts_padded() * 0.5 + 0.5, device=device))
+            from ...io import load_objs_as_meshes
+
+            mesh = load_objs_as_meshes([self.data_file], device=device)
+        else:
+            mesh = ico_sphere(3, device=device)
+            mesh = mesh.replace(textures=TexturesVertex.create(mesh.verts_padded() * 0.5 + 0.5, device=device))
         azims = torch.tensor(np.linspace(-self.azimuth_range, self.azimuth_range, self.num_views).astype(np.float32),
                              device=device)
         R, T = look_at_view_transform(dist=self.distance, elev=20.0, azim=azims, device=device)

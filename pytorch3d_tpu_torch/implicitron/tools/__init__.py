@@ -1,5 +1,5 @@
-"""Implicitron tools (port of pytorch3d_tpu/implicitron/tools): config
-markers, stats, checkpoints, circle fitting, evaluation trajectories and
+"""Implicitron tools (port of pytorch3d_tpu/implicitron/tools): the config
+system, stats, checkpoints, circle fitting, evaluation trajectories and
 video writing so far."""
 from . import config, model_io, stats
 

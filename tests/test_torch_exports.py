@@ -14,7 +14,7 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 MODULES = ["transforms", "renderer", "renderer/mesh", "renderer/points", "renderer/implicit", "structures", "ops",
-           "loss", "utils", "common", "parallel"]
+           "loss", "utils", "common", "parallel", "io"]
 
 # ROADMAP.md queue 1 item -> the JAX names it brings to the port.
 NOT_YET = {

@@ -225,8 +225,8 @@ def test_rendered_sphere_dataset_matches_jax(monkeypatch):
     assert timg.shape == (4, 32, 32, 3)
     np.testing.assert_allclose(timg[same[..., 0]], jimg[same[..., 0]], rtol=0, atol=1e-5)
     assert [f.frame_number for f in tframes] == list(range(4))
-    with pytest.raises(NotImplementedError):
-        RenderedMeshDatasetMapProvider(data_file="mesh.obj", device="cpu").get_dataset_map()
+    with pytest.raises(FileNotFoundError):  # data_file loads the mesh (a missing file raises, as in JAX)
+        RenderedMeshDatasetMapProvider(data_file="no_such_mesh.obj", device="cpu").get_dataset_map()
 
 
 def test_train_nerf_loss_falls_and_resumes_exactly(tmp_path):
