@@ -186,6 +186,21 @@ final result line:
     256^2, and subsamples a PLY of the scene with `load_pointcloud`, both on
     the card against the CPU within 1e-6.  Files go to temporary
     directories that the phases remove.
+16. slice 18, after slice 17: Implicitron's GenericModel at
+    repro_base.yaml's size (400^2, 8 x 256 trunk with the skip at 5, 64 +
+    64 points, harmonics 10 / 4) on the provider's ico sphere rendered at
+    400^2.  implicitron-serving serves 4 EVALUATION frames of the full grid
+    in 2 chunks of 102 400 rays (#12's serving build) and holds them to
+    use_fused_kernel=False under nerf-serving's limits; implicitron-train
+    holds step 0's objective and every gradient to the plain route on the
+    same draws (float64 witnesses on each pass's shared bundle), then takes
+    20 Adam steps (#12's saving build and #13) whose objective must fall;
+    implicitron-sharded runs `make_sharded_generic_train_step` 5 steps in a
+    world-1 NCCL group and on 2 gloo ranks spawned on the card, against the
+    same steps taken in one process; model-dbir runs `ModelDBIR` at its
+    defaults on 8 views with #1's zbuf as depth, through #5 against the
+    plain rasterizer (ids, zbuf, masks and depths equal, images within
+    1/255).
 
 The last lines are a `{"kernels": [...]}` JSON line and then
 `{"ok": true, "device": {...}}`.  Without CUDA, or outside a checkout of
@@ -6853,6 +6868,519 @@ def phase_implicitron_data(device, card):
     return {"implicitron-data": counts}
 
 
+# Slice 18: Implicitron's GenericModel on its NeRF path, its sharded step, ModelDBIR.
+# repro_base.yaml's model (projects/implicitron_trainer/configs/repro_base.yaml:19-37): 400^2, two passes of
+# 64 + 64 points (the fine pass takes 128: the coarse samples are appended), harmonics 10 / 4, an 8 x 256
+# trunk with the skip at 5 and a direction head of 128, 1024 rays a step drawn from the mask, scene extent 8.
+IMPLICITRON_RES = 400
+IMPLICITRON_MODEL = dict(
+    render_image_width=IMPLICITRON_RES, render_image_height=IMPLICITRON_RES, num_passes=2, chunk_size_grid=102400,
+    raysampler_args=dict(n_rays_per_image_sampled_from_mask=1024, scene_extent=8.0, n_pts_per_ray_training=64,
+                         n_pts_per_ray_evaluation=64),
+    renderer_args=dict(n_pts_per_ray_fine_training=64, n_pts_per_ray_fine_evaluation=64),
+    implicit_function_args=dict(n_harmonic_functions_xyz=10, n_harmonic_functions_dir=4, n_hidden_neurons_xyz=256,
+                                n_hidden_neurons_dir=128, n_layers_xyz=8, append_xyz=(5,)),
+)
+IMPLICITRON_FRAMES = 4  # served EVALUATION frames: the provider's test views
+# The plain route's chunks: its layer-by-layer chain holds (rows, 256) float32 activations, 12.5 GiB each at
+# chunk_size_grid's 102 400 rays x 128 fine points (it ran out of the card's 80 GB); a ray's render does not
+# depend on its chunk.
+IMPLICITRON_PLAIN_CHUNK = 20480
+IMPLICITRON_STEPS = 20  # Adam steps of the trainer's loop
+IMPLICITRON_LR = 5e-4
+IMPLICITRON_SHARD_STEPS = 5
+IMPLICITRON_LOSS_RTOL = 1e-4  # step 0's objective, fused against plain: the fine pass's depths move by rounding / pdf
+DBIR_VIEWS = 8
+DBIR_IMAGE_GATE = 1.0 / 255.0
+
+
+class ImplicitronScene:
+    """The provider's ico sphere at 400^2 (40 views: 36 to train on, 4 to
+    serve) and repro_base's GenericModel with weights from a seed."""
+
+    def __init__(self, device):
+        from pytorch3d_tpu_torch.implicitron.dataset import RenderedMeshDatasetMapProvider
+
+        self.device = device
+        self.provider = RenderedMeshDatasetMapProvider(resolution=IMPLICITRON_RES, device=device)
+        dataset = self.provider.get_dataset_map()
+        self.train, self.test = dataset["train"], dataset["test"]
+
+    def model(self, seed):
+        import torch
+
+        from pytorch3d_tpu_torch.implicitron.models import GenericModel
+
+        return GenericModel(**IMPLICITRON_MODEL, device=self.device,
+                            generator=torch.Generator(device=self.device).manual_seed(seed))
+
+    @staticmethod
+    def batch(frame):
+        return dict(image_rgb=frame.image_rgb, camera=frame.camera, fg_probability=frame.fg_probability)
+
+
+def set_fused(model, fused):
+    """use_fused_kernel on every MLPWithInputSkips of `model`."""
+    from pytorch3d_tpu_torch.models.nerf.implicit_function import MLPWithInputSkips
+
+    for m in model.modules():
+        if isinstance(m, MLPWithInputSkips):
+            m.use_fused_kernel = fused
+
+
+def phase_implicitron_serving(device, scene, card):
+    """IMPLICITRON_FRAMES EVALUATION frames of the full 400^2 grid, each in 2
+    chunks of chunk_size_grid rays (#12's serving build: 10.24 M coarse and
+    20.48 M fine rows a frame), against the same model with
+    use_fused_kernel=False under nerf-serving's limits (in chunks of
+    IMPLICITRON_PLAIN_CHUNK rays); the frame time and #12's launches and
+    device time."""
+    import torch
+
+    from pytorch3d_tpu_torch.implicitron.models.renderer import EvaluationMode
+
+    model = scene.model(0)
+    frames = scene.test[:IMPLICITRON_FRAMES]
+
+    def render(frame):
+        with torch.no_grad():
+            return model(**scene.batch(frame), evaluation_mode=EvaluationMode.EVALUATION)["images_render"]
+
+    render(frames[0])  # the first call's allocations
+    torch.cuda.synchronize()
+    reset_counts()
+    images, frame_ms = [], []
+    for f in frames:
+        t0 = time.perf_counter()
+        images.append(render(f))
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = read_counts()
+    chunks = -(-IMPLICITRON_RES**2 // IMPLICITRON_MODEL["chunk_size_grid"])
+    want = 2 * chunks * len(frames)
+    log(f"implicitron-serving [GenericModel, repro_base.yaml at {IMPLICITRON_RES}^2, {len(frames)} frames in {chunks}"
+        f" chunks]: launches {counts}; frame ms {[round(v, 3) for v in frame_ms]}")
+    check(counts["nerf_field"] == want and counts["nerf_field_grad"] == 0,
+          f"implicitron-serving: launches {counts}, expected {want} nerf_field")
+    for i, img in enumerate(images):
+        check(img.shape == (1, IMPLICITRON_RES, IMPLICITRON_RES, 3) and bool(torch.isfinite(img).all()),
+              f"implicitron-serving: frame {i} of shape {tuple(img.shape)} or not finite")
+    set_fused(model, False)
+    model.chunk_size_grid = IMPLICITRON_PLAIN_CHUNK
+    try:
+        shares = []
+        for f, img in zip(frames, images):
+            diff = (img - render(f)).abs().amax(dim=-1)
+            shares.append((float((diff <= NERF_FRAME_TOL).double().mean()), float(diff.max())))
+    finally:
+        set_fused(model, True)
+        model.chunk_size_grid = IMPLICITRON_MODEL["chunk_size_grid"]
+    log(f"  against use_fused_kernel=False: (share of pixels within {NERF_FRAME_TOL:g}, max) per frame"
+        f" {[(round(s, 6), f'{m:.3e}') for s, m in shares]}; rgb range [{float(images[0].min()):.4f},"
+        f" {float(images[0].max()):.4f}]")
+    check(all(s >= NERF_FRAME_SHARE for s, _ in shares), "implicitron-serving: frames off the plain route's")
+    fwd = ("fused_mlp_fwd_kernel<true, false>", "fused_mlp_fwd_prep_kernel")
+    kernel = device_ms(lambda: render(frames[1]), fwd, iters=2, warmup=1, launches=2 * chunks)
+    timed = sorted(frame_ms)
+    log(f"times [implicitron-serving frame, {card}] median of {len(timed)}: {timed[len(timed) // 2]:.3f} ms"
+        f" (min {timed[0]:.3f}, max {timed[-1]:.3f}); #12 {kernel:.3f} ms a frame (device time, profiler; "
+        f"{2 * chunks} launches, {kernel / (2 * chunks):.3f} a launch)")
+    profile("implicitron-serving frame", lambda: render(frames[1]), 1)
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def implicitron_step0(model, batch, image, seed):
+    """Step 0 of GenericModel `model` on `batch`, the fused route against
+    use_fused_kernel=False with one generator seed: (the two objectives,
+    {parameter: max |fused - plain| / max |plain|} of the gradients end to
+    end, {"coarse", "fine": (the worst parameter, its fused-vs-plain ratio,
+    [fused, plain] worst ratio against the plain route in float64, the
+    points)} on each pass's bundle shared by both routes (the fused
+    route's), where the pass's loss is its rgb mse against `image`, the
+    model's masked target).  Leaves the model on the fused route."""
+    import copy
+
+    import torch
+
+    from pytorch3d_tpu_torch.implicitron.models.renderer import EvaluationMode
+    from pytorch3d_tpu_torch.renderer.utils import ndc_grid_sample
+
+    fns = {"coarse": model.implicit_function_0, "fine": model.implicit_function_1}
+    kept, grads, objectives = {}, [], []
+
+    def keeper(key):
+        def hook(module, args, kwargs, out):  # the fused route's bundle: the first call's
+            kept.setdefault(key, kwargs["ray_bundle"])
+
+        return hook
+
+    handles = [fn.register_forward_hook(keeper(k), with_kwargs=True) for k, fn in fns.items()]
+    try:
+        for fused in (True, False):
+            set_fused(model, fused)
+            model.zero_grad(set_to_none=True)
+            preds = model(**batch, evaluation_mode=EvaluationMode.TRAINING,
+                          generator=torch.Generator(device=image.device).manual_seed(seed))
+            preds["objective"].backward()
+            objectives.append(float(preds["objective"].detach()))
+            grads.append({n: p.grad.clone() for n, p in model.named_parameters()})
+    finally:
+        for h in handles:
+            h.remove()
+    marcher = model._renderer._raymarcher
+
+    def pass_grads(fn, b):
+        gt = ndc_grid_sample(image.to(b.lengths.dtype).movedim(-1, 1), b.xys).movedim(1, -1)
+        fn.zero_grad(set_to_none=True)
+        out = marcher(*fn(ray_bundle=b), ray_lengths=b.lengths)
+        ((out.features - gt) ** 2).mean().backward()
+        return {n: p.grad.clone() for n, p in fn.named_parameters()}
+
+    shared = {}
+    for key, fn in fns.items():
+        b = kept[key]
+        routes = []
+        for fused in (True, False):
+            set_fused(model, fused)
+            routes.append(pass_grads(fn, b))
+        ref = copy.deepcopy(fn).double()
+        set_fused(ref, False)
+        exact = pass_grads(ref, b.replace(**{k: getattr(b, k).double()
+                                             for k in ("origins", "directions", "lengths", "xys")}))
+        del ref
+        on_shared = grad_ratios(*routes)
+        worst = max(on_shared, key=on_shared.get)
+        shared[key] = (worst, on_shared[worst], [max(grad_ratios(g, exact).values()) for g in routes],
+                       b.lengths.numel())
+    set_fused(model, True)
+    model.zero_grad(set_to_none=True)
+    return objectives, grad_ratios(*grads), shared
+
+
+def phase_implicitron_step0(device, scene, model):
+    """Step 0's objective and every parameter's gradient, the fused route
+    against use_fused_kernel=False on the same draws (one generator seed;
+    `implicitron_step0`).  The coarse function sees the same bundle on
+    both routes; the fine one sees depths that sample_pdf draws from the
+    coarse weights, so it is held end to end within NERF_FINE_GATE and,
+    like the coarse one, on one bundle shared by both routes (the fused
+    route's), where each pass's loss (its rgb mse) is also taken by the
+    plain route in float64.  On a shared bundle: the fused route no
+    further from float64 than FUSED_PLAIN_FACTOR times the plain one (or
+    GRAD_GATE), and the two float32 routes within GRAD_GATE of each other
+    or within the sum of their distances from float64 that the witness
+    allows.  At this configuration both float32 routes sit ~4e-4 of the
+    largest gradient from float64 (ReLU masks within rounding of 0 at 10
+    harmonics), above GRAD_GATE, so the witness decides."""
+    frame = scene.train[0]
+    image = frame.image_rgb * (frame.fg_probability >= 0.5)  # the model's masked target, bg_color 0
+    objectives, end_to_end, shared = implicitron_step0(model, scene.batch(frame), image, 7)
+    fine_e2e = {n: v for n, v in end_to_end.items() if n.startswith("implicit_function_1")}
+    worst_fine = max(fine_e2e, key=fine_e2e.get)
+    loss_off = abs(objectives[0] - objectives[1]) / abs(objectives[1])
+    log(f"implicitron-train: step 0 objective {objectives[0]:.8f} against the plain route's {objectives[1]:.8f}"
+        f" (relative {loss_off:.3e}); gradients, worst of each tensor's max|grad|, fused against plain on the"
+        f" shared bundles: " + "; ".join(
+            f"{k} function ({n} points) {w} {d:.3e} (against the plain route in float64: fused {wit[0]:.3e},"
+            f" plain {wit[1]:.3e})" for k, (w, d, wit, n) in shared.items())
+        + f"; fine function end to end {worst_fine} {fine_e2e[worst_fine]:.3e}")
+    check(all(math.isfinite(v) for v in end_to_end.values()), "implicitron-train: non-finite step 0 gradients")
+    check(loss_off <= IMPLICITRON_LOSS_RTOL, "implicitron-train: step 0's objective off the plain route's")
+    check(fine_e2e[worst_fine] <= NERF_FINE_GATE, "implicitron-train: step 0's fine gradients off the plain route's")
+    for k, (_, d, (fused_off, plain_off), _) in shared.items():
+        check(fused_off <= max(GRAD_GATE, FUSED_PLAIN_FACTOR * plain_off),
+              f"implicitron-train: the fused {k} function is further from float64 than the plain route")
+        check(d <= max(GRAD_GATE, (1 + FUSED_PLAIN_FACTOR) * plain_off),
+              f"implicitron-train: step 0's {k} gradients off the plain route's")
+
+
+def phase_implicitron_train(device, scene, card):
+    """IMPLICITRON_STEPS Adam steps at lr 5e-4, one training frame a step,
+    as projects/implicitron_trainer/experiment.py:228-249 steps (objective,
+    backward, update): #12's saving build and #13 on 65 536 coarse and
+    131 072 fine rows a step.  Step 0 against the plain route first
+    (`phase_implicitron_step0`); the objective must fall."""
+    import numpy as np
+    import torch
+
+    from pytorch3d_tpu_torch.implicitron.models.renderer import EvaluationMode
+    from pytorch3d_tpu_torch.ops import fused_mlp_cuda as fm
+
+    model = scene.model(1)
+    phase_implicitron_step0(device, scene, model)
+    opt = torch.optim.Adam(model.parameters(), lr=IMPLICITRON_LR)
+    gen = torch.Generator(device=device).manual_seed(2)
+    order = np.random.RandomState(18).permutation(len(scene.train))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    recomputed = fm._backward.forwards_run
+    objectives, step_ms = [], []
+    for i in range(IMPLICITRON_STEPS):
+        frame = scene.train[int(order[i % len(order)])]
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        preds = model(**scene.batch(frame), evaluation_mode=EvaluationMode.TRAINING, generator=gen)
+        preds["objective"].backward()
+        opt.step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        objectives.append(float(preds["objective"].detach()))
+    counts = read_counts()
+    recomputed = fm._backward.forwards_run - recomputed
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    first, last = sum(objectives[:5]) / 5, sum(objectives[-5:]) / 5
+    log(f"implicitron-train: {IMPLICITRON_STEPS} Adam steps of 1024 rays (64 + 128 points): objectives"
+        f" {[round(v, 6) for v in objectives]}; launches {counts}; peak memory {peak_gb:.2f} GB")
+    check(all(math.isfinite(v) for v in objectives), "implicitron-train: non-finite objective")
+    check(last < first, f"implicitron-train: the mean of the last 5 objectives {last:.6f} is not below the first"
+                        f" 5's {first:.6f}")
+    check(counts["nerf_field"] == 2 * IMPLICITRON_STEPS and counts["nerf_field_grad"] == 2 * IMPLICITRON_STEPS,
+          f"implicitron-train: launches {counts} for {IMPLICITRON_STEPS} steps (2 forwards and 2 backwards each)")
+    check(recomputed == 0, f"implicitron-train: the backward ran {recomputed} forwards instead of the saved ones")
+    check(all(bool(torch.isfinite(p).all()) for p in model.parameters()), "implicitron-train: non-finite weights")
+    timed = sorted(step_ms[2:])
+    log(f"times [implicitron-train step, {card}] median of steps 3-{IMPLICITRON_STEPS}: {timed[len(timed) // 2]:.3f} ms"
+        f" (min {timed[0]:.3f}, max {timed[-1]:.3f}), peak memory {peak_gb:.3f} GB; mean objective first 5"
+        f" {first:.6f}, last 5 {last:.6f}")
+
+    def steps():
+        for i in range(3):
+            opt.zero_grad(set_to_none=True)
+            model(**scene.batch(scene.train[i]), evaluation_mode=EvaluationMode.TRAINING,
+                  generator=gen)["objective"].backward()
+            opt.step()
+
+    profile("implicitron-train step", steps, 3)
+    del model, opt
+    torch.cuda.empty_cache()
+    return counts
+
+
+def implicitron_frames_numpy(scene, n):
+    """The first n training frames as numpy (image, mask, R, T) for spawned
+    ranks, which rebuild the cameras with the provider's defaults."""
+    return [{"image_rgb": f.image_rgb.cpu().numpy(), "fg_probability": f.fg_probability.cpu().numpy(),
+             "R": f.camera.R.cpu().numpy(), "T": f.camera.T.cpu().numpy()} for f in scene.train[:n]]
+
+
+def implicitron_batch(frame, device):
+    import torch
+
+    from pytorch3d_tpu_torch.renderer import FoVPerspectiveCameras
+
+    return {"image_rgb": torch.tensor(frame["image_rgb"], device=device),
+            "fg_probability": torch.tensor(frame["fg_probability"], device=device),
+            "camera": FoVPerspectiveCameras.create(R=torch.tensor(frame["R"], device=device),
+                                                   T=torch.tensor(frame["T"], device=device), device=device)}
+
+
+def implicitron_reference_steps(model, batches, world, device):
+    """The sharded step taken in one process: each rank's gradient (its own
+    generator, `rank_seed(step, rank)`) summed, divided by `world`, one Adam
+    step; the objectives averaged alike."""
+    import torch
+
+    from pytorch3d_tpu_torch.parallel import rank_seed
+
+    opt = torch.optim.Adam(model.parameters(), lr=IMPLICITRON_LR)
+    losses = []
+    for s, batch in enumerate(batches):
+        opt.zero_grad(set_to_none=True)
+        total = 0.0
+        for r in range(world):
+            objective = model(**batch, generator=torch.Generator(device=device).manual_seed(rank_seed(s, r)))
+            objective["objective"].backward()
+            total = total + float(objective["objective"].detach())
+        for p in model.parameters():
+            p.grad.div_(world)
+        opt.step()
+        losses.append(total / world)
+    return losses
+
+
+def sharded_implicitron_rank(rank, world, state, frames):
+    """One rank of the spawned group: `make_sharded_generic_train_step` on a
+    (1, world) mesh for len(frames) steps (rank 0's weights; the others'
+    from another seed until the step's broadcast); the losses, whether the
+    ranks hold the same parameters after every step, rank 0's final state
+    and the launches."""
+    import torch
+    import torch.distributed as dist
+
+    from pytorch3d_tpu_torch.implicitron.models import GenericModel
+    from pytorch3d_tpu_torch.parallel import get_device_mesh, make_sharded_generic_train_step
+
+    device = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = GenericModel(**IMPLICITRON_MODEL, device=device,
+                         generator=torch.Generator(device=device).manual_seed(100 + rank))
+    if rank == 0:
+        model.load_state_dict({k: torch.tensor(v, device=device) for k, v in state.items()})
+    step = make_sharded_generic_train_step(model, torch.optim.Adam(model.parameters(), lr=IMPLICITRON_LR),
+                                           get_device_mesh((1, world)))
+    reset_counts()
+    losses, equal, ms = [], [], []
+    for s, frame in enumerate(frames):
+        batch = implicitron_batch(frame, device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(batch, s)))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+        parts = [torch.empty_like(flat) for _ in range(world)]
+        dist.all_gather(parts, flat)
+        equal.append(all(torch.equal(parts[0].view(torch.int32), p.view(torch.int32)) for p in parts))
+    counts = {k: n for k, n in read_counts().items() if k in ("nerf_field", "nerf_field_grad")}
+    final = {k: t.detach().cpu().numpy() for k, t in model.state_dict().items()} if rank == 0 else None
+    return {"losses": losses, "equal": equal, "ms": ms, "final": final, "counts": counts}
+
+
+def _states_close(got, want):
+    """(max |diff| over every tensor, the tensors outside rtol / atol)."""
+    import numpy as np
+
+    worst, failing = 0.0, []
+    for k, w in want.items():
+        g = got[k]
+        worst = max(worst, float(np.abs(g - w).max()))
+        if not np.allclose(g, w, rtol=SHARD_NERF_RTOL, atol=SHARD_NERF_ATOL):
+            failing.append(k)
+    return worst, failing
+
+
+def phase_implicitron_sharded(device, scene, card):
+    """`make_sharded_generic_train_step` for IMPLICITRON_SHARD_STEPS steps
+    against the same steps taken in one process from the same weights and
+    seeds (`implicitron_reference_steps`): in a world-1 NCCL group in this
+    process, then on SHARD_RANKS gloo ranks spawned on the one card.  Gates:
+    the losses within SHARD_NERF_LOSS_RTOL, the final parameters within
+    SHARD_NERF_RTOL / SHARD_NERF_ATOL, the ranks' parameters equal to the
+    bit after every step, #12 and #13 twice a step on every rank."""
+    import torch
+    import torch.distributed as dist
+
+    from pytorch3d_tpu_torch.parallel import get_device_mesh, make_sharded_generic_train_step
+    from torch_parallel_ranks import free_port, run_ranks
+
+    frames = implicitron_frames_numpy(scene, IMPLICITRON_SHARD_STEPS)
+    batches = [implicitron_batch(f, device) for f in frames]
+    base = scene.model(3)
+    state = {k: v.detach().cpu().numpy() for k, v in base.state_dict().items()}
+    del base
+    want_counts = {"nerf_field": 2 * IMPLICITRON_SHARD_STEPS, "nerf_field_grad": 2 * IMPLICITRON_SHARD_STEPS}
+    out = {}
+    for world in (1, SHARD_RANKS):
+        ref = scene.model(3)
+        ref_losses = implicitron_reference_steps(ref, batches, world, device)
+        ref_state = {k: v.detach().cpu().numpy() for k, v in ref.state_dict().items()}
+        del ref
+        t0 = time.perf_counter()
+        if world == 1:
+            dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", world_size=1, rank=0)
+            try:
+                model = scene.model(3)
+                step = make_sharded_generic_train_step(
+                    model, torch.optim.Adam(model.parameters(), lr=IMPLICITRON_LR), get_device_mesh((1, 1)))
+                reset_counts()
+                losses = [float(step(b, s)) for s, b in enumerate(batches)]
+                counts = {k: n for k, n in read_counts().items() if k in want_counts}
+                outs = [{"losses": losses, "equal": [True], "final": {k: v.detach().cpu().numpy()
+                                                                      for k, v in model.state_dict().items()},
+                         "counts": counts}]
+                del model, step
+            finally:
+                dist.destroy_process_group()
+            label = "world-1 NCCL group"
+        else:
+            outs = run_ranks(sharded_implicitron_rank, world, "gloo", (state, frames))
+            label = f"{world} gloo ranks on one card"
+        run_s = time.perf_counter() - t0
+        losses = outs[0]["losses"]
+        loss_ok = all(abs(a - b) <= SHARD_NERF_LOSS_RTOL * abs(b) for a, b in zip(losses, ref_losses))
+        worst, failing = _states_close(outs[0]["final"], ref_state)
+        equal = all(all(o["equal"]) for o in outs) and all(o["losses"] == losses for o in outs)
+        launched = all(o["counts"] == want_counts for o in outs)
+        log(f"implicitron-sharded [{label}, (1, {world}) mesh, 1024 rays a rank]: losses"
+            f" {[round(v, 8) for v in losses]} against one process's {[round(v, 8) for v in ref_losses]}"
+            f" (rtol {SHARD_NERF_LOSS_RTOL:g}: {loss_ok}); final parameters max|diff| {worst:.3e}, tensors outside"
+            f" rtol {SHARD_NERF_RTOL:g} / atol {SHARD_NERF_ATOL:g}: {failing}; ranks equal after every step"
+            f" {equal}; launches per rank {[o['counts'] for o in outs]}; {run_s:.1f} s")
+        if world > 1:
+            step_ms = sorted(outs[0]["ms"][1:])
+            log(f"times [implicitron-sharded step, {card}] median of steps 2-{IMPLICITRON_SHARD_STEPS} on rank 0"
+                f" {step_ms[len(step_ms) // 2]:.3f} ms (gloo copies the gradients through the host)")
+        check(loss_ok and not failing, f"implicitron-sharded: the {label} differs from the one-process steps")
+        check(equal, f"implicitron-sharded: the {label}'s ranks differ")
+        check(launched, f"implicitron-sharded: launches {[o['counts'] for o in outs]} in the {label}")
+        out.update({f"implicitron-sharded {label} rank {r}": o["counts"] for r, o in enumerate(outs)})
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_model_dbir(device, scene, card):
+    """ModelDBIR at its defaults (256^2, 100 000 points, radius 0.01, 4 a
+    pixel) on DBIR_VIEWS of the provider's 400^2 views (1.28 M unprojected
+    points, a subsample of the same uniform scores on both routes), with
+    #1's zbuf of the provider's mesh as their depth (-1, behind the camera,
+    off the sphere): through #5 against bin_size=0 (the plain rasterizer).
+    Gates: one #5 launch; ids and zbuf equal, masks and depths equal,
+    images within 1/255."""
+    import torch
+
+    from pytorch3d_tpu_torch.implicitron.models import ModelDBIR
+    from pytorch3d_tpu_torch.renderer import (
+        MeshRasterizer, PointsRasterizationSettings, PointsRasterizer, RasterizationSettings, join_cameras_as_batch,
+    )
+    from pytorch3d_tpu_torch.utils import ico_sphere
+
+    frames = scene.train[:DBIR_VIEWS]
+    cams = join_cameras_as_batch([f.camera for f in frames])
+    images = torch.cat([f.image_rgb for f in frames])
+    mesh = ico_sphere(3, device=device).extend(DBIR_VIEWS)
+    depth = MeshRasterizer(cams, RasterizationSettings(image_size=IMPLICITRON_RES, faces_per_pixel=1))(mesh).zbuf
+    scores = torch.rand((1, DBIR_VIEWS * IMPLICITRON_RES**2), generator=torch.Generator(device=device).manual_seed(4),
+                        device=device)
+    model, plain = ModelDBIR(), ModelDBIR(bin_size=0)
+    kw = dict(camera=cams, image_rgb=images, depth_map=depth, scores=scores)
+    model(**kw)  # the first call's allocations
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = model(**kw)
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    want = plain(**kw)
+    cloud = out["point_cloud"]
+    settings = dict(image_size=(model.render_image_height, model.render_image_width), radius=0.01, points_per_pixel=4)
+    got_f = PointsRasterizer(cams[0], PointsRasterizationSettings(**settings))(cloud)
+    want_f = PointsRasterizer(cams[0], PointsRasterizationSettings(**settings, bin_size=0))(cloud)
+    ids_equal = torch.equal(got_f.idx, want_f.idx) and torch.equal(got_f.zbuf, want_f.zbuf)
+    img_err = float((out["images_render"] - want["images_render"]).abs().max())
+    covered = float(out["masks_render"].mean())
+    log(f"model-dbir [ModelDBIR defaults, {DBIR_VIEWS} views of {IMPLICITRON_RES}^2 ->"
+        f" {cloud.points_padded().shape[1]} points, {settings['image_size'][0]}^2]: launches {counts}; ids and zbuf"
+        f" equal to the plain route {ids_equal}; masks equal {torch.equal(out['masks_render'], want['masks_render'])},"
+        f" depths equal {torch.equal(out['depths_render'], want['depths_render'])}, images max|diff| {img_err:.3e};"
+        f" covered {covered:.4f}")
+    check(counts["rasterize_points"] == 1, f"model-dbir: launches {counts}, not one #5")
+    check(out["images_render"].shape == (1, 256, 256, 3) and bool(torch.isfinite(out["images_render"]).all()),
+          "model-dbir: render of the wrong shape or not finite")
+    check(ids_equal and torch.equal(out["masks_render"], want["masks_render"])
+          and torch.equal(out["depths_render"], want["depths_render"]) and img_err <= DBIR_IMAGE_GATE,
+          "model-dbir: the render is off the plain route's")
+    check(0.01 < covered < 0.99, f"model-dbir: {covered:.4f} of the pixels covered")
+    kernel = device_ms(lambda: model(**kw), "rasterize_points_kernel", iters=5, warmup=1)
+    log(f"times [model-dbir call, {card}] {call_ms:.3f} ms (host clock: unprojection, subsample, #5, compositing);"
+        f" #5 {kernel:.4f} ms (device time, profiler)")
+    return counts
+
+
 def kernel_rows(launches, errors, fine, grad, knn_t, points, points_grad, mlp, mlp_grad, field, field_grad, slice5,
                 band):
     rows = []
@@ -7070,6 +7598,24 @@ def main() -> int:
             check(slice17["mesh-io"][kernel] > 0, f"{kernel} was launched no time on the loaded data")
         check(slice17["implicitron-data"]["rasterize_fine"] > 0, "the provider's render launched no #1")
         log(f"launches by path (slice 17): {slice17}; summed over every path {launches}")
+        slice18 = {}
+        phase = "implicitron-serving"
+        scene18 = ImplicitronScene(device)
+        slice18["implicitron-serving"] = phase_implicitron_serving(device, scene18, card)
+        phase = "training: implicitron-train"
+        slice18["implicitron-train"] = phase_implicitron_train(device, scene18, card)
+        phase = "training: implicitron-sharded"
+        slice18.update(phase_implicitron_sharded(device, scene18, card))
+        phase = "model-dbir"
+        slice18["model-dbir"] = phase_model_dbir(device, scene18, card)
+        for counts in slice18.values():
+            for kernel, n in counts.items():
+                launches[kernel] += n
+        for path in ("implicitron-serving", "implicitron-train"):
+            check(slice18[path]["nerf_field"] > 0, f"{path} launched no #12")
+        check(slice18["implicitron-train"]["nerf_field_grad"] > 0, "implicitron-train launched no #13")
+        check(slice18["model-dbir"]["rasterize_points"] > 0, "model-dbir launched no #5")
+        log(f"launches by path (slice 18): {slice18}; summed over every path {launches}")
         kernels = kernel_rows(launches, errors, fine, grad, knn_t, points_t, points_grad_t, *nerf_t, slice5, band_t)
     except Exception as e:  # report which phase failed, then exit non-zero
         import traceback

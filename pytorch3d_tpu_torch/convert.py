@@ -10,7 +10,8 @@ state is its sphere table (positions, colours, radii, opacities), which
 passes across as float32 arrays.  The NeRF
 model's weights convert between a flax `RadianceFieldRenderer` param tree
 (as nested dicts of numpy arrays) and the port's `state_dict`, and a flax
-`LinearWithRepeat`'s and a flax `GraphConv`'s into the port's modules.  A
+`LinearWithRepeat`'s, a flax `GraphConv`'s and an Implicitron
+`GenericModel`'s into the port's modules.  A
 `Volumes`' densities, features and locator pass across as float32 arrays.
 """
 
@@ -330,3 +331,30 @@ def nerf_state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
             node = node.setdefault(part, {})
         node[leaf] = value.detach().cpu().numpy()
     return {"params": tree}
+
+
+def generic_model_state_dict_from_flax(variables: Mapping, device: Device = DEFAULT_DEVICE) -> Dict[str, torch.Tensor]:
+    """An Implicitron `GenericModel` state_dict from the flax variables
+    (`{"params": ...}` or its inside) as numpy: each
+    `implicit_function_{i}` (one where the passes share it) with its trunk
+    `xyz_encoder/layer{l}` and its density and colour layers, each a
+    `_DenseParams` whose (in, out) kernel is copied as it is, and the
+    global encoder's table (`_global_encoder/autodecoder/Embed_0/embedding`
+    -> `_global_encoder.autodecoder.embedding`)."""
+    tree = variables.get("params", variables)
+    state = {}
+
+    def walk(node, path):
+        for key, value in node.items():
+            if isinstance(value, Mapping):
+                walk(value, path + ([] if key == "Embed_0" else [key]))
+            else:
+                name = ".".join(path + [key])
+                state[name] = torch.as_tensor(np.array(value), dtype=torch.float32, device=device)
+
+    for top in tree:
+        if top.startswith("implicit_function_") or top == "_global_encoder":
+            walk(tree[top], [top])
+        else:
+            raise ValueError(f"no port of the flax GenericModel's {top!r} variables yet")
+    return state

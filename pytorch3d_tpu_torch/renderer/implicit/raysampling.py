@@ -35,6 +35,26 @@ def _jiggle_within_stratas(bin_centers: torch.Tensor, generator: Optional[torch.
     return _jiggle_within_stratas_with_draws(bin_centers, u)
 
 
+def _linspace(start, stop, n: int, like: torch.Tensor) -> torch.Tensor:
+    """n depths from start to stop.  Bounds that are 0-dim tensors (computed
+    on the device, as `AdaptiveRaySampler`'s) stay there, with no host
+    read: start * (1 - i / (n - 1)) + stop * i / (n - 1), and stop itself
+    last, as `jnp.linspace` computes them (`torch.linspace` reads tensor
+    bounds on the host).  Float bounds keep `torch.linspace`: the other
+    formula moves the NeRF paths' depths by an ulp, and on those rays
+    chip_smoke's nerf-train step-0 gate (fused field against the plain one
+    within 1e-4 on a shared fine bundle) fails by the plain float32 field's
+    own distance from float64 (1.2e-3 of the largest gradient; the fused
+    field's 2.2e-4)."""
+    if not isinstance(start, torch.Tensor) and not isinstance(stop, torch.Tensor):
+        return torch.linspace(start, stop, n, dtype=like.dtype, device=like.device)
+    start, stop = (torch.as_tensor(b, dtype=like.dtype, device=like.device) for b in (start, stop))
+    if n == 1:
+        return start.reshape(1)
+    step = torch.arange(n - 1, dtype=like.dtype, device=like.device) / (n - 1)
+    return torch.cat([start * (1 - step) + stop * step, stop.reshape(1)])
+
+
 def _xy_to_ray_bundle(
     cameras,
     xy_grid: torch.Tensor,  # (B, ..., 2) NDC
@@ -58,7 +78,7 @@ def _xy_to_ray_bundle(
     directions = plane2 - plane1
     origins = plane1 - directions
     if n_pts_per_ray > 0:
-        depths = torch.linspace(min_depth, max_depth, n_pts_per_ray, dtype=xy.dtype, device=xy.device)
+        depths = _linspace(min_depth, max_depth, n_pts_per_ray, xy)
         lengths = depths.expand(B, n_rays, n_pts_per_ray)
         if u_jiggle is not None:
             lengths = _jiggle_within_stratas_with_draws(lengths, u_jiggle.reshape(B, n_rays, n_pts_per_ray))

@@ -26,6 +26,8 @@ from pytorch3d_tpu.renderer import FoVPerspectiveCameras as JCameras
 from pytorch3d_tpu_torch import ops as tops
 from pytorch3d_tpu_torch.renderer import FoVPerspectiveCameras as TCameras
 
+torch.set_num_threads(2)  # the test run's workers share the machine's cores: no oversubscribed thread pools
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 

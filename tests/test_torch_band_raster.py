@@ -47,6 +47,8 @@ from pytorch3d_tpu.utils import ico_sphere as j_ico_sphere
 from pytorch3d_tpu_torch.renderer.mesh import rasterize_cuda as trc
 from pytorch3d_tpu_torch.renderer.mesh.rasterize_meshes import _face_culls, rasterize_grad_plain
 
+torch.set_num_threads(2)  # the test run's workers share the machine's cores: no oversubscribed thread pools
+
 BLUR = 1e-4
 K = 4
 

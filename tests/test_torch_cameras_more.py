@@ -28,6 +28,8 @@ from pytorch3d_tpu_torch.common.compat import meshgrid_ij, prod
 from pytorch3d_tpu_torch.renderer.utils import TensorAccessor, ndc_grid_sample_packed
 from pytorch3d_tpu_torch.utils import ico_sphere
 
+torch.set_num_threads(2)  # the test run's workers share the machine's cores: no oversubscribed thread pools
+
 CPU = torch.device("cpu")
 RTOL, ATOL = 1e-5, 1e-5
 a = np.asarray

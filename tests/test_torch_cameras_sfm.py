@@ -17,6 +17,8 @@ from pytorch3d_tpu.transforms.rotation_conversions import random_rotations as j_
 from pytorch3d_tpu_torch.convert import orthographic_cameras_from_numpy, perspective_cameras_from_numpy
 from pytorch3d_tpu_torch.renderer import OrthographicCameras, PerspectiveCameras
 
+torch.set_num_threads(2)  # the test run's workers share the machine's cores: no oversubscribed thread pools
+
 CPU = torch.device("cpu")
 RTOL, ATOL = 1e-5, 1e-5
 

@@ -36,6 +36,8 @@ from pytorch3d_tpu_torch.renderer.mesh import clip as tclip
 from pytorch3d_tpu_torch.structures import Meshes
 from pytorch3d_tpu_torch.utils import ico_sphere
 
+torch.set_num_threads(2)  # the test run's workers share the machine's cores: no oversubscribed thread pools
+
 jrm = importlib.import_module("pytorch3d_tpu.renderer.mesh.rasterize_meshes")
 trm = importlib.import_module("pytorch3d_tpu_torch.renderer.mesh.rasterize_meshes")
 

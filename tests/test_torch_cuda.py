@@ -1187,3 +1187,93 @@ def test_icp_through_the_knn_kernel_equals_the_plain_route(cuda_device):
     assert got.converged == want.converged and len(got.t_history) == len(want.t_history)
     assert all(torch.equal(a, b) for a, b in zip(got.RTs, want.RTs))
     assert torch.equal(got.Xt, want.Xt)
+
+
+# --------------------------------------------------------------------------- #
+# Implicitron's GenericModel through #12 / #13, ModelDBIR through #5
+# --------------------------------------------------------------------------- #
+
+
+def _implicitron_frames(device, size=48):
+    """Two views 2.7 from a sphere-sized target: random colours, a disc
+    mask, and the cameras."""
+    gen = torch.Generator(device=device).manual_seed(3)
+    R, T = look_at_view_transform(2.7, 20.0, torch.tensor([0.0, 90.0]), device=device)
+    cams = FoVPerspectiveCameras.create(R=R, T=T, device=device)
+    image = torch.rand((2, size, size, 3), generator=gen, device=device)
+    yy, xx = torch.meshgrid(torch.arange(size, device=device), torch.arange(size, device=device), indexing="ij")
+    disc = (((yy - size / 2) ** 2 + (xx - size / 2) ** 2) < (size / 3) ** 2).float()
+    return cams, image, disc[None, ..., None].expand(2, size, size, 1).contiguous()
+
+
+def test_generic_model_through_the_field_kernels_matches_plain(cuda_device):
+    """GenericModel (4 layers of 64, 32 + 32 points, 256 rays) on the card:
+    a training step through #12 and #13 against use_fused_kernel=False on
+    the same draws (chip_smoke.implicitron_step0).  The objective within
+    1e-4; the coarse function's gradients within 1e-4 of each tensor's
+    largest entry end to end; the fine function's within 2e-3 end to end,
+    as tests/test_torch_implicitron_models.py holds them against JAX (its
+    depths are sample_pdf's inverse cdf of the coarse weights, which moves
+    with their last bits: 1.05e-3 measured on the card).  On each pass's
+    bundle shared by both routes, against the plain route in float64:
+    the fused route no further off than 1.5 times the plain route (or
+    1e-4), and the two routes within 1e-4 of each other or within 2.5
+    times the plain route's distance.  An evaluation render within 1e-4
+    on >= 99 % of the pixels."""
+    from pytorch3d_tpu_torch.implicitron.models import GenericModel
+    from pytorch3d_tpu_torch.implicitron.models.renderer import EvaluationMode
+
+    cs = _CHIP_SMOKE
+    cams, image, fg = _implicitron_frames(cuda_device)
+    model = GenericModel(
+        render_image_width=48, render_image_height=48, chunk_size_grid=1024,
+        raysampler_args=dict(n_rays_per_image_sampled_from_mask=256, n_pts_per_ray_training=32,
+                             n_pts_per_ray_evaluation=32, scene_extent=2.0),
+        renderer_args=dict(n_pts_per_ray_fine_training=32, n_pts_per_ray_fine_evaluation=32),
+        implicit_function_args=dict(n_hidden_neurons_xyz=64, n_hidden_neurons_dir=32, n_layers_xyz=4, append_xyz=(2,)),
+        device=cuda_device, generator=torch.Generator(device=cuda_device).manual_seed(0),
+    )
+    batch = dict(image_rgb=image, camera=cams, fg_probability=fg)
+    before = (tfm.nerf_field_cuda.launches, tfm.nerf_field_grad_cuda.launches)
+    objectives, end_to_end, shared = cs.implicitron_step0(model, batch, image * (fg >= 0.5), 1)
+    # 2 passes forward and backward, in the step and on the shared bundles
+    assert (tfm.nerf_field_cuda.launches - before[0], tfm.nerf_field_grad_cuda.launches - before[1]) == (4, 4)
+    worst = max(end_to_end, key=end_to_end.get)
+    print(f"step 0 objective {objectives[0]:.8f} / plain {objectives[1]:.8f}; worst gradient end to end {worst}"
+          f" {end_to_end[worst]:.3e}; on the shared bundles (fused-vs-plain, fused and plain vs float64): "
+          + "; ".join(f"{k} {w} {d:.3e} {f64[0]:.3e} {f64[1]:.3e}" for k, (w, d, f64, _) in shared.items()))
+    assert abs(objectives[0] - objectives[1]) <= 1e-4 * abs(objectives[1])
+    for n, ratio in end_to_end.items():
+        assert ratio <= (1e-4 if n.startswith("implicit_function_0") else 2e-3), (n, ratio)
+    for key, (worst, ratio, (fused_off, plain_off), _) in shared.items():
+        assert fused_off <= max(cs.GRAD_GATE, cs.FUSED_PLAIN_FACTOR * plain_off), (key, fused_off, plain_off)
+        assert ratio <= max(cs.GRAD_GATE, (1 + cs.FUSED_PLAIN_FACTOR) * plain_off), (key, worst, ratio, plain_off)
+    renders = []
+    for fused in (True, False):
+        cs.set_fused(model, fused)
+        before = tfm.nerf_field_cuda.launches
+        with torch.no_grad():
+            renders.append(model(**batch, evaluation_mode=EvaluationMode.EVALUATION)["images_render"])
+        assert tfm.nerf_field_cuda.launches - before == (6 if fused else 0)  # 3 chunks of 2 passes
+    diff = (renders[0] - renders[1]).abs().amax(-1)
+    assert renders[0].shape == (2, 48, 48, 3) and float((diff <= 1e-4).float().mean()) >= 0.99
+
+
+def test_model_dbir_through_the_points_kernel_matches_plain(cuda_device):
+    """ModelDBIR on the card: one #5 launch; against bin_size=0 (the plain
+    rasterizer) on the same subsample, masks and depths equal, images
+    within 1e-6."""
+    from pytorch3d_tpu_torch.implicitron.models import ModelDBIR
+
+    cams, image, fg = _implicitron_frames(cuda_device, 64)
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    depth = torch.where(fg > 0, 2.0 + 0.5 * torch.rand(fg.shape, generator=gen, device=cuda_device), -1.0)
+    scores = torch.rand((1, 2 * 64 * 64), generator=gen, device=cuda_device)
+    kw = dict(camera=cams, image_rgb=image, depth_map=depth, scores=scores)
+    before = tpc.rasterize_points_cuda.launches
+    got = ModelDBIR(render_image_width=64, render_image_height=64, max_points=5000)(**kw)
+    assert tpc.rasterize_points_cuda.launches == before + 1
+    want = ModelDBIR(render_image_width=64, render_image_height=64, max_points=5000, bin_size=0)(**kw)
+    assert torch.equal(got["masks_render"], want["masks_render"]) and float(got["masks_render"].mean()) > 0.05
+    assert torch.equal(got["depths_render"], want["depths_render"])
+    assert float((got["images_render"] - want["images_render"]).abs().max()) <= 1e-6

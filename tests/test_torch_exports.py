@@ -14,12 +14,24 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 MODULES = ["transforms", "renderer", "renderer/mesh", "renderer/points", "renderer/implicit", "structures", "ops",
-           "loss", "utils", "common", "parallel", "io"]
+           "loss", "utils", "common", "parallel", "io", "implicitron/models", "implicitron/models/renderer",
+           "implicitron/models/implicit_function", "implicitron/models/global_encoder"]
 
 # ROADMAP.md queue 1 item -> the JAX names it brings to the port.
 NOT_YET = {
     "3. the rest of NeRF that needs nothing of Implicitron": [],
-    "6. Implicitron and the trainers": ["make_sharded_generic_train_step"],
+    "6. Implicitron and the trainers": [
+        # the voxel grids
+        "CPFactorizedVoxelGrid", "CPFactorizedVoxelGridValues", "FullResolutionVoxelGrid",
+        "FullResolutionVoxelGridValues", "VMFactorizedVoxelGrid", "VMFactorizedVoxelGridValues", "VoxelGridBase",
+        "VoxelGridValuesBase", "VoxelGridModule", "VoxelGridImplicitFunction", "apply_resolution_change",
+        "crop_values", "interpolate_line", "interpolate_plane", "interpolate_tensor", "interpolate_volume",
+        # IDR, the SRNs, the decoders and NeRFormer
+        "IdrFeatureField", "SRNHyperNetImplicitFunction", "SRNImplicitFunction", "DecoderFunctionBase",
+        "ElementwiseDecoder", "MLPDecoder", "MLPWithInputSkips", "NeRFormerImplicitFunction",
+        # the LSTM and SDF renderers
+        "LSTMRenderer", "RayTracing", "SignedDistanceFunctionRenderer",
+    ],
 }
 _QUEUED = {name: item for item, names in NOT_YET.items() for name in names}
 

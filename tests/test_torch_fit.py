@@ -66,6 +66,8 @@ from pytorch3d_tpu_torch.renderer import (
 from pytorch3d_tpu_torch.structures import Meshes
 from test_torch_losses import jax_draws
 
+torch.set_num_threads(2)  # the test run's workers share the machine's cores: no oversubscribed thread pools
+
 CPU = torch.device("cpu")
 STEPS = 5
 SIZE = 32

@@ -18,6 +18,8 @@ import torch
 import pytorch3d_tpu.ops.fused_mlp_pallas as jfm
 from pytorch3d_tpu_torch.ops import fused_mlp_cuda as tfm
 
+torch.set_num_threads(2)  # the test run's workers share the machine's cores: no oversubscribed thread pools
+
 # Both sides sum 39-73 float32 products per output in different orders over
 # two layers: values agree to ~1e-6 of their magnitude, held at 1e-5.
 FWD_TOL = 1e-5

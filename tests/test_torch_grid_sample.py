@@ -18,6 +18,8 @@ import torch
 from pytorch3d_tpu.ops.grid_sample import grid_sample as j_grid_sample
 from pytorch3d_tpu_torch.ops import grid_sample
 
+torch.set_num_threads(2)  # the test run's workers share the machine's cores: no oversubscribed thread pools
+
 CASES = list(itertools.product((2, 3), ("bilinear", "nearest"), ("zeros", "border", "reflection"), (False, True)))
 
 

@@ -42,6 +42,8 @@ import pytorch3d_tpu.renderer.mesh.rasterize_pallas as rmp
 from pytorch3d_tpu_torch.renderer.mesh import rasterize_cuda as trc
 from pytorch3d_tpu_torch.utils import ico_sphere
 
+torch.set_num_threads(2)  # the test run's workers share the machine's cores: no oversubscribed thread pools
+
 trm = importlib.import_module("pytorch3d_tpu_torch.renderer.mesh.rasterize_meshes")
 
 CPU = torch.device("cpu")

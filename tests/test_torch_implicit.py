@@ -44,6 +44,8 @@ from pytorch3d_tpu_torch.renderer.implicit import (
 )
 from pytorch3d_tpu_torch.renderer.implicit.raymarching import _shifted_cumprod
 
+torch.set_num_threads(2)  # the test run's workers share the machine's cores: no oversubscribed thread pools
+
 # float32 on both sides, the same formulas: 1e-6 of the values' magnitude
 # unless a test says otherwise.
 TOL = 1e-6

@@ -47,6 +47,8 @@ from pytorch3d_tpu_torch.renderer.implicit import (
 )
 from pytorch3d_tpu_torch.structures import Volumes
 
+torch.set_num_threads(2)  # the test run's workers share the machine's cores: no oversubscribed thread pools
+
 # float32 on both sides, the same formulas in another order: 1e-5 of the
 # values' (or gradients') magnitude unless a test says otherwise.  Rays come
 # out of a 4x4 inverse each package computes in its own order, ~1e-6 of the

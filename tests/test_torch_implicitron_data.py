@@ -49,6 +49,8 @@ from pytorch3d_tpu_torch.implicitron.tools import config as tconfig
 from pytorch3d_tpu_torch.io import load_objs_as_meshes, save_obj, save_ply
 from pytorch3d_tpu_torch.utils import ico_sphere
 
+torch.set_num_threads(2)  # the test run's workers share the machine's cores: no oversubscribed thread pools
+
 
 @pytest.fixture(autouse=True)
 def _two_threads():

@@ -43,6 +43,8 @@ from pytorch3d_tpu_torch.io.pluggable import MeshFormatInterpreter
 from pytorch3d_tpu_torch.renderer.mesh.textures import TexturesVertex
 from pytorch3d_tpu_torch.structures import Meshes, Pointclouds
 
+torch.set_num_threads(2)  # the test run's workers share the machine's cores: no oversubscribed thread pools
+
 
 @pytest.fixture(autouse=True)
 def _two_threads():

@@ -28,6 +28,8 @@ import torch
 from pytorch3d_tpu.ops.knn import knn_points as j_knn
 from pytorch3d_tpu_torch.ops import knn as tknn
 
+torch.set_num_threads(2)  # the test run's workers share the machine's cores: no oversubscribed thread pools
+
 SMS = 132  # an H100 SXM's streaming multiprocessors
 PER_BLOCK = (128, 256, 512)  # queries a stage-1 block may hold (the build's knn_block_queries)
 _GRID = list(itertools.product((1, 2, 7), (1, 300, 5000, 30000), (1, 12, 127, 128, 129, 5000, 30000, 100_000),

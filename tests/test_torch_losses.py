@@ -41,6 +41,8 @@ from pytorch3d_tpu_torch.ops.sample_points_from_meshes import sample_points_with
 from pytorch3d_tpu_torch.renderer import TexturesVertex
 from pytorch3d_tpu_torch.structures import Meshes
 
+torch.set_num_threads(2)  # the test run's workers share the machine's cores: no oversubscribed thread pools
+
 CPU = torch.device("cpu")
 
 

@@ -36,6 +36,8 @@ from pytorch3d_tpu_torch.convert import (
 from pytorch3d_tpu_torch.models import NeuralRadianceField, RadianceFieldRenderer
 from pytorch3d_tpu_torch.renderer.implicit import RayBundle
 
+torch.set_num_threads(2)  # the test run's workers share the machine's cores: no oversubscribed thread pools
+
 TINY = dict(
     n_pts_per_ray=8, n_pts_per_ray_fine=8, n_rays_per_image=64, min_depth=0.5, max_depth=4.0,
     n_hidden_neurons_xyz=32, n_hidden_neurons_dir=16, n_layers_xyz=2, append_xyz=(1,),

@@ -28,6 +28,8 @@ from pytorch3d_tpu_torch.convert import (
 from pytorch3d_tpu_torch.models import RadianceFieldRenderer
 from pytorch3d_tpu_torch.parallel import make_nerf_train_step
 
+torch.set_num_threads(2)  # the test run's workers share the machine's cores: no oversubscribed thread pools
+
 DATA = pathlib.Path(__file__).resolve().parent / "data" / "train_parity" / "cow.npz"
 STEPS = 5
 LR = 5e-4

@@ -47,6 +47,8 @@ from pytorch3d_tpu_torch.projects.nerf import test_nerf, train_nerf
 from pytorch3d_tpu_torch.projects.nerf.dataset import get_nerf_datasets
 from pytorch3d_tpu_torch.utils import ico_sphere
 
+torch.set_num_threads(2)  # the test run's workers share the machine's cores: no oversubscribed thread pools
+
 TINY = ["--image_size", "16", "--hidden", "32", "--layers", "2", "--n_rays", "64", "--n_pts", "8", "--device", "cpu"]
 
 

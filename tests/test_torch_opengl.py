@@ -51,6 +51,8 @@ from pytorch3d_tpu_torch.renderer.mesh.rasterize_cuda import (
 )
 from pytorch3d_tpu_torch.structures import Meshes
 
+torch.set_num_threads(2)  # the test run's workers share the machine's cores: no oversubscribed thread pools
+
 trm = importlib.import_module("pytorch3d_tpu_torch.renderer.mesh.rasterize_meshes")
 
 CPU = torch.device("cpu")

@@ -31,6 +31,8 @@ from pytorch3d_tpu_torch.ops import graph_conv as tgraph
 from pytorch3d_tpu_torch.convert import graph_conv_state_dict_from_flax, meshes_from_numpy, pointclouds_from_numpy
 from pytorch3d_tpu_torch.renderer.points import rasterize_points, rasterize_points_python
 
+torch.set_num_threads(2)  # the test run's workers share the machine's cores: no oversubscribed thread pools
+
 jmc = importlib.import_module("pytorch3d_tpu.ops.marching_cubes")  # the package binds the function to this name
 
 

@@ -27,6 +27,8 @@ from pytorch3d_tpu_torch.loss import point_mesh_edge_distance, point_mesh_face_d
 from pytorch3d_tpu_torch.loss.point_mesh_distance import point_triangle_distance
 from pytorch3d_tpu_torch.ops import mesh_face_areas_normals
 
+torch.set_num_threads(2)  # the test run's workers share the machine's cores: no oversubscribed thread pools
+
 # The same float32 formulas: 1e-5 of the largest value or gradient (the
 # gradients sum over the points that pick a face in another order).
 TOL = 1e-5

@@ -13,6 +13,8 @@ from pytorch3d_tpu.structures import pointclouds as jpc
 from pytorch3d_tpu_torch.convert import pointclouds_from_numpy
 from pytorch3d_tpu_torch.structures import Pointclouds, join_pointclouds_as_batch, join_pointclouds_as_scene
 
+torch.set_num_threads(2)  # the test run's workers share the machine's cores: no oversubscribed thread pools
+
 CPU = torch.device("cpu")
 COUNTS = (50, 120, 7)
 

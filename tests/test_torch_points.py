@@ -56,6 +56,8 @@ from pytorch3d_tpu_torch.renderer.mesh.rasterize_meshes import pixel_centers_ndc
 from pytorch3d_tpu_torch.renderer.points import compositing as tcomp
 from pytorch3d_tpu_torch.renderer.points import rasterize_points_cuda as trc
 
+torch.set_num_threads(2)  # the test run's workers share the machine's cores: no oversubscribed thread pools
+
 # The packages' points/__init__ re-exports the function under the module's name.
 jrp_mod = importlib.import_module("pytorch3d_tpu.renderer.points.rasterize_points")
 trp = importlib.import_module("pytorch3d_tpu_torch.renderer.points.rasterize_points")

@@ -37,6 +37,8 @@ import pytorch3d_tpu.renderer.points.rasterize_points_pallas as rpp
 from pytorch3d_tpu_torch.renderer.mesh import rasterize_cuda as trc
 from pytorch3d_tpu_torch.renderer.points import rasterize_points_cuda as tpc
 
+torch.set_num_threads(2)  # the test run's workers share the machine's cores: no oversubscribed thread pools
+
 jrp = importlib.import_module("pytorch3d_tpu.renderer.points.rasterize_points")
 trm = importlib.import_module("pytorch3d_tpu_torch.renderer.mesh.rasterize_meshes")
 trp = importlib.import_module("pytorch3d_tpu_torch.renderer.points.rasterize_points")

@@ -55,6 +55,8 @@ from pytorch3d_tpu_torch.renderer import (
 )
 from pytorch3d_tpu_torch.structures import Pointclouds
 
+torch.set_num_threads(2)  # the test run's workers share the machine's cores: no oversubscribed thread pools
+
 CPU = torch.device("cpu")
 STEPS = 5
 POINTS = 500

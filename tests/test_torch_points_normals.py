@@ -25,6 +25,8 @@ from pytorch3d_tpu_torch.common.workaround import _safe_det_3x3
 from pytorch3d_tpu_torch.structures import Pointclouds
 from pytorch3d_tpu_torch.utils import ico_sphere
 
+torch.set_num_threads(2)  # the test run's workers share the machine's cores: no oversubscribed thread pools
+
 CPU = torch.device("cpu")
 RTOL, ATOL = 1e-5, 1e-5
 a = np.asarray

@@ -22,6 +22,8 @@ from pytorch3d_tpu_torch.convert import pointclouds_from_numpy
 from pytorch3d_tpu_torch.ops import add_pointclouds_to_volumes, add_points_features_to_volume_densities_features
 from pytorch3d_tpu_torch.structures import Volumes
 
+torch.set_num_threads(2)  # the test run's workers share the machine's cores: no oversubscribed thread pools
+
 # Voxels sum a few weighted rows in another order: 1e-5 of the largest
 # value (rescaled features divide by densities down to min_weight).
 TOL = 1e-5

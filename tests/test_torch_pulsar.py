@@ -63,6 +63,8 @@ from pytorch3d_tpu_torch.renderer.points.rasterize_points_cuda import (
 )
 from pytorch3d_tpu_torch.structures import Pointclouds
 
+torch.set_num_threads(2)  # the test run's workers share the machine's cores: no oversubscribed thread pools
+
 CPU = torch.device("cpu")
 EXACT = 1e-5  # images; gradients relative to their largest entry
 ROTATED_IMAGE, ROTATED_GRAD = 2e-5, 2e-3

@@ -27,6 +27,8 @@ import torch
 from pytorch3d_tpu.renderer.points.pulsar import Renderer as JRenderer
 from pytorch3d_tpu_torch.renderer.points.pulsar import Renderer
 
+torch.set_num_threads(2)  # the test run's workers share the machine's cores: no oversubscribed thread pools
+
 H, W, P, STEPS, LR, EPS = 32, 40, 60, 5, 1e-2, 1e-4
 CAM = np.asarray([0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 1.0, 2.0], np.float32)
 RENDER = dict(gamma=0.1, max_depth=10.0, min_depth=0.5)

@@ -33,6 +33,8 @@ from pytorch3d_tpu_torch.renderer.mesh.rasterize_cuda import TILE
 from pytorch3d_tpu_torch.renderer.points import rasterize_points_cuda as tpc
 from pytorch3d_tpu_torch.renderer.points.pulsar.renderer import _blend_core
 
+torch.set_num_threads(2)  # the test run's workers share the machine's cores: no oversubscribed thread pools
+
 EXACT = 1e-5  # gradients, relative to each field's largest entry
 BG = [0.2, 0.3, 0.4]
 DEPTH = (0.5, 3.5)

@@ -46,6 +46,8 @@ from pytorch3d_tpu.renderer import (
 from pytorch3d_tpu.utils import ico_sphere as j_ico_sphere
 from pytorch3d_tpu_torch.renderer.mesh import rasterize_cuda as trc
 
+torch.set_num_threads(2)  # the test run's workers share the machine's cores: no oversubscribed thread pools
+
 jrm = importlib.import_module("pytorch3d_tpu.renderer.mesh.rasterize_meshes")
 trm = importlib.import_module("pytorch3d_tpu_torch.renderer.mesh.rasterize_meshes")
 

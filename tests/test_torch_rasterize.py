@@ -34,6 +34,8 @@ from pytorch3d_tpu.utils import torus as j_torus
 from pytorch3d_tpu_torch.renderer.mesh import rasterize_cuda as trc
 from pytorch3d_tpu_torch.structures import Meshes
 
+torch.set_num_threads(2)  # the test run's workers share the machine's cores: no oversubscribed thread pools
+
 # The packages' mesh/__init__ re-exports the function under the module's name.
 jrm = importlib.import_module("pytorch3d_tpu.renderer.mesh.rasterize_meshes")
 trm = importlib.import_module("pytorch3d_tpu_torch.renderer.mesh.rasterize_meshes")

@@ -38,6 +38,8 @@ from pytorch3d_tpu_torch.renderer import (
 )
 from pytorch3d_tpu_torch.utils import ico_sphere, torus
 
+torch.set_num_threads(2)  # the test run's workers share the machine's cores: no oversubscribed thread pools
+
 CPU = torch.device("cpu")
 DATA_DIR = os.path.join(os.path.dirname(__file__), "data")
 

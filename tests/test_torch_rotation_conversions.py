@@ -19,6 +19,8 @@ import torch
 import pytorch3d_tpu.transforms.rotation_conversions as jrc
 import pytorch3d_tpu_torch.transforms.rotation_conversions as trc
 
+torch.set_num_threads(2)  # the test run's workers share the machine's cores: no oversubscribed thread pools
+
 TOL, NEAR_PI = 1e-6, 1e-5
 
 

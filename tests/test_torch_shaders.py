@@ -35,6 +35,8 @@ from pytorch3d_tpu_torch.renderer import (
 from pytorch3d_tpu_torch.renderer.mesh.rasterizer import Fragments
 from pytorch3d_tpu_torch.renderer.mesh.shader import TexturedSoftPhongShader
 
+torch.set_num_threads(2)  # the test run's workers share the machine's cores: no oversubscribed thread pools
+
 CPU = torch.device("cpu")
 SIZE, K, BLUR = 32, 4, 1e-4
 a = np.asarray

@@ -21,6 +21,8 @@ from pytorch3d_tpu.transforms.se3 import _se3_V_matrix as j_v_matrix
 from pytorch3d_tpu_torch.transforms.se3 import _get_se3_V_input as t_v_input
 from pytorch3d_tpu_torch.transforms.se3 import _se3_V_matrix as t_v_matrix
 
+torch.set_num_threads(2)  # the test run's workers share the machine's cores: no oversubscribed thread pools
+
 RTOL, ATOL = 1e-5, 1e-5
 
 

@@ -19,6 +19,8 @@ from pytorch3d_tpu_torch import transforms as tt
 from pytorch3d_tpu_torch.structures import Meshes
 from pytorch3d_tpu_torch.utils import ico_sphere, torus
 
+torch.set_num_threads(2)  # the test run's workers share the machine's cores: no oversubscribed thread pools
+
 CPU = torch.device("cpu")
 
 

@@ -27,6 +27,8 @@ from pytorch3d_tpu_torch import structures as ts
 from pytorch3d_tpu_torch import transforms as tt
 from pytorch3d_tpu_torch.utils import checkerboard, ico_sphere
 
+torch.set_num_threads(2)  # the test run's workers share the machine's cores: no oversubscribed thread pools
+
 CPU = torch.device("cpu")
 RTOL, ATOL = 1e-5, 1e-5
 a = np.asarray

@@ -30,6 +30,8 @@ from pytorch3d_tpu_torch.renderer import Textures, TexturesAtlas, TexturesUV, Te
 from pytorch3d_tpu_torch.renderer.mesh import utils as tutils
 from pytorch3d_tpu_torch.renderer.mesh.rasterizer import Fragments
 
+torch.set_num_threads(2)  # the test run's workers share the machine's cores: no oversubscribed thread pools
+
 CPU = torch.device("cpu")
 N, F, V, VUV, HM, WM, C, R = 2, 12, 9, 20, 8, 10, 3, 4
 

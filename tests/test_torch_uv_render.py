@@ -28,6 +28,8 @@ from pytorch3d_tpu_torch.ops import sample_points_from_meshes
 from pytorch3d_tpu_torch.ops.sample_points_from_meshes import sample_points_with_draws
 from pytorch3d_tpu_torch.renderer import MeshRasterizer, MeshRenderer, RasterizationSettings, SoftPhongShader
 
+torch.set_num_threads(2)  # the test run's workers share the machine's cores: no oversubscribed thread pools
+
 CPU = torch.device("cpu")
 SIZE, K, BLUR, HM, R = 32, 4, 1e-4, 16, 4
 a = np.asarray

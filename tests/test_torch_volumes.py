@@ -16,6 +16,8 @@ from pytorch3d_tpu.structures import Volumes as JVolumes
 from pytorch3d_tpu_torch.convert import volumes_from_numpy
 from pytorch3d_tpu_torch.structures import VolumeLocator, Volumes
 
+torch.set_num_threads(2)  # the test run's workers share the machine's cores: no oversubscribed thread pools
+
 # The same float32 formulas; the world -> local transform inverts a 4x4
 # matrix in each package's own order: 1e-6 of the coordinates' magnitude.
 TOL = 1e-6

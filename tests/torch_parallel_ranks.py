@@ -144,3 +144,22 @@ def raster_and_nerf(rank, world, raster, nerf):
                        {k: v.detach().numpy() for k, v in model.state_dict().items()})
     return out
 
+
+
+def generic_model_steps(rank, world, spec):
+    """`make_sharded_generic_train_step` on a (1, world) mesh: `spec["steps"]`
+    Adam steps of a GenericModel (`spec["config"]`, rank 0's weights from
+    `spec["seed"]`, the other ranks' from other seeds until the broadcast)
+    on spec's frames; returns (the losses, the final state dict)."""
+    from pytorch3d_tpu_torch.convert import fov_perspective_cameras_from_numpy
+    from pytorch3d_tpu_torch.implicitron.models import GenericModel
+    from pytorch3d_tpu_torch.parallel import get_device_mesh, make_sharded_generic_train_step
+
+    torch.set_num_threads(1)  # the ranks share the machine's cores
+    model = GenericModel(**spec["config"], device="cpu", generator=torch.Generator().manual_seed(spec["seed"] + rank))
+    step = make_sharded_generic_train_step(model, torch.optim.Adam(model.parameters(), lr=spec["lr"]),
+                                           get_device_mesh((1, world)))
+    batch = {"camera": fov_perspective_cameras_from_numpy(*spec["cameras"], device="cpu"),
+             **{k: torch.tensor(spec[k]) for k in ("image_rgb", "fg_probability")}}
+    losses = [float(step(batch, s)) for s in range(spec["steps"])]
+    return losses, {k: v.numpy() for k, v in model.state_dict().items()}
