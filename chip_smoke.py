@@ -201,6 +201,21 @@ final result line:
     defaults on 8 views with #1's zbuf as depth, through #5 against the
     plain rasterizer (ids, zbuf, masks and depths equal, images within
     1/255).
+17. slice 19, after slice 18: Implicitron's view-pooled models at the
+    repro configs' widths on the provider's sphere at 400^2 (rendered
+    anew, #1), batches of 10 frames that are also the source views.
+    implicitron-wce-serving serves repro_multiseq_nerf_wce (resnet34
+    features, angle-weighted mean and std, a 256-wide sequence code: the
+    trunk's input D = 455) from 10 source views, 400^2 in 10 chunks of
+    16 000 rays through #12, against use_fused_kernel=False;
+    implicitron-wce-train trains repro_singleseq_nerf_wce (D = 327) 10 Adam
+    steps of 10 x 1024 rays through #12 / #13, step 0 held to the plain
+    route and its float64 witness; flyaround runs `render_flyaround` with
+    8 poses of the serving model into a GIF; nerformer serves and trains
+    repro_singleseq_nerformer (5 x 800 rays a step: 10 ran out of memory),
+    step 0 held against float64 copies of the extractor and the
+    functions; fused-wide holds #10-#13 at D = 327, 455 and 512 against
+    the plain versions and checks the refusal past the input limit.
 
 The last lines are a `{"kernels": [...]}` JSON line and then
 `{"ok": true, "device": {...}}`.  Without CUDA, or outside a checkout of
@@ -1854,6 +1869,7 @@ def profile(label, fn, units):
         f" (idle share {1 - busy_ms / wall_ms:.3f}, profiler on)")
     for key, ms, count in rows[:14]:
         log(f"  {ms / units:9.4f} ms/unit  {count / units:7.1f} calls/unit  {key[:90]}")
+    return {key: (ms / units, count / units) for key, ms, count in rows}
 
 
 # --------------------------------------------------------------------------- #
@@ -2954,7 +2970,7 @@ def phase_nerf_times(device, scene):
     # a forward launch is the weights' packing and the chain
     fwd_names = {h: (f"fused_mlp_fwd_kernel<{flag[h]}, false>", "fused_mlp_fwd_prep_kernel") for h in (False, True)}
     save_names = {h: (f"fused_mlp_fwd_kernel<{flag[h]}, true>", "fused_mlp_fwd_prep_kernel") for h in (False, True)}
-    passes = {h: {"weight preparation": "fused_mlp_bwd_prep_kernel", "row pass": f"fused_mlp_bwd_rows_kernel<{flag[h]}>",
+    passes = {h: {"weight preparation": "fused_mlp_bwd_prep_kernel", "row pass": f"fused_mlp_bwd_rows_kernel<{flag[h]},",
                   "weight pass": "fused_mlp_bwd_weights_kernel", "split sum": "fused_mlp_bwd_reduce_kernel"}
               for h in (False, True)}
     x, mlp = scene.trunk_inputs()
@@ -6906,13 +6922,12 @@ class ImplicitronScene:
         dataset = self.provider.get_dataset_map()
         self.train, self.test = dataset["train"], dataset["test"]
 
-    def model(self, seed):
+    def model(self, seed, cfg=IMPLICITRON_MODEL):
         import torch
 
         from pytorch3d_tpu_torch.implicitron.models import GenericModel
 
-        return GenericModel(**IMPLICITRON_MODEL, device=self.device,
-                            generator=torch.Generator(device=self.device).manual_seed(seed))
+        return GenericModel(**cfg, device=self.device, generator=torch.Generator(device=self.device).manual_seed(seed))
 
     @staticmethod
     def batch(frame):
@@ -7011,8 +7026,8 @@ def implicitron_step0(model, batch, image, seed):
     kept, grads, objectives = {}, [], []
 
     def keeper(key):
-        def hook(module, args, kwargs, out):  # the fused route's bundle: the first call's
-            kept.setdefault(key, kwargs["ray_bundle"])
+        def hook(module, args, kwargs, out):  # the fused route's bundle and inputs: the first call's
+            kept.setdefault(key, (kwargs["ray_bundle"], fixed_inputs(kwargs)))
 
         return hook
 
@@ -7031,24 +7046,25 @@ def implicitron_step0(model, batch, image, seed):
             h.remove()
     marcher = model._renderer._raymarcher
 
-    def pass_grads(fn, b):
+    def pass_grads(fn, b, inputs, dtype=None):
         gt = ndc_grid_sample(image.to(b.lengths.dtype).movedim(-1, 1), b.xys).movedim(1, -1)
         fn.zero_grad(set_to_none=True)
-        out = marcher(*fn(ray_bundle=b), ray_lengths=b.lengths)
+        out = marcher(*fn(ray_bundle=b, **inputs(dtype)), ray_lengths=b.lengths)
         ((out.features - gt) ** 2).mean().backward()
         return {n: p.grad.clone() for n, p in fn.named_parameters()}
 
     shared = {}
     for key, fn in fns.items():
-        b = kept[key]
+        b, inputs = kept[key]
         routes = []
         for fused in (True, False):
             set_fused(model, fused)
-            routes.append(pass_grads(fn, b))
+            routes.append(pass_grads(fn, b, inputs))
         ref = copy.deepcopy(fn).double()
         set_fused(ref, False)
         exact = pass_grads(ref, b.replace(**{k: getattr(b, k).double()
-                                             for k in ("origins", "directions", "lengths", "xys")}))
+                                             for k in ("origins", "directions", "lengths", "xys")}),
+                           inputs, torch.float64)
         del ref
         on_shared = grad_ratios(*routes)
         worst = max(on_shared, key=on_shared.get)
@@ -7057,6 +7073,39 @@ def implicitron_step0(model, batch, image, seed):
     set_fused(model, True)
     model.zero_grad(set_to_none=True)
     return objectives, grad_ratios(*grads), shared
+
+
+class _PoolAt32:
+    """A function's fun_viewpool with the points projected in float32, as
+    the cameras are; `fixed`: its features detached and cast to `dtype`
+    (a pass's inputs held while its own gradients are compared)."""
+
+    def __init__(self, pool, fixed=False, dtype=None):
+        self.pool, self.fixed, self.dtype, self.per_view = pool, fixed, dtype, getattr(pool, "per_view", False)
+
+    def __call__(self, pts):
+        out = self.pool(pts.float())
+        if not self.fixed:
+            return out
+        return out.detach() if self.dtype is None else out.detach().to(self.dtype)
+
+
+def fixed_inputs(kwargs):
+    """dtype -> the implicit function's inputs besides its bundle (pooled
+    features, the global code, the cameras) held fixed, in `dtype` where
+    given."""
+    pool, code, camera = kwargs.get("fun_viewpool"), kwargs.get("global_code"), kwargs.get("camera")
+
+    def inputs(dtype=None):
+        out = {}
+        if pool is not None:
+            out["fun_viewpool"] = _PoolAt32(pool, fixed=True, dtype=dtype)
+            out["camera"] = camera
+        if code is not None:
+            out["global_code"] = code.detach() if dtype is None else code.detach().to(dtype)
+        return out
+
+    return inputs
 
 
 def phase_implicitron_step0(device, scene, model):
@@ -7381,6 +7430,685 @@ def phase_model_dbir(device, scene, card):
     return counts
 
 
+# Slice 19: #10-#13 at the view-conditioned NeRF's input widths (repro_singleseq_nerf_wce: 63 harmonic features +
+# 264 pooled = 327; repro_multiseq_nerf_wce: 63 + a 256-wide code + 136 pooled = 455) and at 512, past the 256 of
+# one column tile; the trunk and head at repro_base's widths.
+WIDE_INPUTS = (327, 455, 512)
+WIDE_ROWS = 131_072
+WIDE_MODEL = dict(H=256, L=8, skips=(5,), Ddir=27, Hh=128)
+
+
+def fused_wide_inputs(device, N, D, H, L, skips, Ddir=0, Hh=0, seed=0):
+    """Seeded xavier-uniform weights, small random biases and inputs in
+    [-1, 1] (the range of harmonic embeddings and of the pooled, l2-normed
+    features); with Ddir, the 9 head tensors too: (x, d_embed, weights,
+    biases, head)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def dense(i, o):
+        lim = (6.0 / (i + o)) ** 0.5
+        return (torch.rand((i, o), generator=gen, device=device) * 2 - 1) * lim, \
+            torch.randn((o,), generator=gen, device=device) * 0.05
+
+    x = torch.rand((N, D), generator=gen, device=device) * 2 - 1
+    ws, bs = zip(*[dense((D if li == 0 else H) + (D if li in skips else 0), H) for li in range(L)])
+    if not Ddir:
+        return x, None, list(ws), list(bs), None
+    de = torch.rand((N, Ddir), generator=gen, device=device) * 2 - 1
+    wd, bd = dense(H, 1)
+    wi, bi = dense(H, H)
+    wc1, bc1 = dense(H + Ddir, Hh)
+    wc2, bc2 = dense(Hh, 3)
+    return x, de, list(ws), list(bs), (wd, bd, wi, bi, wc1[:H].contiguous(), wc1[H:].contiguous(), bc1, wc2, bc2)
+
+
+def phase_fused_wide(device, card):
+    """#10-#13 at input widths past one 256-column tile (WIDE_INPUTS, N =
+    WIDE_ROWS, WIDE_MODEL's trunk and head): each against its plain version
+    under compare_fused's rules (the saving forward's masks, the mask-flip
+    rule against float64), every call a launch of the kernel (none takes
+    the plain route), two backward calls equal to the bit; device times
+    beside the bound, the plain version's and the torch.addmm chain's.
+    Past `input_limit` (D 513 beside Ddir 256) every wrapper raises before
+    it launches.  Returns ({kernel: largest error}, {D: times})."""
+    import torch
+
+    from pytorch3d_tpu_torch.ops import fused_mlp_cuda as fm
+
+    m = WIDE_MODEL
+    flag = {False: "false", True: "true"}
+    errors = dict.fromkeys(("fused_mlp", "fused_mlp_grad", "nerf_field", "nerf_field_grad"), 0.0)
+    failed, times = [], {}
+    for D in WIDE_INPUTS:
+        for head_on in (False, True):
+            Ddir, Hh = (m["Ddir"], m["Hh"]) if head_on else (0, 0)
+            x, de, ws, bs, head = fused_wide_inputs(device, WIDE_ROWS, D, m["H"], m["L"], m["skips"], Ddir, Hh,
+                                                    seed=D)
+            g = torch.randn((WIDE_ROWS, 4 if head_on else m["H"]), device=device,
+                            generator=torch.Generator(device=device).manual_seed(D + 1))
+            fwd_w, bwd_w = (fm.nerf_field_cuda, fm.nerf_field_grad_cuda) if head_on else (fm.fused_mlp_cuda,
+                                                                                        fm.fused_mlp_grad_cuda)
+            before = (fwd_w.launches, bwd_w.launches)
+            result = compare_fused(x, de, ws, bs, head, m["skips"], g)
+            launched = (fwd_w.launches - before[0], bwd_w.launches - before[1])
+            name = "nerf_field" if head_on else "fused_mlp"
+            if not fused_report(f"{name} + grad, D={D} N={WIDE_ROWS} H={m['H']} L={m['L']} Ddir={Ddir} Hh={Hh}",
+                                result) or launched != (2, 1):
+                failed.append(f"{name} D={D}")
+            repeats = fused_backward_repeats(x, de, ws, bs, head, m["skips"], g)
+            log(f"  launches {launched} (2 forwards, 1 backward: none on the plain route); two backward launches"
+                f" on the same saved tensors: {'equal bits' if repeats else 'DIFFERENT bits'}")
+            if not repeats:
+                failed.append(f"{name} D={D} repeat")
+            errors[name] = max(errors[name], result["fwd_diff"])
+            errors[f"{name}_grad"] = max(errors[f"{name}_grad"], result["worst"])
+            fwd = ((lambda: fm.nerf_field_cuda(x, de, ws, bs, head, m["skips"])) if head_on
+                   else (lambda: fm.fused_mlp_cuda(x, ws, bs, m["skips"])))
+            saved = ((fm.nerf_field_cuda(x, de, ws, bs, head, m["skips"], save=True)) if head_on
+                     else fm.fused_mlp_cuda(x, ws, bs, m["skips"], save=True))
+            bwd = ((lambda: fm.nerf_field_grad_cuda(x, de, ws, bs, head, m["skips"], g, saved=saved)) if head_on
+                   else (lambda: fm.fused_mlp_grad_cuda(x, ws, bs, m["skips"], g, saved=saved)))
+            kernel_f = device_ms(fwd, (f"fused_mlp_fwd_kernel<{flag[head_on]}, false>", "fused_mlp_fwd_prep_kernel"),
+                                 iters=5, warmup=1)
+            kernel_b = sum(device_ms_by_kernel(bwd, ("fused_mlp_bwd_prep_kernel",
+                                                     f"fused_mlp_bwd_rows_kernel<{flag[head_on]},",
+                                                     "fused_mlp_bwd_weights_kernel", "fused_mlp_bwd_reduce_kernel"),
+                                               3, 1).values())
+            with torch.no_grad():
+                plain_f = cuda_ms((lambda: fm.fused_nerf_field_plain(x, de, ws, bs, head, m["skips"])) if head_on
+                                  else (lambda: fm.fused_mlp_plain(x, ws, bs, m["skips"])), 3, 1)
+                lib_f = cuda_ms(lambda: addmm_chain(x, ws, bs, m["skips"], de, head), 3, 1)
+            plain_b = cuda_ms((lambda: fm.fused_nerf_field_grad_plain(x, de, ws, bs, head, m["skips"], g)) if head_on
+                              else (lambda: fm.fused_mlp_grad_plain(x, ws, bs, m["skips"], g)), 3, 1)
+            params = [t.detach().requires_grad_(True) for t in (*ws, *bs, *(head or ()))]
+            L = m["L"]
+            xr = x.detach().requires_grad_(True)
+            out = addmm_chain(xr, params[:L], params[L : 2 * L], m["skips"], de, params[2 * L :] or None)
+            lib_b = cuda_ms(lambda: torch.autograd.grad(out, [xr, *params], g, retain_graph=True), 3, 1)
+            bound_f, by_f, ops_f = mlp_bound(WIDE_ROWS, D, m["H"], L, m["skips"], Ddir, Hh)
+            bound_b, by_b, _ = mlp_bound(WIDE_ROWS, D, m["H"], L, m["skips"], Ddir, Hh, backward=True)
+            log(f"times [{name}, D={D}, {card}] N={WIDE_ROWS}: {mlp_macs_per_row(D, m['H'], L, m['skips'], Ddir, Hh)}"
+                f" multiply-adds a row; forward {kernel_f:.4f} ms (device time, profiler), plain {plain_f:.4f} ms,"
+                f" library (torch.addmm chain) {lib_f:.4f} ms, bound {bound_f:.4f} ms by {by_f}"
+                f" ({ops_f / kernel_f / 1e9:.2f} TFLOP/s, {bound_f / kernel_f:.3f} of the bound); backward"
+                f" {kernel_b:.4f} ms (device time), plain {plain_b:.4f} ms, library (autograd of the addmm chain)"
+                f" {lib_b:.4f} ms, bound {bound_b:.4f} ms by {by_b}")
+            times[(name, D)] = dict(fwd=kernel_f, bwd=kernel_b, plain_f=plain_f, plain_b=plain_b, lib_f=lib_f,
+                                    lib_b=lib_b, bound_f=bound_f, bound_b=bound_b)
+            del x, de, g, saved, out, params, xr, result
+            torch.cuda.empty_cache()
+    # one past the limit: D 513 beside a 256-wide d_embed (limit 328) refused before any launch
+    D = fm.input_limit(WIDE_MODEL["H"], 256) + 1
+    x, de, ws, bs, head = fused_wide_inputs(device, 256, max(D, 513), m["H"], 2, (1,), 256, 64)
+    g4 = torch.zeros((256, 4), device=device)
+    before = read_counts()
+    refused = 0
+    for call in (lambda: fm.nerf_field_cuda(x, de, ws, bs, head, (1,)),
+                 lambda: fm.nerf_field_grad_cuda(x, de, ws, bs, head, (1,), g4),
+                 lambda: fm.fused_nerf_field(x, de, ws, bs, head, (1,))):
+        try:
+            call()
+        except ValueError:
+            refused += 1
+    xt, _, wt, bt, _ = fused_wide_inputs(device, 256, fm.input_limit(m["H"]) + 1, m["H"], 2, (1,))
+    for call in (lambda: fm.fused_mlp_cuda(xt, wt, bt, (1,)),
+                 lambda: fm.fused_mlp_grad_cuda(xt, wt, bt, (1,), torch.zeros((256, m["H"]), device=device))):
+        try:
+            call()
+        except ValueError:
+            refused += 1
+    log(f"fused-wide: past the shared-memory limit (D {x.shape[1]} beside Ddir 256, limit"
+        f" {fm.input_limit(m['H'], 256)}; the trunk at D {xt.shape[1]}, limit {fm.input_limit(m['H'])}):"
+        f" {refused} of 5 calls refused, launches {read_counts() == before and 'unchanged' or 'CHANGED'}")
+    check(refused == 5 and read_counts() == before, "fused-wide: a wrapper took an input past its limit")
+    check(not failed, f"fused-wide: kernels disagree with their plain versions: {failed}")
+    return errors, times
+
+
+# Slice 19: Implicitron's view-pooled models at the repro configs' widths on the provider's sphere at 400^2
+# (CO3D is not in the repository).  A batch is 10 frames of the one sequence, which are also the source views
+# (upstream PyTorch3D's repro_base.yaml batch; the JAX copy of that file leaves it out); a served request renders
+# one test camera from 10 source views (`source_views`).
+VIEWS_PER_BATCH = 10
+# Served frames and training steps are cut so that these phases add ~90 s (a view-pooled 400^2 frame takes
+# ~5.9 s, most of it the pooling's gathers); the widths are the configs'.
+WCE_FRAMES = 1  # timed served frames after the plain route's
+WCE_STEPS = 6
+NERFORMER_STEPS = 6
+NERFORMER_IMAGES = 5  # a step of 10 x 800 rays ran out of the card's 80 GB: the batch halved, not the widths
+FLYAROUND_POSES = 2
+# repro_multiseq_nerf_wce.yaml (its base repro_multiseq_base.yaml and repro_base.yaml): D = 63 + 256 + 136 = 455
+WCE_MULTISEQ = dict(
+    IMPLICITRON_MODEL, chunk_size_grid=16000, view_pooler_enabled=True,
+    view_pooler_args=dict(feature_aggregator_class_type="AngleWeightedReductionFeatureAggregator"),
+    image_feature_extractor_args=dict(stages=(1, 2, 3, 4), proj_dim=16),
+    global_encoder_class_type="SequenceAutodecoder", global_encoder_args=dict(encoding_dim=256, n_instances=1500),
+)
+# repro_singleseq_nerf_wce.yaml = repro_singleseq_base + repro_feat_extractor_normed + repro_singleseq_nerf:
+# D = 63 + (4 x 32 + 1 + 3) x 2 = 327
+WCE_SINGLESEQ = dict(
+    IMPLICITRON_MODEL, view_pooler_enabled=True,
+    image_feature_extractor_args=dict(arch="resnet34", pretrained=True, stages=(1, 2, 3, 4), normalize_image=True,
+                                      image_rescale=0.375, first_max_pool=True, l2_norm=True, proj_dim=32,
+                                      add_images=True, add_masks=True),
+)
+# repro_singleseq_nerformer.yaml: 800 rays, 32 + 16 points, an 80-wide transformer of 2 layers (the skip at 1,
+# the width halved each layer, 4 heads), angle-weighted identity pooling kept per view, proj_dim 16
+NERFORMER_MODEL = dict(
+    IMPLICITRON_MODEL, chunk_size_grid=16000,
+    raysampler_args=dict(IMPLICITRON_MODEL["raysampler_args"], n_rays_per_image_sampled_from_mask=800,
+                         n_pts_per_ray_training=32, n_pts_per_ray_evaluation=32),
+    renderer_args=dict(n_pts_per_ray_fine_training=16, n_pts_per_ray_fine_evaluation=16),
+    implicit_function_class_type="NeRFormerImplicitFunction",
+    implicit_function_args=dict(IMPLICITRON_MODEL["implicit_function_args"], n_hidden_neurons_xyz=80, n_layers_xyz=2,
+                                append_xyz=(1,)),
+    view_pooler_enabled=True,
+    view_pooler_args=dict(feature_aggregator_class_type="AngleWeightedIdentityFeatureAggregator"),
+    image_feature_extractor_args=dict(stages=(1, 2, 3, 4), proj_dim=16),
+)
+NERFORMER_LOSS_RTOL = 1e-5  # step 0's two pass losses, float32 against float64
+# Every gradient, float32 against float64 on the float32 extractor's ReLU masks and max-pool picks (full widths on
+# the CPU: 0.8-5e-4 over 3 seeds; on the card 6e-5); against float64 on its own choices, within this or
+# FUSED_PLAIN_FACTOR times what the flipped choices alone move (one float32 forward flipped a tie that moved
+# layer3's weight gradients 5.65e-3, the same with cuDNN off or on)
+NERFORMER_GRAD_GATE = 5e-3
+GRAD_FLOOR = 1e-3  # a tensor's gradient is held against at least this share of the model's largest gradient
+WITNESS_IMAGES = 2  # images of a float64 witness chunk (the gradient is a sum over rays)
+
+
+def frames_batch(frames):
+    """The FrameData list as one batch: images, masks and joined cameras."""
+    import torch
+
+    from pytorch3d_tpu_torch.renderer.camera_utils import join_cameras_as_batch
+
+    return dict(image_rgb=torch.cat([f.image_rgb for f in frames]),
+                fg_probability=torch.cat([f.fg_probability for f in frames]),
+                camera=join_cameras_as_batch([f.camera for f in frames]))
+
+
+def source_frames(scene):
+    """VIEWS_PER_BATCH training frames spread around the ring."""
+    import numpy as np
+
+    idx = np.linspace(0, len(scene.train) - 1, VIEWS_PER_BATCH).round().astype(int)
+    return [scene.train[int(i)] for i in idx]
+
+
+def grad_ratios_floored(a, b, floor=GRAD_FLOOR):
+    """{name: max |a - b| / max(max |b|, floor x the largest |b| of all)}:
+    a tensor whose gradient is zero up to rounding (attention's key bias:
+    the softmax ignores a shift common to every key) against its
+    neighbours' scale."""
+    top = max(float(v.abs().max()) for v in b.values())
+    return {n: float((a[n].double() - b[n].double()).abs().max()) / max(float(b[n].abs().max()), floor * top, 1e-300)
+            for n in b}
+
+
+def phase_wce_serving(device, card):
+    """repro_multiseq_nerf_wce at full size: the provider's 40 views at
+    400^2 rendered through #1 (in this path's count), then served requests
+    of one test camera from 10 source views, 400^2 in 10 chunks of 16 000
+    rays, 64 + 64 points: #12's serving build at D = 455, 10.24 M coarse and
+    20.48 M fine rows a frame.  The frame against use_fused_kernel=False on
+    the card under nerf-serving's limits; frame time, #12's launches,
+    device time and bound.  Returns (counts, scene, model)."""
+    import torch
+
+    from pytorch3d_tpu_torch.implicitron.models.renderer import EvaluationMode
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    reset_counts()
+    t0 = time.perf_counter()
+    scene = ImplicitronScene(device)
+    build_ms = (time.perf_counter() - t0) * 1e3
+    model = scene.model(19, WCE_MULTISEQ)
+    D = model.implicit_function_0.xyz_encoder.layer0.kernel.shape[0]
+    check(D == 455, f"implicitron-wce-serving: the trunk's input is {D} wide, not 455")
+    source = frames_batch(source_frames(scene))
+
+    def request(frame):
+        with torch.no_grad():
+            return model(camera=frame.camera, sequence_name=[frame.sequence_name], source_views=source,
+                         evaluation_mode=EvaluationMode.EVALUATION)["images_render"]
+
+    frames = scene.test[:WCE_FRAMES]
+    set_fused(model, False)
+    try:
+        plain = request(frames[0])  # the reference, and the first call's allocations
+    finally:
+        set_fused(model, True)
+    torch.cuda.synchronize()
+    images, frame_ms = [], []
+    for f in frames:
+        t0 = time.perf_counter()
+        images.append(request(f))
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = read_counts()
+    chunks = -(-IMPLICITRON_RES**2 // WCE_MULTISEQ["chunk_size_grid"])
+    want = 2 * chunks * len(frames)
+    log(f"implicitron-wce-serving [repro_multiseq_nerf_wce at {IMPLICITRON_RES}^2, D={D}, {VIEWS_PER_BATCH} source"
+        f" views, {len(frames)} frames after the plain route's in {chunks} chunks]: launches {counts}; provider"
+        f" {build_ms:.1f} ms; frame ms {[round(v, 3) for v in frame_ms]}")
+    check(counts["nerf_field"] == want and counts["nerf_field_grad"] == 0 and counts["rasterize_fine"] > 0,
+          f"implicitron-wce-serving: launches {counts}, expected {want} nerf_field and the provider's #1")
+    for i, img in enumerate(images):
+        check(img.shape == (1, IMPLICITRON_RES, IMPLICITRON_RES, 3) and bool(torch.isfinite(img).all()),
+              f"implicitron-wce-serving: frame {i} of shape {tuple(img.shape)} or not finite")
+    diff = (images[0] - plain).abs().amax(dim=-1)
+    share = float((diff <= NERF_FRAME_TOL).double().mean())
+    log(f"  against use_fused_kernel=False: share of pixels within {NERF_FRAME_TOL:g} {share:.6f}, max"
+        f" {float(diff.max()):.3e}; rgb range [{float(images[0].min()):.4f}, {float(images[0].max()):.4f}]")
+    check(share >= NERF_FRAME_SHARE, "implicitron-wce-serving: the frame is off the plain route's")
+    rows_ms = profile("implicitron-wce-serving frame", lambda: request(frames[-1]), 1)
+    fwd = [v for k, v in rows_ms.items() if "fused_mlp_fwd_kernel<true, false>" in k or "fused_mlp_fwd_prep" in k]
+    check(all(n == 2 * chunks for _, n in fwd) and len(fwd) == 2,
+          f"implicitron-wce-serving: the profile recorded {fwd} #12 launches, not {2 * chunks} of each")
+    kernel = sum(ms for ms, _ in fwd)
+    m = WIDE_MODEL
+    rows = IMPLICITRON_RES**2 * WCE_MULTISEQ["raysampler_args"]["n_pts_per_ray_evaluation"]
+    bound = sum(mlp_bound(n, D, m["H"], m["L"], m["skips"], m["Ddir"], m["Hh"])[0] for n in (rows, 2 * rows))
+    timed = sorted(frame_ms)
+    log(f"times [implicitron-wce-serving frame, {card}] median of {len(timed)}: {timed[len(timed) // 2]:.3f} ms (min"
+        f" {timed[0]:.3f}, max {timed[-1]:.3f}); #12 {kernel:.3f} ms a frame (device time, profiler; {2 * chunks}"
+        f" launches, {kernel / (2 * chunks):.3f} a launch), bound {bound:.3f} ms by operations"
+        f" ({bound / kernel:.3f} of it)")
+    return counts, scene, model
+
+
+def phase_wce_train(device, scene, card):
+    """repro_singleseq_nerf_wce at full size (D = 327): batches of 10
+    frames, 1024 rays an image, 64 + 128 points (655 360 coarse and
+    1 310 720 fine rows a step through #12's saving build and #13).  Step 0
+    against the plain route on the same drawn rays through
+    `implicitron_step0`'s float64 witness: the objective, every gradient
+    end to end (the fine function's and the ResNet's within
+    NERF_FINE_GATE: both take the fine pass, whose depths move with the
+    coarse weights' last bits), each pass on its shared bundle; then
+    WCE_STEPS Adam steps at lr 5e-4 whose objective must fall."""
+    import numpy as np
+    import torch
+
+    from pytorch3d_tpu_torch.implicitron.models.renderer import EvaluationMode
+    from pytorch3d_tpu_torch.ops import fused_mlp_cuda as fm
+
+    model = scene.model(20, WCE_SINGLESEQ)
+    D = model.implicit_function_0.xyz_encoder.layer0.kernel.shape[0]
+    check(D == 327, f"implicitron-wce-train: the trunk's input is {D} wide, not 327")
+    order = np.random.RandomState(19).permutation(len(scene.train))
+    batches = [frames_batch([scene.train[int(i)] for i in np.roll(order, -VIEWS_PER_BATCH * k)[:VIEWS_PER_BATCH]])
+               for k in range(3)]
+    b0 = batches[0]
+    image = b0["image_rgb"] * (b0["fg_probability"] >= 0.5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    objectives, end_to_end, shared = implicitron_step0(model, b0, image, 7)
+    step0_s = time.perf_counter() - t0
+    loss_off = abs(objectives[0] - objectives[1]) / abs(objectives[1])
+    late = {n: v for n, v in end_to_end.items()
+            if n.startswith(("implicit_function_1", "_image_feature_extractor"))}
+    worst_late = max(late, key=late.get)
+    log(f"implicitron-wce-train [repro_singleseq_nerf_wce, D={D}, {VIEWS_PER_BATCH} images x 1024 rays]: step 0"
+        f" objective {objectives[0]:.8f} against the plain route's {objectives[1]:.8f} (relative {loss_off:.3e});"
+        f" gradients fused against plain on the shared bundles: " + "; ".join(
+            f"{k} function ({n} points) {w} {d:.3e} (against the plain route in float64: fused {wit[0]:.3e},"
+            f" plain {wit[1]:.3e})" for k, (w, d, wit, n) in shared.items())
+        + f"; end to end, the fine function's and the ResNet's worst {worst_late} {late[worst_late]:.3e}, the"
+        f" coarse function's worst {max(v for n, v in end_to_end.items() if n.startswith('implicit_function_0')):.3e};"
+        f" {step0_s:.1f} s, peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    check(all(math.isfinite(v) for v in end_to_end.values()), "implicitron-wce-train: non-finite step 0 gradients")
+    check(loss_off <= IMPLICITRON_LOSS_RTOL, "implicitron-wce-train: step 0's objective off the plain route's")
+    check(late[worst_late] <= NERF_FINE_GATE,
+          "implicitron-wce-train: step 0's fine-function or ResNet gradients off the plain route's")
+    for k, (_, d, (fused_off, plain_off), _) in shared.items():
+        check(fused_off <= max(GRAD_GATE, FUSED_PLAIN_FACTOR * plain_off),
+              f"implicitron-wce-train: the fused {k} function is further from float64 than the plain route")
+        check(d <= max(GRAD_GATE, (1 + FUSED_PLAIN_FACTOR) * plain_off),
+              f"implicitron-wce-train: step 0's {k} gradients off the plain route's")
+    opt = torch.optim.Adam(model.parameters(), lr=IMPLICITRON_LR)
+    gen = torch.Generator(device=device).manual_seed(21)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    recomputed = fm._backward.forwards_run
+    objectives, step_ms = [], []
+    for i in range(WCE_STEPS):
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        preds = model(**batches[i % len(batches)], evaluation_mode=EvaluationMode.TRAINING, generator=gen)
+        preds["objective"].backward()
+        opt.step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        objectives.append(float(preds["objective"].detach()))
+    counts = read_counts()
+    recomputed = fm._backward.forwards_run - recomputed
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    first, last = sum(objectives[:3]) / 3, sum(objectives[-3:]) / 3
+    log(f"implicitron-wce-train: {WCE_STEPS} Adam steps: objectives {[round(v, 6) for v in objectives]}; launches"
+        f" {counts}; peak memory {peak_gb:.2f} GB")
+    check(all(math.isfinite(v) for v in objectives), "implicitron-wce-train: non-finite objective")
+    check(last < first, f"implicitron-wce-train: the mean of the last 3 objectives {last:.6f} is not below the"
+                        f" first 3's {first:.6f}")
+    check(counts["nerf_field"] == 2 * WCE_STEPS and counts["nerf_field_grad"] == 2 * WCE_STEPS,
+          f"implicitron-wce-train: launches {counts} for {WCE_STEPS} steps (2 forwards and 2 backwards each)")
+    check(recomputed == 0, f"implicitron-wce-train: the backward ran {recomputed} forwards instead of the saved ones")
+    check(all(bool(torch.isfinite(p).all()) for p in model.parameters()), "implicitron-wce-train: non-finite weights")
+    timed = sorted(step_ms[2:])
+    log(f"times [implicitron-wce-train step, {card}] median of steps 3-{WCE_STEPS}: {timed[len(timed) // 2]:.3f} ms"
+        f" (min {timed[0]:.3f}, max {timed[-1]:.3f}), peak memory {peak_gb:.3f} GB; mean objective first 3"
+        f" {first:.6f}, last 3 {last:.6f}")
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        model(**batches[0], evaluation_mode=EvaluationMode.TRAINING, generator=gen)["objective"].backward()
+        opt.step()
+
+    profile("implicitron-wce-train step", step, 1)
+    del model, opt
+    torch.cuda.empty_cache()
+    return counts
+
+
+class _Decisions:
+    """The feature extractor's discrete choices, its ReLU masks and max-pool
+    picks, recorded in one pass and replayed in another: float64 on the
+    float32 forward's choices, the rule compare_fused holds #11 / #13 by.
+    A float32 forward on one side of a near tie routes a gradient that
+    float64 routes elsewhere; `flips` counts the choices that differ."""
+
+    def __init__(self):
+        self.masks, self.picks, self.flips = [], [], 0
+
+    def around(self, replay):
+        import contextlib
+
+        import torch
+        import torch.nn.functional as F
+
+        relu, pool = torch.relu, F.max_pool2d
+        at = {"relu": 0, "pool": 0}
+
+        def relu_(x):
+            if not replay:
+                self.masks.append(x.detach() > 0)
+                return relu(x)
+            m = self.masks[at["relu"]]
+            at["relu"] += 1
+            self.flips += int((m != (x.detach() > 0)).sum())
+            return x * m.to(x.dtype)
+
+        def pool_(x, kernel_size, stride=None, padding=0):
+            out, idx = pool(x, kernel_size, stride=stride, padding=padding, return_indices=True)
+            if not replay:
+                self.picks.append(idx)
+                return out
+            pick = self.picks[at["pool"]]
+            at["pool"] += 1
+            self.flips += int((pick != idx).sum())
+            return x.flatten(2).gather(2, pick.flatten(2)).view_as(out)
+
+        @contextlib.contextmanager
+        def patched():
+            torch.relu, F.max_pool2d = relu_, pool_
+            try:
+                yield
+            finally:
+                torch.relu, F.max_pool2d = relu, pool
+
+        return patched()
+
+
+def pooled_witness(model, batch, image, seed):
+    """Step 0 of a view-pooled GenericModel held against itself in float64:
+    the float32 step on `batch` (generator seed) keeps each pass's bundle;
+    then, for the extractor and the implicit functions in float32 and for
+    float64 copies of them (twice: on the float32 extractor's ReLU masks and
+    max-pool picks, `_Decisions`, and on their own), the passes' rgb mse
+    against `image` (the model's masked target) on those bundles,
+    WITNESS_IMAGES images at a time (the points projected in float32, as the
+    cameras are), gradients summed.  All run cuDNN's deterministic
+    algorithms without TF32 (`cudnn.flags` turns TF32 on unless told not
+    to).  Returns (the step's objective, the witness losses (float32,
+    float64), and {parameter: ratio, floored} for float32 against float64 on
+    float32's choices, float32 against float64 on its own, and float64 on
+    float32's choices against float64 on its own (what the flips alone
+    move), and the number of flipped choices)."""
+    import copy
+
+    import torch
+
+    from pytorch3d_tpu_torch.implicitron.models.generic_model import _ViewPool
+    from pytorch3d_tpu_torch.implicitron.models.renderer import EvaluationMode
+    from pytorch3d_tpu_torch.renderer.utils import ndc_grid_sample
+
+    fns = {"coarse": model.implicit_function_0, "fine": model.implicit_function_1}
+    kept, seen = {}, {}
+
+    def keeper(key):
+        def hook(module, args, kwargs, out):
+            kept.setdefault(key, kwargs["ray_bundle"])
+
+        return hook
+
+    def extractor_inputs(module, args, kwargs, out):
+        seen.setdefault("inputs", (args[0].detach(), kwargs["masks"].detach()))
+
+    ext = model._image_feature_extractor
+    handles = [fn.register_forward_hook(keeper(k), with_kwargs=True) for k, fn in fns.items()]
+    handles.append(ext.register_forward_hook(extractor_inputs, with_kwargs=True))
+    try:
+        model.zero_grad(set_to_none=True)
+        preds = model(**batch, evaluation_mode=EvaluationMode.TRAINING,
+                      generator=torch.Generator(device=image.device).manual_seed(seed))
+        preds["objective"].backward()
+        objective = float(preds["objective"].detach())
+        del preds
+    finally:
+        for h in handles:
+            h.remove()
+    img, masks = seen["inputs"]
+    marcher = model._renderer._raymarcher
+    per_view = model._needs_per_view()
+    decisions = _Decisions()
+    losses, grads = [], []
+    for dtype, replay in ((torch.float32, False), (torch.float64, True), (torch.float64, None)):
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
+            ext_d = ext if dtype == torch.float32 else copy.deepcopy(ext).double()
+            fns_d = {k: fn if dtype == torch.float32 else copy.deepcopy(fn).double() for k, fn in fns.items()}
+            for mod in (ext_d, *fns_d.values()):
+                mod.zero_grad(set_to_none=True)
+            if replay is None:
+                feats = ext_d(img.to(dtype), masks=masks.to(dtype))
+            else:
+                with decisions.around(replay):
+                    feats = ext_d(img.to(dtype), masks=masks.to(dtype))
+            pool = _PoolAt32(_ViewPool(model._view_pooler, feats, batch["camera"], per_view))
+            total = 0.0
+            for key, fn in fns_d.items():
+                b = kept[key]
+                B, count = b.origins.shape[0], b.xys[..., 0].numel() * 3
+                for i0 in range(0, B, WITNESS_IMAGES):
+                    sub = b.replace(**{k: getattr(b, k)[i0 : i0 + WITNESS_IMAGES].to(dtype)
+                                       for k in ("origins", "directions", "lengths", "xys")})
+                    target = image[i0 : i0 + WITNESS_IMAGES].to(dtype).movedim(-1, 1)
+                    gt = ndc_grid_sample(target, sub.xys).movedim(1, -1)
+                    out = marcher(*fn(ray_bundle=sub, fun_viewpool=pool, camera=batch["camera"]),
+                                  ray_lengths=sub.lengths)
+                    loss = ((out.features - gt) ** 2).sum() / count
+                    loss.backward(retain_graph=True)
+                    total += float(loss.detach())
+            losses.append(total)
+            named = {f"_image_feature_extractor.{n}": p.grad for n, p in ext_d.named_parameters()}
+            for i, (key, fn) in enumerate(fns_d.items()):
+                named.update({f"implicit_function_{i}.{n}": p.grad for n, p in fn.named_parameters()})
+            grads.append({n: g.detach().clone() for n, g in named.items()})
+        del feats, pool, ext_d, fns_d
+        torch.cuda.empty_cache()
+    model.zero_grad(set_to_none=True)
+    g32, g64_choices, g64 = grads
+    return (objective, (losses[0], losses[2]), grad_ratios_floored(g32, g64_choices), grad_ratios_floored(g32, g64),
+            grad_ratios_floored(g64_choices, g64), decisions.flips)
+
+
+def phase_nerformer(device, scene, card):
+    """repro_singleseq_nerformer at full size: one served request (400^2 in
+    10 chunks of 16 000 rays, 32 + 16 points, from 10 source views, their
+    features kept per view), step 0 held against the same model in float64
+    (`pooled_witness`: the two pass losses within NERFORMER_LOSS_RTOL, every
+    gradient, the ResNet's included, within NERFORMER_GRAD_GATE), then
+    NERFORMER_STEPS Adam steps at lr 5e-4 on batches of NERFORMER_IMAGES
+    images x 800 rays (the source views too) whose objective must fall.
+    NeRFormer runs no kernel: its trunk is plain PyTorch, as it is XLA code
+    in JAX."""
+    import numpy as np
+    import torch
+
+    from pytorch3d_tpu_torch.implicitron.models.renderer import EvaluationMode
+
+    model = scene.model(22, NERFORMER_MODEL)
+    source = frames_batch(source_frames(scene))
+    frame = scene.test[0]
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        img = model(camera=frame.camera, source_views=source,
+                    evaluation_mode=EvaluationMode.EVALUATION)["images_render"]
+    torch.cuda.synchronize()
+    frame_ms = (time.perf_counter() - t0) * 1e3
+    serve_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"nerformer [repro_singleseq_nerformer at {IMPLICITRON_RES}^2, 80 hidden, 2 layers, factor 2, 4 heads,"
+        f" {VIEWS_PER_BATCH} source views]: frame {frame_ms:.3f} ms (with its allocations); peak memory"
+        f" {serve_gb:.2f} GB; rgb range [{float(img.min()):.4f}, {float(img.max()):.4f}]")
+    check(img.shape == (1, IMPLICITRON_RES, IMPLICITRON_RES, 3) and bool(torch.isfinite(img).all()),
+          f"nerformer: the frame of shape {tuple(img.shape)} or not finite")
+    order = np.random.RandomState(20).permutation(len(scene.train))
+    batches = [frames_batch([scene.train[int(i)] for i in np.roll(order, -NERFORMER_IMAGES * k)[:NERFORMER_IMAGES]])
+               for k in range(3)]
+    b0 = batches[0]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    objective, (loss32, loss64), ratios, own, flipped, flips = pooled_witness(
+        model, b0, b0["image_rgb"] * (b0["fg_probability"] >= 0.5), 8)
+    loss_off = abs(loss32 - loss64) / abs(loss64)
+    worst = max(ratios, key=ratios.get)
+    worst_ext = max((n for n in ratios if n.startswith("_image_feature_extractor")), key=ratios.get)
+    allowed = {n: max(NERFORMER_GRAD_GATE, FUSED_PLAIN_FACTOR * flipped[n]) for n in own}
+    worst_own = max(own, key=lambda n: own[n] / allowed[n])
+    log(f"nerformer: step 0 objective {objective:.8f}; the witness's pass losses float32 {loss32:.10f}, float64"
+        f" {loss64:.10f} (relative {loss_off:.3e}); gradients float32 against float64 (floored at {GRAD_FLOOR:g} of"
+        f" the largest; cuDNN deterministic, no TF32) on the float32 extractor's ReLU masks and max-pool picks:"
+        f" worst {worst} {ratios[worst]:.3e} (gate {NERFORMER_GRAD_GATE:g}), the ResNet's worst {worst_ext}"
+        f" {ratios[worst_ext]:.3e}; {flips} choices flipped against float64's own, which alone move"
+        f" {max(flipped, key=flipped.get)} {max(flipped.values()):.3e}; float32 against float64 on its own"
+        f" choices: worst against its gate {worst_own} {own[worst_own]:.3e} (gate {allowed[worst_own]:.3e});"
+        f" {time.perf_counter() - t0:.1f} s, peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    check(loss_off <= NERFORMER_LOSS_RTOL and abs(loss32 - objective) <= NERFORMER_LOSS_RTOL * abs(objective),
+          "nerformer: step 0's losses off float64 or the witness off the step's objective")
+    check(ratios[worst] <= NERFORMER_GRAD_GATE, "nerformer: step 0's gradients off float64 on float32's choices")
+    check(own[worst_own] <= allowed[worst_own],
+          "nerformer: step 0's gradients off float64 by more than the flipped choices explain")
+    opt = torch.optim.Adam(model.parameters(), lr=IMPLICITRON_LR)
+    gen = torch.Generator(device=device).manual_seed(23)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    objectives, step_ms = [], []
+    for i in range(NERFORMER_STEPS):
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        preds = model(**batches[i % len(batches)], evaluation_mode=EvaluationMode.TRAINING, generator=gen)
+        preds["objective"].backward()
+        opt.step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        objectives.append(float(preds["objective"].detach()))
+        del preds
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    first, last = sum(objectives[:3]) / 3, sum(objectives[-3:]) / 3
+    timed = sorted(step_ms[2:])
+    log(f"nerformer: {NERFORMER_STEPS} Adam steps of {NERFORMER_IMAGES} x 800 rays: objectives"
+        f" {[round(v, 6) for v in objectives]}; launches {counts}; torch.cuda.max_memory_allocated()"
+        f" {torch.cuda.max_memory_allocated()} bytes")
+    log(f"times [nerformer, {card}] frame {frame_ms:.3f} ms; step median of steps 3-{NERFORMER_STEPS}"
+        f" {timed[len(timed) // 2]:.3f} ms (min {timed[0]:.3f}, max {timed[-1]:.3f}), peak memory {peak_gb:.3f} GB")
+    check(all(math.isfinite(v) for v in objectives), "nerformer: non-finite objective")
+    check(last < first, f"nerformer: the mean of the last 3 objectives {last:.6f} is not below the first 3's"
+                        f" {first:.6f}")
+    check(all(bool(torch.isfinite(p).all()) for p in model.parameters()), "nerformer: non-finite weights")
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        model(**batches[0], evaluation_mode=EvaluationMode.TRAINING, generator=gen)["objective"].backward()
+        opt.step()
+
+    profile("nerformer step", step, 1)
+    del model, opt
+    torch.cuda.empty_cache()
+    return counts
+
+
+class _Sequence:
+    """The provider's training frames as a dataset of one sequence."""
+
+    def __init__(self, frames):
+        self.frames = frames
+
+    def __len__(self):
+        return len(self.frames)
+
+    def __getitem__(self, i):
+        return self.frames[i]
+
+    def sequence_indices_in_order(self, name):
+        return [i for i, f in enumerate(self.frames) if f.sequence_name == name]
+
+
+def phase_flyaround(device, scene, model, card):
+    """`render_flyaround` of the WCE serving model: FLYAROUND_POSES poses of
+    the circle fitted to the sequence's cameras, each 400^2 from 10 source
+    views (#12 at D = 455), written through `VideoWriter` into a temporary
+    directory that the phase removes."""
+    import shutil
+    import tempfile
+
+    import torch
+    from PIL import Image
+
+    from pytorch3d_tpu_torch.implicitron.models.visualization.render_flyaround import render_flyaround
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_flyaround")
+    try:
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = render_flyaround(_Sequence(scene.train), scene.train[0].sequence_name, model,
+                                f"{tmp}/flyaround.gif", n_flyaround_poses=FLYAROUND_POSES,
+                                n_source_views=VIEWS_PER_BATCH, fps=4)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        with Image.open(path) as gif:
+            n_frames, size = gif.n_frames, gif.size
+        chunks = -(-IMPLICITRON_RES**2 // WCE_MULTISEQ["chunk_size_grid"])
+        log(f"flyaround [render_flyaround, {FLYAROUND_POSES} poses of implicitron-wce-serving's model]: {path}"
+            f" {n_frames} frames of {size}, launches {counts}; {seconds:.2f} s ({1e3 * seconds / FLYAROUND_POSES:.1f}"
+            f" ms a pose, {card})")
+        check(n_frames == FLYAROUND_POSES and size == (IMPLICITRON_RES, IMPLICITRON_RES),
+              f"flyaround: {n_frames} frames of {size} written")
+        check(counts["nerf_field"] == 2 * chunks * FLYAROUND_POSES, f"flyaround: launches {counts}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return counts
+
+
 def kernel_rows(launches, errors, fine, grad, knn_t, points, points_grad, mlp, mlp_grad, field, field_grad, slice5,
                 band):
     rows = []
@@ -7616,6 +8344,37 @@ def main() -> int:
         check(slice18["implicitron-train"]["nerf_field_grad"] > 0, "implicitron-train launched no #13")
         check(slice18["model-dbir"]["rasterize_points"] > 0, "model-dbir launched no #5")
         log(f"launches by path (slice 18): {slice18}; summed over every path {launches}")
+        slice19, seconds19, t19 = {}, {}, time.perf_counter()
+        phase = "implicitron-wce-serving"
+        slice19["implicitron-wce-serving"], scene19, wce_model = phase_wce_serving(device, card)
+        seconds19[phase], t19 = time.perf_counter() - t19, time.perf_counter()
+        phase = "training: implicitron-wce-train"
+        slice19["implicitron-wce-train"] = phase_wce_train(device, scene19, card)
+        seconds19[phase], t19 = time.perf_counter() - t19, time.perf_counter()
+        phase = "flyaround"
+        slice19["flyaround"] = phase_flyaround(device, scene19, wce_model, card)
+        del wce_model
+        torch.cuda.empty_cache()
+        seconds19[phase], t19 = time.perf_counter() - t19, time.perf_counter()
+        phase = "nerformer"
+        slice19["nerformer"] = phase_nerformer(device, scene19, card)
+        del scene19
+        seconds19[phase], t19 = time.perf_counter() - t19, time.perf_counter()
+        for counts in slice19.values():
+            for kernel, n in counts.items():
+                launches[kernel] += n
+        check(slice19["implicitron-wce-serving"]["rasterize_fine"] > 0, "the provider's render launched no #1")
+        for path in ("implicitron-wce-serving", "implicitron-wce-train", "flyaround"):
+            check(slice19[path]["nerf_field"] > 0, f"{path} launched no #12")
+        check(slice19["implicitron-wce-train"]["nerf_field_grad"] > 0, "implicitron-wce-train launched no #13")
+        log(f"launches by path (slice 19): {slice19}; summed over every path {launches}")
+        phase = "fused-wide"
+        wide_errors, _ = phase_fused_wide(device, card)
+        seconds19[phase] = time.perf_counter() - t19
+        log(f"slice 19's phases, seconds: {', '.join(f'{k} {v:.1f}' for k, v in seconds19.items())};"
+            f" {sum(seconds19.values()):.1f} in all")
+        for kernel, err in wide_errors.items():
+            errors[kernel] = max(errors[kernel], err)
         kernels = kernel_rows(launches, errors, fine, grad, knn_t, points_t, points_grad_t, *nerf_t, slice5, band_t)
     except Exception as e:  # report which phase failed, then exit non-zero
         import traceback

@@ -335,12 +335,20 @@ def nerf_state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
 
 def generic_model_state_dict_from_flax(variables: Mapping, device: Device = DEFAULT_DEVICE) -> Dict[str, torch.Tensor]:
     """An Implicitron `GenericModel` state_dict from the flax variables
-    (`{"params": ...}` or its inside) as numpy: each
-    `implicit_function_{i}` (one where the passes share it) with its trunk
-    `xyz_encoder/layer{l}` and its density and colour layers, each a
-    `_DenseParams` whose (in, out) kernel is copied as it is, and the
-    global encoder's table (`_global_encoder/autodecoder/Embed_0/embedding`
-    -> `_global_encoder.autodecoder.embedding`)."""
+    (`{"params": ...}` or its inside) as numpy, name for name:
+    - each `implicit_function_{i}` (one where the passes share it): its
+      trunk (`xyz_encoder/layer{l}`, or NeRFormer's `first`, `skip{l}`,
+      `last` and `pool{l}` / `ray{l}` with `self_attn/{query, key, value,
+      out}`, `norm1`, `norm2`, `linear1`, `linear2`), its density and colour
+      layers, and any decoder (`network/layer{l}`, `skip_affine{l}{a, b}`):
+      dense and attention kernels copied as they are (the port keeps flax's
+      (in, out) and (d, heads, d / heads) layouts), layer norms' `scale` and
+      `bias` too;
+    - the global encoder's table (`_global_encoder/autodecoder/Embed_0/
+      embedding` -> `_global_encoder.autodecoder.embedding`);
+    - `_image_feature_extractor`: conv kernels HWIO -> OIHW as `weight`
+      (the projections' `bias` beside), the four `FrozenBatchNorm` vectors
+      as they are."""
     tree = variables.get("params", variables)
     state = {}
 
@@ -348,12 +356,14 @@ def generic_model_state_dict_from_flax(variables: Mapping, device: Device = DEFA
         for key, value in node.items():
             if isinstance(value, Mapping):
                 walk(value, path + ([] if key == "Embed_0" else [key]))
-            else:
-                name = ".".join(path + [key])
-                state[name] = torch.as_tensor(np.array(value), dtype=torch.float32, device=device)
+                continue
+            value = np.array(value)
+            if path[0] == "_image_feature_extractor" and key == "kernel":
+                key, value = "weight", value.transpose(3, 2, 0, 1)
+            state[".".join(path + [key])] = torch.as_tensor(value, dtype=torch.float32, device=device)
 
     for top in tree:
-        if top.startswith("implicit_function_") or top == "_global_encoder":
+        if top.startswith("implicit_function_") or top in ("_global_encoder", "_image_feature_extractor"):
             walk(tree[top], [top])
         else:
             raise ValueError(f"no port of the flax GenericModel's {top!r} variables yet")

@@ -6,11 +6,11 @@
 //   #10 `_fwd_kernel` (:70)       -> fused_mlp_fwd_prep_kernel
 //                                    + fused_mlp_fwd_kernel<false, SAVE>
 //   #11 `_bwd_kernel` (:79)       -> fused_mlp_bwd_prep_kernel
-//                                    + fused_mlp_bwd_rows_kernel<false>
+//                                    + fused_mlp_bwd_rows_kernel<false, WIDE>
 //                                    + fused_mlp_bwd_weights_kernel
 //                                    + fused_mlp_bwd_reduce_kernel
 //   #12 `_nerf_fwd_kernel` (:328) -> the same two with fwd_kernel<true, SAVE>
-//   #13 `_nerf_bwd_kernel` (:341) -> the same four with rows_kernel<true>
+//   #13 `_nerf_bwd_kernel` (:341) -> the same four with rows_kernel<true, WIDE>
 // #12 is #10's layer chain with the head as its epilogue and #13 is #11's
 // reverse with the head's reverse in front, so one compile-time flag (HEAD)
 // serves both pairs.
@@ -65,11 +65,15 @@
 //      front.  The masks are y > 0 of the saved layer outputs: y = max(h, 0),
 //      so they equal the forward's h > 0 bit for bit, whatever arithmetic
 //      the backward uses.  Each layer's masked gradient goes to the scratch
-//      for the weight pass.
+//      for the weight pass.  dx's x part is written straight to dx, in
+//      column tiles of 256 outputs where x is wider (the view-conditioned
+//      NeRF's D of 327 and 455).
 //   2. weights (fused_mlp_bwd_weights_kernel): every weight gradient
 //      dW = A^T G, A the layer's input ([hidden; x] at a skip), as a product
 //      split over the N rows; a block owns a 128 x 128 output tile of one
-//      product and one split of the rows, so a 256-wide G is read twice.
+//      product and one split of the rows, so a 256-wide G is read twice;
+//      an m-tile that straddles a skip layer's [hidden; x] split stages its
+//      rows with 4-byte copies from both.
 //      The bias gradient 1^T G is the column sums that the tile's first
 //      m-block takes of the G tiles it stages, written as the row after W,
 //      where the flat layout keeps b.
@@ -919,8 +923,12 @@ __device__ __forceinline__ void masked_pair(float* G, int sg, int r, int c, floa
 
 // The row pass: the reverse chain of RB rows, from the output gradient to
 // dx (and d d_embed), writing each layer's masked gradient (and, with the
-// head, gil and gh) for the weight pass.
-template <bool HEAD>
+// head, gil and gh) for the weight pass.  WIDE (D > TN): dx's x part over
+// column tiles, in a build of its own, so that the loop leaves the register
+// allocation of the narrower builds as it was (in every build, the loop or
+// a call to it spilled: #13 5.6 % slower at D = 39 on the H100).  The wide
+// head build spills ~640 bytes itself; not tuned.
+template <bool HEAD, bool WIDE>
 __global__ void __launch_bounds__(NT, 2) fused_mlp_bwd_rows_kernel(const Params p) {
     extern __shared__ float4 smem4[];
     const int N = p.N, H = p.H, D = p.D, L = p.L, tid = threadIdx.x;
@@ -998,9 +1006,15 @@ __global__ void __launch_bounds__(NT, 2) fused_mlp_bwd_rows_kernel(const Params 
                 float nacc[4][4];
                 rev_product_narrow(nacc, G, sg, H, p.wxP[l], D, ring);
                 for_each_narrow(nacc, D, to_dx);
-            } else {
+            } else if (!WIDE) {
                 rev_product(acc, G, sg, H, p.wxP[l], D, ring);
                 for_each_acc(acc, D, to_dx);
+            } else {  // column tiles of TN outputs: rows n0.. of the packed W_x
+                for (int n0 = 0; n0 < D; n0 += TN) {
+                    const int nout = min(TN, D - n0);
+                    rev_product(acc, G, sg, H, p.wxP[l] + (size_t)n0 * round_up(H, RKT), nout, ring);
+                    for_each_acc(acc, nout, [&](int r, int c, float v) { to_dx(r, n0 + c, v); });
+                }
             }
             dx_first = false;
         }
@@ -1185,11 +1199,27 @@ __global__ void fused_mlp_bwd_reduce_kernel(const float* __restrict__ part, int 
 
 namespace {
 
+// The widest input x the forward takes beside a hidden width H and (head)
+// Ddir direction features: its x, activations and d_embed, one 16-byte slot
+// per thread per k-block, with one consumer warpgroup and two ring slots,
+// in the card's shared memory (fwd_smem_bytes).  552 at the NeRF widths (H
+// 256, Ddir 27) on an H100; ops/fused_mlp_cuda.py's input_limit reads it
+// through fused_mlp_input_limit.
+int input_limit(int H, int Ddir, int head) {
+    int dev = 0, optin = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    const long long avail = (long long)optin - fwd_smem_bytes(1, 2, 0, 0, 0);
+    const long long nbX = avail / (128 * 16) - (H + 7) / 8 - (head ? (Ddir + 7) / 8 : 0);
+    return nbX > 0 ? (int)(8 * nbX) : 0;
+}
+
 int shape_error(const int* dims, int head) {
     const int N = dims[0], D = dims[1], Ddir = dims[2], H = dims[3], Hh = dims[4], L = dims[5];
-    if (N < 0 || D < 1 || D > TN || H < 1 || H > TN || L < 1 || L > MAX_L) return -1;
+    if (N < 0 || D < 1 || H < 1 || H > TN || L < 1 || L > MAX_L) return -1;
     if (head && (Ddir < 1 || Ddir > TN || Hh < 1 || Hh > TN)) return -1;
     if ((unsigned)dims[6] & 1u) return -1;  // layer 0 has no hidden input to concatenate to
+    if (D > input_limit(H, Ddir, head)) return -2;
     return 0;
 }
 
@@ -1399,6 +1429,9 @@ int fwd_config(FwdParams& fp, int head, size_t* bytes) {
 
 extern "C" {
 
+// The widest input x the kernels take beside H and Ddir (head) on this card.
+int fused_mlp_input_limit(int H, int Ddir, int head) { return input_limit(H, Ddir, head); }
+
 // Sizes in floats: what a saving forward stores (`saved`), the backward's
 // scratch (masked gradients, packed weights, the splits' partials) and the
 // forward's packed weight tiles (`packed`).
@@ -1514,12 +1547,18 @@ int fused_mlp_backward(const long long* ptrs, const int* dims, int head, long lo
     if (err) return err;
 
     const size_t bytes = rows_smem_floats(p.H, p.Hh, head) * sizeof(float);
-    const void* rows = head ? (const void*)fused_mlp_bwd_rows_kernel<true> : (const void*)fused_mlp_bwd_rows_kernel<false>;
+    const bool wide = p.D > TN;
+    const void* rows = head ? (wide ? (const void*)fused_mlp_bwd_rows_kernel<true, true>
+                                    : (const void*)fused_mlp_bwd_rows_kernel<true, false>)
+                            : (wide ? (const void*)fused_mlp_bwd_rows_kernel<false, true>
+                                    : (const void*)fused_mlp_bwd_rows_kernel<false, false>);
     err = launch_smem(rows, bytes);
     if (err) return err;
     const dim3 grid((p.N + RB - 1) / RB);
-    if (head) fused_mlp_bwd_rows_kernel<true><<<grid, NT, bytes, st>>>(p);
-    else fused_mlp_bwd_rows_kernel<false><<<grid, NT, bytes, st>>>(p);
+    if (head && wide) fused_mlp_bwd_rows_kernel<true, true><<<grid, NT, bytes, st>>>(p);
+    else if (head) fused_mlp_bwd_rows_kernel<true, false><<<grid, NT, bytes, st>>>(p);
+    else if (wide) fused_mlp_bwd_rows_kernel<false, true><<<grid, NT, bytes, st>>>(p);
+    else fused_mlp_bwd_rows_kernel<false, false><<<grid, NT, bytes, st>>>(p);
     err = (int)cudaGetLastError();
     if (err) return err;
 

@@ -14,8 +14,17 @@ Every random draw (the rays, their stratified depths, the refine's
 quantiles) comes from a `torch.Generator`, or is handed in through `draws`
 (`select`, `u_jiggle`, `camera_ids`, `u_pdf`), so a test can feed the JAX
 package's.  Evaluation renders the full grid in chunks of
-`chunk_size_grid` rays; the result equals the unchunked render.  View
-pooling waits for its slice of the port and raises.
+`chunk_size_grid` rays; the result equals the unchunked render.
+
+With `view_pooler_enabled`, a ResNet (`_image_feature_extractor`) extracts
+feature maps from the batch's images (and masks, ones where none are
+given), and every implicit function gets `fun_viewpool`: the features of
+the batch's views (its source views) sampled at the points and aggregated
+(`_view_pooler`), or kept per view for a function that attends over them
+(NeRFormer).  Their width joins the global code's in the functions'
+`latent_dim`.  `source_views` (a dict of image_rgb, camera and
+fg_probability) gives the source views apart from the rendered cameras,
+so a pose with no image of its own can be rendered (render_flyaround).
 """
 
 from __future__ import annotations
@@ -32,11 +41,16 @@ from ..tools.image_utils import mask_background
 from .base_model import ImplicitronModelBase
 from .global_encoder.global_encoder import GlobalEncoderBase
 from .implicit_function.base import ImplicitFunctionBase
-from .implicit_function.neural_radiance_field import NeuralRadianceFieldImplicitFunction  # noqa: F401 (registers)
+from .feature_extractor.resnet_feature_extractor import ResNetFeatureExtractor
+from .implicit_function.neural_radiance_field import (  # noqa: F401 (registers)
+    NeRFormerImplicitFunction,
+    NeuralRadianceFieldImplicitFunction,
+)
 from .metrics import RegularizationMetrics, ViewMetrics
 from .renderer.base import BaseRenderer, EvaluationMode, ImplicitronRayBundle, RendererOutput
 from .renderer.multipass_ea import MultiPassEmissionAbsorptionRenderer  # noqa: F401 (registers)
 from .renderer.ray_sampler import AdaptiveRaySampler, RaySamplerBase  # noqa: F401 (registers)
+from .view_pooler.view_pooler import ViewPooler
 
 Device = Union[str, torch.device]
 
@@ -83,11 +97,6 @@ class GenericModel(ImplicitronModelBase, nn.Module):
     generator: Optional[torch.Generator] = None
 
     def __post_init__(self):
-        if self.view_pooler_enabled:
-            raise NotImplementedError(
-                "view pooling waits for the view pooler's slice (feature extractor, view pooler, "
-                "decoding_functions / NeRFormer)"
-            )
         rs_args = dict(self.raysampler_args or {})
         rs_args.setdefault("image_width", self.render_image_width)
         rs_args.setdefault("image_height", self.render_image_height)
@@ -95,13 +104,24 @@ class GenericModel(ImplicitronModelBase, nn.Module):
         self._renderer = registry.get(BaseRenderer, self.renderer_class_type)(**(self.renderer_args or {}))
 
         made = {"device": self.device, "generator": self.generator}
-        latent = {}
+        # the code and the pooled features are concatenated to the embedding: the trunk's input widens by both
+        latent_dim = 0
         if self.global_encoder_class_type:
             enc_cls = registry.get(GlobalEncoderBase, self.global_encoder_class_type)
             expand_args_fields(enc_cls)
             self._global_encoder = enc_cls(**(self.global_encoder_args or {}), **made)
-            # the code is concatenated to the embedding: the trunk's input widens by its width
-            latent = {"latent_dim": self._global_encoder.get_encoding_dim()}
+            latent_dim += self._global_encoder.get_encoding_dim()
+        if self.view_pooler_enabled:
+            self._view_pooler = ViewPooler(**(self.view_pooler_args or {}))
+            if not (self._needs_per_view() or self._view_pooler.has_aggregation()):
+                raise ValueError("an identity aggregator's width grows with the number of source views: pair it"
+                                 " with a function that attends over them (NeRFormerImplicitFunction)")
+            self._image_feature_extractor = ResNetFeatureExtractor(**(self.image_feature_extractor_args or {}),
+                                                                   **made)
+            feat_dims = self._image_feature_extractor.get_feat_dims()
+            latent_dim += (feat_dims if self._needs_per_view()
+                           else self._view_pooler.get_aggregated_feature_dim(feat_dims, 0))
+        latent = {"latent_dim": latent_dim} if latent_dim else {}
 
         def make_fn(class_type, args):
             cls = registry.get(ImplicitFunctionBase, class_type)
@@ -118,6 +138,12 @@ class GenericModel(ImplicitronModelBase, nn.Module):
         self._view_metrics = ViewMetrics()
         self._reg_metrics = RegularizationMetrics()
         self.generator = None  # used once; a module keeps no generator
+
+    def _needs_per_view(self) -> bool:
+        """Whether an implicit function attends over the source views (takes
+        their features without aggregation)."""
+        types = [self.implicit_function_class_type, self.coarse_implicit_function_class_type]
+        return any(registry.get(ImplicitFunctionBase, t).requires_pooling_without_aggregation() for t in types if t)
 
     @property
     def _implicit_functions(self):
@@ -163,12 +189,15 @@ class GenericModel(ImplicitronModelBase, nn.Module):
         evaluation_mode: EvaluationMode = EvaluationMode.TRAINING,
         generator: Optional[torch.Generator] = None,
         draws: Optional[Dict[str, torch.Tensor]] = None,
+        source_views: Optional[Dict[str, Any]] = None,
         **kwargs,
     ) -> Dict[str, Any]:
         """preds: the render ("images_render", "depths_render",
         "masks_render", and the last pass's `RendererOutput` as
         "implicitron_render"), every loss of every pass ("loss_*",
-        "loss_prev_stage_*") and the weighted "objective"."""
+        "loss_prev_stage_*") and the weighted "objective".  source_views:
+        {"image_rgb", "camera"[, "fg_probability"]} of the views to pool
+        from, where they are not the batch's own."""
         draws = draws or {}
         image_rgb, fg_probability, depth_map = self._preprocess_input(image_rgb, fg_probability, depth_map)
         mask = fg_probability[..., 0] if fg_probability is not None else None
@@ -176,6 +205,16 @@ class GenericModel(ImplicitronModelBase, nn.Module):
                                       **{k: draws[k] for k in _RAY_DRAWS if k in draws})
 
         renderer_kwargs: Dict[str, Any] = {"generator": generator}
+        if self.view_pooler_enabled:
+            if source_views is not None:
+                src_image, src_mask, _ = self._preprocess_input(
+                    source_views["image_rgb"], source_views.get("fg_probability"), None)
+                src_camera = source_views["camera"]
+            else:
+                src_image, src_mask, src_camera = image_rgb, fg_probability, camera
+            if src_image is not None:
+                renderer_kwargs["fun_viewpool"] = self._view_pool(src_image, src_mask, src_camera)
+                renderer_kwargs["camera"] = camera
         if self.global_encoder_class_type:
             renderer_kwargs["global_code"] = self._global_encoder(
                 sequence_name=kwargs.get("sequence_name"), frame_timestamp=kwargs.get("frame_timestamp")
@@ -208,6 +247,14 @@ class GenericModel(ImplicitronModelBase, nn.Module):
                     if name in results and w != 0.0]
         preds["objective"] = sum(weighted) if weighted else rendered.features.new_zeros(())
         return preds
+
+    def _view_pool(self, image_rgb, fg_probability, camera) -> "_ViewPool":
+        """fun_viewpool over the source views: their images' feature maps
+        (the masks ones where none are given, so the extractor's channels
+        stay fixed) sampled from their cameras."""
+        masks = fg_probability if fg_probability is not None else image_rgb.new_ones(image_rgb.shape[:-1] + (1,))
+        feats = self._image_feature_extractor(image_rgb, masks=masks)
+        return _ViewPool(self._view_pooler, feats, camera, self._needs_per_view())
 
     def _preprocess_input(self, image_rgb, fg_probability, depth_map):
         """The foreground mask thresholded, the image's background set to
@@ -247,6 +294,25 @@ class GenericModel(ImplicitronModelBase, nn.Module):
             return x.reshape(B, *spatial, x.shape[-1])
 
         return RendererOutput(features=unflat(0), depths=unflat(1), masks=unflat(2))
+
+
+class _ViewPool:
+    """fun_viewpool(points (..., 3)): the source views' features at the
+    points, aggregated and concatenated by name in sorted order (..., C),
+    or with `per_view` each view's (V, ..., C)."""
+
+    def __init__(self, pooler: ViewPooler, feats: Dict[str, torch.Tensor], camera, per_view: bool) -> None:
+        self.pooler, self.feats, self.camera, self.per_view = pooler, feats, camera, per_view
+
+    def __call__(self, pts: torch.Tensor) -> torch.Tensor:
+        flat = pts.reshape(1, -1, 3)
+        if self.per_view:
+            sampled, _ = self.pooler.sample_per_view(pts=flat, camera=self.camera, feats=self.feats, masks=None)
+            per = torch.cat([sampled[k] for k in sorted(sampled)], dim=-1)  # (V, P, C)
+            return per.reshape((per.shape[0],) + tuple(pts.shape[:-1]) + (per.shape[-1],))
+        pooled = self.pooler(pts=flat, camera=self.camera, feats=self.feats, masks=None)
+        agg = torch.cat([pooled[k] for k in sorted(pooled)], dim=-1)
+        return agg.reshape(tuple(pts.shape[:-1]) + (agg.shape[-1],))
 
 
 expand_args_fields(GenericModel)

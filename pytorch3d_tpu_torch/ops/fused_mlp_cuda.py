@@ -35,9 +35,11 @@ the chain), one of a backward wrapper four (the weights' packing, the row
 chain, the weight-gradient products, the sum of their splits); each counts
 once.
 
-The kernels take float32, contiguous tensors, hidden and colour widths up to
-256 and up to 12 trunk layers; they raise on anything else.  Layer 0 cannot
-be a skip layer (as in the Pallas kernel).
+The kernels take float32, contiguous tensors, hidden, direction and colour
+widths up to 256, inputs x as wide as the forward's shared memory allows
+(`input_limit`: 552 at the NeRF widths, H 256 and Ddir 27, on an H100) and
+up to 12 trunk layers; they raise on anything else.  Layer 0 cannot be a
+skip layer (as in the Pallas kernel).
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ import torch
 
 from .. import _build
 
-MAX_WIDTH = 256  # widest layer output the kernels take (one column tile)
+MAX_WIDTH = 256  # widest H, Hh and Ddir the kernels take (one column tile)
 MAX_LAYERS = 12
 _ERRORS = {
     -1: "a shape the kernel does not take",
@@ -175,6 +177,8 @@ def _library() -> ctypes.CDLL:
             fn.restype = i
         lib.fused_mlp_workspace.argtypes = [p, i, p, p, p]
         lib.fused_mlp_workspace.restype = i
+        lib.fused_mlp_input_limit.argtypes = [i, i, i]
+        lib.fused_mlp_input_limit.restype = i
     return lib
 
 
@@ -208,8 +212,8 @@ def _trunk_dims(what, x, weights, biases, skips) -> Tuple[int, int, int, int]:
     if 0 in skips:
         raise ValueError(f"{what}: layer 0 cannot concatenate the input again")
     H = weights[0].shape[-1]
-    if not 1 <= H <= MAX_WIDTH or not 1 <= D <= MAX_WIDTH:
-        raise ValueError(f"{what}: the kernel takes D and H in 1..{MAX_WIDTH}, got D={D}, H={H}")
+    if not 1 <= H <= MAX_WIDTH or D < 1:
+        raise ValueError(f"{what}: the kernel takes H in 1..{MAX_WIDTH} and D >= 1, got D={D}, H={H}")
     for li, (w, b) in enumerate(zip(weights, biases)):
         kin = (D if li == 0 else H) + (D if li in skips else 0)
         if tuple(w.shape) != (kin, H) or tuple(b.shape) != (H,):
@@ -233,6 +237,15 @@ def _head_dims(what, d_embed, head, N, H) -> Tuple[int, int]:
     return Ddir, Hh
 
 
+def input_limit(H: int, Ddir: int = 0) -> int:
+    """The widest input x the kernels take on the current card beside hidden
+    width H and Ddir direction features (0: no head): what the forward's
+    shared memory holds with one consumer warpgroup (`input_limit` in
+    csrc/fused_mlp.cu, which refuses wider inputs with -2 before any
+    launch).  Builds the library on first use."""
+    return _library().fused_mlp_input_limit(H, Ddir, int(Ddir > 0))
+
+
 def _c_dims(N, D, Ddir, H, Hh, L, skip_bits):
     return (ctypes.c_int * 7)(N, D, Ddir, H, Hh, L, skip_bits)
 
@@ -245,7 +258,12 @@ def _workspace(what, lib, dims, head) -> Tuple[int, int, int]:
     """Floats of (saved activations, backward scratch, the forward's packed
     weight tiles) for these shapes."""
     sizes = [ctypes.c_longlong(0) for _ in range(3)]
-    _raise_on(lib.fused_mlp_workspace(dims, int(head), *(ctypes.byref(v) for v in sizes)), what)
+    err = lib.fused_mlp_workspace(dims, int(head), *(ctypes.byref(v) for v in sizes))
+    if err == -2:
+        D, Ddir, H = dims[1], dims[2], dims[3]
+        raise ValueError(f"{what}: an input of {D} features does not fit the forward's shared memory beside"
+                         f" H={H} and Ddir={Ddir} (at most {lib.fused_mlp_input_limit(H, Ddir, int(head))})")
+    _raise_on(err, what)
     return tuple(v.value for v in sizes)
 
 

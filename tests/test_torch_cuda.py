@@ -509,6 +509,9 @@ _MLP_GRID = [
     (129, 5, 5, 2, (1,), 3, 3),  # widths below 8: one zero-padded k-block
     (300, 39, 64, 2, (1,), 27, 200),  # a colour layer wider than 128: two column blocks
     (200, 200, 256, 2, (1,), 100, 64),  # wide inputs: one consumer warpgroup of 64 rows a block
+    # inputs wider than one 256-column tile of the row pass: the view-conditioned NeRF's D
+    (4096 + 13, 455, 256, 8, (5,), 27, 128),  # repro_multiseq_nerf_wce
+    (1000, 327, 256, 8, (5,), 0, 0),  # repro_singleseq_nerf_wce's width, the trunk alone
 ]
 
 
@@ -527,7 +530,7 @@ def test_fused_kernels_match_plain(cuda_device, N, D, H, L, skips, Ddir, Hh):
     assert _CHIP_SMOKE.fused_ok(result), result
 
 
-@pytest.mark.parametrize("N,D,H,L,skips,Ddir,Hh", [_MLP_GRID[1], _MLP_GRID[5], _MLP_GRID[9]])
+@pytest.mark.parametrize("N,D,H,L,skips,Ddir,Hh", [_MLP_GRID[1], _MLP_GRID[5], _MLP_GRID[9], _MLP_GRID[19]])
 def test_fused_backward_gives_the_same_bits_twice(cuda_device, N, D, H, L, skips, Ddir, Hh):
     x, de, ws, bs, head = _mlp_inputs(cuda_device, N, D, H, L, skips, Ddir, Hh)
     g = torch.randn((N, 4 if head else H), generator=torch.Generator(device=cuda_device).manual_seed(2),
@@ -588,6 +591,41 @@ def test_fused_backward_on_the_forwards_saved_tensors_passes_the_gates(cuda_devi
         return [t for part in out for t in (part if isinstance(part, (list, tuple)) else [part]) if t is not None]
 
     assert all(torch.equal(a, b) for a, b in zip(flat(given), flat(own)))
+
+
+@pytest.mark.parametrize("H,Ddir,limit", [(256, 27, 552), (256, 0, 584), (256, 256, 328), (128, 27, 680)])
+def test_input_limit_read_from_the_card(cuda_device, H, Ddir, limit):
+    """The input limit the library reads from an H100's 227 KB of opt-in
+    shared memory (one consumer warpgroup, two ring slots): the
+    view-conditioned NeRF's 327 and 455 fit beside the NeRF widths; the
+    workspace query every launch makes first takes D at the limit and
+    refuses one past it."""
+    assert tfm.input_limit(H, Ddir) == limit
+    if (H, Ddir) == (256, 27):
+        assert 455 <= limit
+    lib = tfm._library()
+    assert len(tfm._workspace("t", lib, tfm._c_dims(4, limit, Ddir, H, 32, 2, 2), Ddir > 0)) == 3
+    with pytest.raises(ValueError, match=f"at most {limit}"):
+        tfm._workspace("t", lib, tfm._c_dims(4, limit + 1, Ddir, H, 32, 2, 2), Ddir > 0)
+
+
+def test_fused_kernels_refuse_inputs_past_the_shared_memory_limit(cuda_device):
+    """Beside a 256-wide d_embed the forward's shared memory holds x up to
+    `input_limit(64, 256)` features: that width runs (through the kernels,
+    against the plain version), one more is refused by every wrapper before
+    it launches."""
+    limit = tfm.input_limit(64, 256)
+    x, de, ws, bs, head = _mlp_inputs(cuda_device, 300, limit, 64, 2, (1,), 256, 32)
+    g = torch.randn((300, 4), generator=torch.Generator(device=cuda_device).manual_seed(4), device=cuda_device)
+    assert _CHIP_SMOKE.fused_ok(_CHIP_SMOKE.compare_fused(x, de, ws, bs, head, (1,), g))
+    x, de, ws, bs, head = _mlp_inputs(cuda_device, 300, limit + 1, 64, 2, (1,), 256, 32)
+    before = (tfm.nerf_field_cuda.launches, tfm.nerf_field_grad_cuda.launches)
+    for call in (lambda: tfm.nerf_field_cuda(x, de, ws, bs, head, (1,)),
+                 lambda: tfm.nerf_field_grad_cuda(x, de, ws, bs, head, (1,), g),
+                 lambda: tfm.fused_nerf_field(x, de, ws, bs, head, (1,))):
+        with pytest.raises(ValueError, match="shared memory"):
+            call()
+    assert (tfm.nerf_field_cuda.launches, tfm.nerf_field_grad_cuda.launches) == before
 
 
 def test_fused_backward_through_autograd_launches_the_kernels(cuda_device):
@@ -1257,6 +1295,40 @@ def test_generic_model_through_the_field_kernels_matches_plain(cuda_device):
         assert tfm.nerf_field_cuda.launches - before == (6 if fused else 0)  # 3 chunks of 2 passes
     diff = (renders[0] - renders[1]).abs().amax(-1)
     assert renders[0].shape == (2, 48, 48, 3) and float((diff <= 1e-4).float().mean()) >= 0.99
+
+
+def test_wce_generic_model_through_the_field_kernels_matches_plain(cuda_device):
+    """A view-conditioned GenericModel (resnet18 stages 1-2 unprojected:
+    196 channels a view, their mean and std over 2 views beside 63
+    harmonic features: D = 455, repro_multiseq_nerf_wce's width) on the
+    card, through #12 and #13: step 0 against use_fused_kernel=False on
+    the same draws as the plain GenericModel test holds it, the ResNet's
+    gradients end to end within 2e-3 (it takes the fine pass too)."""
+    from pytorch3d_tpu_torch.implicitron.models import GenericModel
+
+    cs = _CHIP_SMOKE
+    cams, image, fg = _implicitron_frames(cuda_device)
+    model = GenericModel(
+        render_image_width=48, render_image_height=48, chunk_size_grid=1024,
+        raysampler_args=dict(n_rays_per_image_sampled_from_mask=256, n_pts_per_ray_training=32,
+                             n_pts_per_ray_evaluation=32, scene_extent=2.0),
+        renderer_args=dict(n_pts_per_ray_fine_training=32, n_pts_per_ray_fine_evaluation=32),
+        implicit_function_args=dict(n_hidden_neurons_xyz=64, n_hidden_neurons_dir=32, n_layers_xyz=4, append_xyz=(2,)),
+        view_pooler_enabled=True, image_feature_extractor_args=dict(arch="resnet18", stages=(1, 2), proj_dim=0,
+                                                                    image_rescale=0.5),
+        device=cuda_device, generator=torch.Generator(device=cuda_device).manual_seed(0),
+    )
+    assert model.implicit_function_0.xyz_encoder.layer0.kernel.shape == (455, 64)
+    batch = dict(image_rgb=image, camera=cams, fg_probability=fg)
+    before = (tfm.nerf_field_cuda.launches, tfm.nerf_field_grad_cuda.launches)
+    objectives, end_to_end, shared = cs.implicitron_step0(model, batch, image * (fg >= 0.5), 1)
+    assert (tfm.nerf_field_cuda.launches - before[0], tfm.nerf_field_grad_cuda.launches - before[1]) == (4, 4)
+    assert abs(objectives[0] - objectives[1]) <= 1e-4 * abs(objectives[1])
+    for n, ratio in end_to_end.items():
+        assert ratio <= (1e-4 if n.startswith("implicit_function_0") else 2e-3), (n, ratio)
+    for key, (worst, ratio, (fused_off, plain_off), _) in shared.items():
+        assert fused_off <= max(cs.GRAD_GATE, cs.FUSED_PLAIN_FACTOR * plain_off), (key, fused_off, plain_off)
+        assert ratio <= max(cs.GRAD_GATE, (1 + cs.FUSED_PLAIN_FACTOR) * plain_off), (key, worst, ratio, plain_off)
 
 
 def test_model_dbir_through_the_points_kernel_matches_plain(cuda_device):

@@ -15,7 +15,8 @@ import pytest
 REPO = pathlib.Path(__file__).resolve().parents[1]
 MODULES = ["transforms", "renderer", "renderer/mesh", "renderer/points", "renderer/implicit", "structures", "ops",
            "loss", "utils", "common", "parallel", "io", "implicitron/models", "implicitron/models/renderer",
-           "implicitron/models/implicit_function", "implicitron/models/global_encoder"]
+           "implicitron/models/implicit_function", "implicitron/models/global_encoder",
+           "implicitron/models/feature_extractor", "implicitron/models/view_pooler"]
 
 # ROADMAP.md queue 1 item -> the JAX names it brings to the port.
 NOT_YET = {
@@ -26,9 +27,8 @@ NOT_YET = {
         "FullResolutionVoxelGridValues", "VMFactorizedVoxelGrid", "VMFactorizedVoxelGridValues", "VoxelGridBase",
         "VoxelGridValuesBase", "VoxelGridModule", "VoxelGridImplicitFunction", "apply_resolution_change",
         "crop_values", "interpolate_line", "interpolate_plane", "interpolate_tensor", "interpolate_volume",
-        # IDR, the SRNs, the decoders and NeRFormer
-        "IdrFeatureField", "SRNHyperNetImplicitFunction", "SRNImplicitFunction", "DecoderFunctionBase",
-        "ElementwiseDecoder", "MLPDecoder", "MLPWithInputSkips", "NeRFormerImplicitFunction",
+        # IDR and the SRNs
+        "IdrFeatureField", "SRNHyperNetImplicitFunction", "SRNImplicitFunction",
         # the LSTM and SDF renderers
         "LSTMRenderer", "RayTracing", "SignedDistanceFunctionRenderer",
     ],

@@ -163,6 +163,38 @@ def test_kernel_shape_checks(case):
             tfm._head_dims("t", de[:10], head, N, H)
 
 
+@pytest.mark.parametrize("H,Ddir,limit", [(256, 27, 552), (256, 0, 584), (256, 256, 328), (128, 27, 680)])
+def test_input_limit_from_shared_memory(H, Ddir, limit):
+    """The input width the kernels take is what the forward's shared memory
+    holds beside H and Ddir, a rule that lives in csrc/fused_mlp.cu alone
+    (`input_limit` reads it from the library; test_torch_cuda.py holds
+    these limits on an H100): the Python shape checks put no cap of their
+    own on D, so the trunk's and the head's shapes at the limit pass them,
+    and the library's refusal one past it (-2, from the workspace query
+    that every launch makes first) becomes a ValueError naming the limit."""
+    x = torch.zeros((4, limit))
+    ws = [torch.zeros((limit, H)), torch.zeros((H + limit, H))]
+    assert tfm._trunk_dims("t", x, ws, [torch.zeros(H)] * 2, SKIPS) == (4, limit, H, 2)
+    Hh = 32
+    if Ddir:
+        head = [torch.zeros(s) for s in [(H, 1), (1,), (H, H), (H,), (H, Hh), (Ddir, Hh), (Hh,), (Hh, 3), (3,)]]
+        assert tfm._head_dims("t", torch.zeros((4, Ddir)), head, 4, H) == (Ddir, Hh)
+
+    class Library:  # the C rule's answers at these widths
+        @staticmethod
+        def fused_mlp_workspace(dims, head, *sizes):
+            return 0 if dims[1] <= limit else -2
+
+        @staticmethod
+        def fused_mlp_input_limit(h, ddir, head):
+            return limit
+
+    assert tfm._workspace("t", Library, tfm._c_dims(4, limit, Ddir, H, Hh, 2, 2), Ddir > 0) == (0, 0, 0)
+    with pytest.raises(ValueError, match=f"{limit + 1} features does not fit the forward's shared memory.*"
+                                         f"at most {limit}"):
+        tfm._workspace("t", Library, tfm._c_dims(4, limit + 1, Ddir, H, Hh, 2, 2), Ddir > 0)
+
+
 def _load_chip_smoke():
     import importlib.util
     import pathlib

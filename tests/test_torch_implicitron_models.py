@@ -420,10 +420,14 @@ def test_nerf_implicit_function_branches(branch):
     jflat = generic_model_state_dict_from_flax({"implicit_function_0": jgrads}, device="cpu")
     for name, p in fn.named_parameters():
         assert _err(p.grad, jflat["implicit_function_0." + name]) <= TOL, name
-    with pytest.raises(NotImplementedError):
-        NeuralRadianceFieldImplicitFunction(use_transformer_trunk=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        fn(ImplicitronRayBundle(to, td, _t(lengths), to[..., :2]), fun_viewpool=lambda p: p)
+    assert NeuralRadianceFieldImplicitFunction(use_transformer_trunk=True, device="cpu").xyz_encoder.n_layers == 8
+
+    def per_view(p):
+        return p[None]
+
+    per_view.per_view = True
+    with pytest.raises(ValueError):  # per-view features need the transformer trunk
+        fn(ImplicitronRayBundle(to, td, _t(lengths), to[..., :2]), fun_viewpool=per_view)
 
 
 def test_view_and_regularization_metrics():
@@ -606,14 +610,16 @@ def test_pass_sharing_and_heterogeneous_coarse_pass():
 
 def test_model_helpers_and_epoch_callbacks():
     """OverfitModel's defaults, the empty epoch schedule of NeRF, view
-    pooling raising, and the helpers of models/utils.py."""
+    pooling through an identity aggregator without a function that attends
+    over the views raising, and the helpers of models/utils.py."""
     model = OverfitModel(**MODEL, device="cpu", generator=torch.Generator().manual_seed(0))
     assert model.num_passes == 2 and model.epoch_subscriptions() == ()
     state = model.state_dict()
     same, changed = model.apply_epoch_callbacks(state, 3)
     assert same is state and not changed
-    with pytest.raises(NotImplementedError):
-        GenericModel(view_pooler_enabled=True, device="cpu")
+    with pytest.raises(ValueError):
+        GenericModel(view_pooler_enabled=True, view_pooler_args=dict(
+            feature_aggregator_class_type="IdentityFeatureAggregator"), device="cpu")
     assert registry.get(ImplicitronModelBase, "GenericModel") is GenericModel
     rng = np.random.default_rng(14)
     bundle = ImplicitronRayBundle(*(_t(rng.standard_normal((2, 3, 5, k)).astype(np.float32)) for k in (3, 3, S, 2)))
