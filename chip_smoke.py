@@ -8157,6 +8157,631 @@ def kernel_rows(launches, errors, fine, grad, knn_t, points, points_grad, mlp, m
     return rows
 
 
+# --------------------------------------------------------------------------- #
+# Slice 20: Implicitron's voxel-grid (TensoRF) and IDR / SDF models
+# --------------------------------------------------------------------------- #
+
+# TensoRF's configs/lego.txt with its opt.py defaults: N_voxel_init 128^3 growing to N_voxel_final 300^3 at the 5
+# steps of upsamp_list (the exp of a linspace of the log voxel counts: sides 128, 152, 180, 213, 253, 300), the VM
+# decomposition with n_lamb_sigma 16 x 3 (density, no basis) and n_lamb_sh 48 x 3 through a basis to
+# data_dim_color 27, fea2denseAct softplus with density_shift -10, shadingMode MLP_Fea (featureC 128, fea_pe 2,
+# view_pe 2), batch_size 4096 rays, lr_init 0.02 for the grids and lr_basis 1e-3 for the basis and the MLP, the alpha
+# mask updated (here: the scaffold computed and the volume cropped) at the first upsampling.  An epoch here is
+# TENSORF_STEPS steps.  Cut: 512 points a ray in training and evaluation (TensoRF samples ~1039 at 300^3 and keeps
+# those its alpha mask passes; the port evaluates every point, as the JAX package does, and masks them).
+TENSORF_SIDES = tuple(int(round(128 * (300 / 128) ** (k / 5))) for k in range(6))
+TENSORF_CHANGES = {k: [side] * 3 for k, side in enumerate(TENSORF_SIDES)}
+TENSORF_EXTENT = 3.0  # TensoRF's blender aabb [-1.5, 1.5]^3 around the provider's unit sphere
+TENSORF_STEPS = 2  # Adam steps an epoch, through all six resolutions
+TENSORF_FRAMES = 4  # x 1024 rays: TensoRF's batch of 4096
+TENSORF_POINTS = 512
+TENSORF_LR_GRID, TENSORF_LR_NET = 0.02, 1e-3
+TENSORF_SPHERE = 1.05  # the density's occupied region at the start (the sphere's radius 1 and a margin)
+TENSORF_MODEL = dict(
+    render_image_width=IMPLICITRON_RES, render_image_height=IMPLICITRON_RES, num_passes=1, chunk_size_grid=16000,
+    raysampler_args=dict(n_rays_per_image_sampled_from_mask=1024, scene_extent=TENSORF_EXTENT / 2,
+                         n_pts_per_ray_training=TENSORF_POINTS, n_pts_per_ray_evaluation=TENSORF_POINTS),
+    implicit_function_class_type="VoxelGridImplicitFunction",
+    implicit_function_args=dict(
+        voxel_grid_density_args=dict(voxel_grid_class_type="VMFactorizedVoxelGrid", extents=(TENSORF_EXTENT,) * 3,
+                                     voxel_grid_args=dict(n_components=48, basis_matrix=False,
+                                                          resolution_changes=TENSORF_CHANGES)),
+        voxel_grid_color_args=dict(voxel_grid_class_type="VMFactorizedVoxelGrid", extents=(TENSORF_EXTENT,) * 3,
+                                   voxel_grid_args=dict(n_components=144, n_features=27,
+                                                        resolution_changes=TENSORF_CHANGES)),
+        decoder_density_args=dict(shift=-10.0, operation="softplus"), density_activation="identity",
+        harmonic_embedder_xyz_color_args=dict(n_harmonic_functions=2, append_input=True),
+        harmonic_embedder_dir_color_args=dict(n_harmonic_functions=2, append_input=True),
+        decoder_color_args=dict(network_args=dict(n_layers=3, hidden_dim=128, output_dim=3, input_skips=(),
+                                                  last_activation="sigmoid")),
+        scaffold_calculating_epochs=(1,), volume_cropping_epochs=(1,),
+    ),
+)
+VOXEL_EPOCH_GATE = 1e-6  # apply_epoch on the card against the CPU: max |card - cpu| <= gate * max(max |cpu|, 1)
+VOXEL_LOSS_RTOL = 1e-5  # a pass's rgb mse, float32 against float64 on the same bundle and scaffold mask
+VOXEL_GRAD_GATE = 1e-4  # every gradient, float32 against float64 (floored at GRAD_FLOOR of the largest)
+VOXEL_FRAME_GATE = 1e-5  # a served chunk's colours, float32 against float64 on float32's scaffold mask
+VOXEL_WITNESS_RAYS = 4000  # of the served frame's first chunk, held against float64
+# repro_multiseq_idr_ad.yaml as written (its base repro_multiseq_base.yaml and repro_base.yaml): IDR 8 x 512 with
+# the skip at 6, 6 harmonics, bias 0.6, weight norm and geometric init, the SDF renderer with n_steps 32, a
+# 256-wide SequenceAutodecoder (20 000 instances), 1024 rays an image, chunks of 102 400 rays; the loss weights
+# are IDR's (rgb 1, the mask's BCE 1, eikonal 0.1).
+IDR_MODEL = dict(
+    render_image_width=IMPLICITRON_RES, render_image_height=IMPLICITRON_RES, num_passes=1, chunk_size_grid=102400,
+    raysampler_args=IMPLICITRON_MODEL["raysampler_args"],
+    renderer_class_type="SignedDistanceFunctionRenderer", renderer_args=dict(ray_tracer_args=dict(n_steps=32)),
+    implicit_function_class_type="IdrFeatureField",
+    implicit_function_args=dict(n_harmonic_functions_xyz=6, bias=0.6, d_in=3, d_out=1, dims=(512,) * 8,
+                                geometric_init=True, pooled_feature_dim=0, skip_in=(6,), weight_norm=True),
+    global_encoder_class_type="SequenceAutodecoder", global_encoder_args=dict(encoding_dim=256, n_instances=20000),
+    loss_weights={"loss_rgb_mse": 1.0, "loss_mask_bce": 1.0, "loss_eikonal": 0.1},
+)
+# repro_singleseq_idr.yaml's colouring network: RayNormalColoringNetwork at its defaults (4 x 512, mode idr)
+IDR_RGB_MODEL = dict(IDR_MODEL, renderer_args=dict(ray_tracer_args=dict(n_steps=32),
+                                                   ray_normal_coloring_network_args={}))
+IDR_IMAGES = 10  # x 1024 rays a step
+IDR_STEPS = 6
+IDR_RGB_STEPS = 2
+IDR_LOSS_RTOL = 1e-5  # step 0's objective, float32 against float64 on float32's hits, depths and picks
+IDR_GRAD_GATE = 1e-4  # every gradient (the eikonal's and the normals' second-order terms included), the same way
+# (floored at GRAD_FLOOR of the largest)
+IDR_FRAME_GATE = 1e-5  # a served chunk's colours and masks, the same way
+
+
+def _tensorf_density_start(fn, radius):
+    """The density grid's first component in each plane and line set to the
+    occupancy of a ball-bounded region (5 inside the plane's disc, 1 inside
+    the line's span), the rest left at TensoRF's random start: 4.5e-5
+    (softplus(-10)) in empty space, 0.0067-5 inside, as a partly trained
+    field would be, so that the scaffold and the crop find the object
+    where a field at random has no occupied voxel to find."""
+    import torch
+
+    grid = fn.voxel_grid_density
+    res = TENSORF_SIDES[0]
+    axis = torch.linspace(-TENSORF_EXTENT / 2, TENSORF_EXTENT / 2, res, device=grid.extents.device)
+    disc = ((axis[:, None] ** 2 + axis[None, :] ** 2) <= radius**2).float() * 5.0
+    span = (axis.abs() <= radius).float()
+    with torch.no_grad():
+        for plane, line in (("xy", "z"), ("xz", "y"), ("yz", "x")):
+            getattr(grid, f"matrix_components_{plane}")[0, 0] = disc
+            getattr(grid, f"vector_components_{line}")[0, 0] = span
+
+
+def _tensorf_optimizer(model):
+    import torch
+
+    grids = [p for n, p in model.named_parameters() if "voxel_grid" in n and not n.endswith("basis_matrix")]
+    rest = [p for n, p in model.named_parameters() if not ("voxel_grid" in n and not n.endswith("basis_matrix"))]
+    return torch.optim.Adam([{"params": grids, "lr": TENSORF_LR_GRID}, {"params": rest, "lr": TENSORF_LR_NET}])
+
+
+def _middle_rays(bundle, rays):
+    """The `rays` rays in the middle of a bundle's (B, n, ...) rays."""
+    start = (bundle.lengths.shape[1] - rays) // 2
+    return bundle.replace(**{k: getattr(bundle, k)[:, start:start + rays]
+                             for k in ("origins", "directions", "lengths", "xys")})
+
+
+def _capture_calls(module, store, limit=1):
+    """A forward hook keeping the first `limit` calls' kwargs."""
+    def hook(mod, args, kwargs, out):
+        if len(store) < limit:
+            store.append(kwargs)
+
+    return module.register_forward_hook(hook, with_kwargs=True)
+
+
+def _sampling_ms(fn, bundle, iters=3):
+    """Median device ms (CUDA events) of the two grids' sampling (corner
+    gathers and their blend) at a bundle's points."""
+    import torch
+
+    from pytorch3d_tpu_torch.renderer.implicit.utils import ray_bundle_to_ray_points
+
+    times = []
+    with torch.no_grad():
+        points = ray_bundle_to_ray_points(bundle)
+        for _ in range(iters + 1):
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn.voxel_grid_density(points)
+            fn.voxel_grid_color(points)
+            stop.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(stop))
+    return sorted(times[1:])[iters // 2]
+
+
+def voxel_pass(fn, bundle, gt, marcher, mask=None):
+    """A pass's rgb mse on `bundle` against `gt` (the target at its rays) and
+    the function's gradients; with `mask`, the function's outputs times it
+    instead of its own scaffold mask."""
+    from pytorch3d_tpu_torch.renderer.implicit.utils import ray_bundle_to_ray_points
+
+    fn.zero_grad(set_to_none=True)
+    if mask is None:
+        densities, colors = fn(ray_bundle=bundle)
+    else:
+        points = ray_bundle_to_ray_points(bundle)
+        densities = fn._get_density(points) * mask
+        colors = fn._get_color(points, bundle.directions) * mask
+    out = marcher(densities, colors, ray_lengths=bundle.lengths)
+    loss = ((out.features - gt) ** 2).mean()
+    loss.backward()
+    return float(loss.detach()), {n: p.grad.clone() for n, p in fn.named_parameters()}, out.features.detach()
+
+
+def voxel_witness(model, bundle, image):
+    """The pass on `bundle` in float32 against a float64 copy of the function
+    on float32's scaffold mask: (loss32, loss64, {name: gradient ratio},
+    scaffold mask flips of float64's own)."""
+    import copy
+
+    import torch
+
+    from pytorch3d_tpu_torch.renderer.implicit.utils import ray_bundle_to_ray_points
+    from pytorch3d_tpu_torch.renderer.utils import ndc_grid_sample
+
+    fn, marcher = model.implicit_function_0, model._renderer._raymarcher
+    gt = ndc_grid_sample(image.movedim(-1, 1), bundle.xys).movedim(1, -1)
+    loss32, g32, _ = voxel_pass(fn, bundle, gt, marcher)
+    with torch.no_grad():
+        mask32 = fn._scaffold_mask(ray_bundle_to_ray_points(bundle))
+    ref = copy.deepcopy(fn).double()
+    b64 = bundle.replace(**{k: getattr(bundle, k).double() for k in ("origins", "directions", "lengths", "xys")})
+    loss64, g64, _ = voxel_pass(ref, b64, gt.double(), marcher, mask32.double())
+    with torch.no_grad():
+        flips = int((ref._scaffold_mask(ray_bundle_to_ray_points(b64)) != mask32.double()).sum())
+    del ref
+    fn.zero_grad(set_to_none=True)
+    return loss32, loss64, grad_ratios_floored(g32, g64), flips
+
+
+def phase_voxel_grid(device, scene, card):
+    """TensoRF's VM model (`TENSORF_MODEL`) in `repro_base`'s GenericModel
+    with 1 pass, on the provider's sphere at 400^2 (one sequence: CO3D and
+    the Blender scenes are not in the repository): TENSORF_STEPS Adam steps
+    an epoch through the six resolutions (128^3 to 300^3), the scaffold
+    computed and the volume cropped at the first change, each
+    `apply_epoch_callbacks` on the card held against the same transform of
+    the same state on the CPU; the optimizer rebuilt at each change; the
+    objective must fall.  Step 0 and the first step at 300^3 (scaffold on)
+    held against float64 (`voxel_witness`); then one 400^2 frame served at
+    300^3 in chunks of 16 000 rays, one chunk held against float64.  Cut:
+    512 points a ray (TensoRF: ~1039 at 300^3, alpha-masked).  Plain
+    PyTorch: no kernel of the port (the frames come through #1)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from pytorch3d_tpu_torch.implicitron.models import GenericModel
+    from pytorch3d_tpu_torch.implicitron.models.renderer import EvaluationMode
+    from pytorch3d_tpu_torch.implicitron.models.utils import load_state_dict_resized
+    from pytorch3d_tpu_torch.renderer.implicit.utils import ray_bundle_to_ray_points
+
+    model = scene.model(30, TENSORF_MODEL)
+    fn = model.implicit_function_0
+    _tensorf_density_start(fn, TENSORF_SPHERE)
+    cpu_model = GenericModel(**TENSORF_MODEL, device="cpu")
+    order = np.random.RandomState(30).permutation(len(scene.train))
+    batches = [frames_batch([scene.train[int(i)] for i in np.roll(order, -TENSORF_FRAMES * k)[:TENSORF_FRAMES]])
+               for k in range(len(scene.train) // TENSORF_FRAMES)]
+    gen = torch.Generator(device=device).manual_seed(31)
+    subscribed = model.epoch_subscriptions()
+    check(subscribed == (1, 2, 3, 4, 5), f"voxel-grid: epochs {subscribed}")
+    opt = _tensorf_optimizer(model)
+    objectives, step_ms, epoch_notes, witnesses = [], [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step = 0
+    for epoch in range(len(TENSORF_SIDES)):
+        if epoch in subscribed:
+            state = model.state_dict()
+            cpu_state = {k: v.cpu() for k, v in state.items()}
+            t0 = time.perf_counter()
+            new_state, changed = model.apply_epoch_callbacks(state, epoch)
+            torch.cuda.synchronize()
+            card_ms = (time.perf_counter() - t0) * 1e3
+            want, want_changed = cpu_model.apply_epoch_callbacks(cpu_state, epoch)
+            worst, worst_name = 0.0, None
+            for name, value in want.items():
+                got = new_state[name].cpu()
+                check(got.shape == value.shape, f"voxel-grid: epoch {epoch}'s {name} {tuple(got.shape)} on the card,"
+                                                f" {tuple(value.shape)} on the CPU")
+                off = float((got - value).abs().max()) / max(float(value.abs().max()), 1.0)
+                if off >= worst:
+                    worst, worst_name = off, name
+            check(changed == want_changed and worst <= VOXEL_EPOCH_GATE,
+                  f"voxel-grid: epoch {epoch}'s apply_epoch on the card off the CPU's: {worst_name} {worst:.3e}")
+            load_state_dict_resized(model, new_state)
+            if changed:
+                opt = _tensorf_optimizer(model)
+            epoch_notes.append(f"epoch {epoch}: {card_ms:.1f} ms, changed {changed}, against the CPU {worst:.3e}"
+                               f" ({worst_name})")
+        for _ in range(TENSORF_STEPS):
+            batch = batches[step % len(batches)]
+            if step == 0 or (epoch == len(TENSORF_SIDES) - 1 and len(witnesses) == 1):
+                kept = []
+                handle = _capture_calls(fn, kept)
+                preds = model(**batch, evaluation_mode=EvaluationMode.TRAINING,
+                              generator=torch.Generator(device=device).manual_seed(32 + step))
+                handle.remove()
+                image = batch["image_rgb"] * (batch["fg_probability"] >= 0.5)
+                witnesses.append((epoch, float(preds["objective"].detach())) + voxel_witness(
+                    model, kept[0]["ray_bundle"], image))
+                del preds
+            t0 = time.perf_counter()
+            opt.zero_grad(set_to_none=True)
+            preds = model(**batch, evaluation_mode=EvaluationMode.TRAINING, generator=gen)
+            preds["objective"].backward()
+            opt.step()
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            objectives.append(float(preds["objective"].detach()))
+            del preds
+            step += 1
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    sides = [fn.voxel_grid_color.matrix_components_xy.shape[-1], fn.voxel_grid_density.vector_components_z.shape[-1]]
+    extents = fn.voxel_grid_density.extents.tolist()
+    occupied = float(fn.voxel_grid_scaffold.voxel_grid.mean())
+    log(f"voxel-grid [TensoRF VM 48 / 144 components, 27-feature basis, MLP 2 x 128, {TENSORF_SIDES[0]}^3 ->"
+        f" {TENSORF_SIDES[-1]}^3, {TENSORF_FRAMES} x 1024 rays x {TENSORF_POINTS} points]: "
+        + "; ".join(epoch_notes) + f"; the last grids {sides}, the cropped extents {[round(e, 5) for e in extents]},"
+        f" scaffold occupancy {occupied:.4f}")
+    log(f"voxel-grid: objectives {[round(v, 6) for v in objectives]}; torch.cuda.max_memory_allocated()"
+        f" {torch.cuda.max_memory_allocated()} bytes")
+    check(sides == [TENSORF_SIDES[-1]] * 2, f"voxel-grid: the grids end at {sides}")
+    check(0.0 < occupied < 1.0 and max(extents) < TENSORF_EXTENT, "voxel-grid: the scaffold or the crop is empty")
+    check(all(math.isfinite(v) for v in objectives), "voxel-grid: non-finite objective")
+    first, last = sum(objectives[:2]) / 2, sum(objectives[-2:]) / 2
+    check(last < first, f"voxel-grid: the mean of the last 2 objectives {last:.6f} is not below the first 2's"
+                        f" {first:.6f}")
+    for epoch, objective, loss32, loss64, ratios, flips in witnesses:
+        worst = max(ratios, key=ratios.get)
+        off = abs(loss32 - loss64) / abs(loss64)
+        log(f"voxel-grid: epoch {epoch}'s first step, objective {objective:.8f}; the pass's rgb mse float32"
+            f" {loss32:.10f}, float64 {loss64:.10f} (relative {off:.3e}); gradients float32 against float64 on"
+            f" float32's scaffold mask: worst {worst} {ratios[worst]:.3e} (gate {VOXEL_GRAD_GATE:g}); {flips} mask"
+            f" entries flip in float64")
+        check(off <= VOXEL_LOSS_RTOL and ratios[worst] <= VOXEL_GRAD_GATE,
+              f"voxel-grid: epoch {epoch}'s step off float64")
+    check(len(witnesses) == 2, "voxel-grid: the 300^3 step was not witnessed")
+
+    frame = scene.test[0]
+    batch = scene.batch(frame)
+    chunks = -(-IMPLICITRON_RES**2 // TENSORF_MODEL["chunk_size_grid"])
+    kept = []
+    handle = _capture_calls(fn, kept, limit=chunks)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        img = model(**batch, evaluation_mode=EvaluationMode.EVALUATION)["images_render"]
+    torch.cuda.synchronize()
+    frame_ms = (time.perf_counter() - t0) * 1e3
+    handle.remove()
+    serve_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(img.shape == (1, IMPLICITRON_RES, IMPLICITRON_RES, 3) and bool(torch.isfinite(img).all()),
+          f"voxel-grid: the frame of shape {tuple(img.shape)} or not finite")
+    middle = kept[chunks // 2]["ray_bundle"]  # a band of rows through the image's centre
+    chunk = _middle_rays(middle, VOXEL_WITNESS_RAYS)
+    marcher = model._renderer._raymarcher
+    ref = copy.deepcopy(fn).double()
+    c64 = chunk.replace(**{k: getattr(chunk, k).double() for k in ("origins", "directions", "lengths", "xys")})
+    with torch.no_grad():
+        mask32 = fn._scaffold_mask(ray_bundle_to_ray_points(chunk))
+        f32 = marcher(*fn(ray_bundle=chunk), ray_lengths=chunk.lengths).features
+        pts64 = ray_bundle_to_ray_points(c64)
+        flips = int((ref._scaffold_mask(pts64) != mask32.double()).sum())
+        occupied = float(mask32.mean())
+        f64 = marcher(ref._get_density(pts64) * mask32.double(), ref._get_color(pts64, c64.directions)
+                      * mask32.double(), ray_lengths=c64.lengths).features
+    del ref, pts64
+    frame_off = float((f32.double() - f64).abs().max())
+    def serve():
+        with torch.no_grad():
+            model(**batch, evaluation_mode=EvaluationMode.EVALUATION)
+
+    profile("voxel-grid frame", serve, 1)
+    sampling = chunks * _sampling_ms(fn, middle)
+    timed = sorted(step_ms[2:])
+    log(f"voxel-grid: {chunk.lengths.shape[1]} rays (x {TENSORF_POINTS} points) through the frame's centre against"
+        f" float64 on float32's scaffold mask ({occupied:.4f} of the points in it): max |colour| difference"
+        f" {frame_off:.3e} (gate {VOXEL_FRAME_GATE:g}); {flips} mask entries flip; rgb range"
+        f" [{float(img.min()):.4f}, {float(img.max()):.4f}]")
+    log(f"times [voxel-grid, {card}] frame at {TENSORF_SIDES[-1]}^3 {frame_ms:.3f} ms (with its allocations; the"
+        f" grids' sampling, corner gathers and blend, {sampling:.3f} ms of it: {chunks} chunks' CUDA-event time);"
+        f" step median of steps"
+        f" 3-{len(step_ms)} {timed[len(timed) // 2]:.3f} ms (min {timed[0]:.3f}, max {timed[-1]:.3f}); peak memory"
+        f" training {peak_gb:.3f} GB, serving {serve_gb:.3f} GB")
+    check(frame_off <= VOXEL_FRAME_GATE and occupied > 0, "voxel-grid: the served chunk off float64, or empty")
+
+    def one_step():
+        opt.zero_grad(set_to_none=True)
+        model(**batches[0], evaluation_mode=EvaluationMode.TRAINING, generator=gen)["objective"].backward()
+        opt.step()
+
+    profile("voxel-grid step", one_step, 1)
+    del model, opt, cpu_model
+    torch.cuda.empty_cache()
+    return read_counts()
+
+
+class _Rows:
+    """A forward hook on an implicit function counting the points it
+    evaluates (rows of its output)."""
+
+    def __init__(self, fn):
+        self.rows = 0
+        self.handle = fn.register_forward_hook(self)
+
+    def __call__(self, module, args, out):
+        self.rows += out.numel() // out.shape[-1]
+
+
+def sdf_objective(model, call, image, fg, traced=None):
+    """GenericModel's objective from its SDF renderer's inputs `call` ((the
+    bundle,), {object_mask, eikonal_points, ...}) against the model's
+    preprocessed `image` and `fg`; `traced` (a list) records the tracer's
+    (inputs, outputs)."""
+    from pytorch3d_tpu_torch.implicitron.models.renderer import EvaluationMode
+
+    renderer, fn = model._renderer, model.implicit_function_0
+    if traced is not None:
+        def recording(*args):
+            traced.append((args, type(renderer).trace(renderer, *args)))
+            return traced[-1][1]
+
+        renderer.trace = recording
+    try:
+        (bundle,), kw = call
+        rendered = renderer(bundle, implicit_functions=[fn], evaluation_mode=EvaluationMode.TRAINING,
+                            object_mask=kw["object_mask"], eikonal_points=kw["eikonal_points"])
+    finally:
+        if traced is not None:
+            del renderer.trace
+    results = {}
+    model._view_metrics(results, rendered, image_rgb=image, depth_map=None, fg_probability=fg, xys=bundle.xys,
+                        camera_ids=None)
+    model._reg_metrics(results, model=model, raymarched=rendered)
+    return sum(w * results[k] for k, w in model.loss_weights.items() if k in results and w != 0.0)
+
+
+def _double(x):
+    import torch
+
+    return x.double() if isinstance(x, torch.Tensor) and x.is_floating_point() else x
+
+
+def _bundle64(bundle):
+    return bundle.replace(**{k: getattr(bundle, k).double() for k in ("origins", "directions", "lengths", "xys")})
+
+
+def sdf_witness(model, batch, eikonal, seed):
+    """Step 0 of the SDF GenericModel in float32 against a float64 copy on
+    float32's hits, depths and picks (its tracer's outputs): (the model's
+    objective, the witness's float32 objective, float64's, {name: gradient
+    ratio}, rays whose hit flips in float64's own trace, rays)."""
+    import copy
+
+    import torch
+
+    from pytorch3d_tpu_torch.implicitron.models.renderer import EvaluationMode
+
+    calls = []
+    handle = model._renderer.register_forward_pre_hook(
+        lambda m, args, kw: calls.append((args, kw)) if not calls else None, with_kwargs=True)
+    preds = model(**batch, evaluation_mode=EvaluationMode.TRAINING,
+                  generator=torch.Generator(device=eikonal.device).manual_seed(seed), draws={"eikonal": eikonal})
+    handle.remove()
+    objective = float(preds["objective"].detach())
+    del preds
+    image, fg, _ = model._preprocess_input(batch["image_rgb"], batch["fg_probability"], None)
+    traced = []
+    model.zero_grad(set_to_none=True)
+    loss32 = sdf_objective(model, calls[0], image, fg, traced)
+    loss32.backward()
+    g32 = {n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    ref = copy.deepcopy(model).double()
+    (fn_args, out32), = traced
+    ref._renderer.trace = lambda *args: tuple(_double(t) for t in out32)
+    (bundle,), kw = calls[0]
+    call64 = ((_bundle64(bundle),), {k: _double(v) for k, v in kw.items()})
+    loss64 = sdf_objective(ref, call64, image.double(), fg.double())
+    loss64.backward()
+    g64 = {n: p.grad for n, p in ref.named_parameters() if p.grad is not None}
+    del ref._renderer.trace
+    _, origins, mask, dirs = fn_args
+    with torch.no_grad():
+        hits64 = ref._renderer.trace(ref.implicit_function_0, origins.double(), mask, dirs.double())[1]
+    flips = int((hits64 != out32[1]).sum())
+    check(sorted(g32) == sorted(g64), "idr: the float64 copy's gradients name other tensors")
+    del ref
+    return (objective, float(loss32.detach()), float(loss64.detach()), grad_ratios_floored(g32, g64), flips,
+            out32[1].numel())
+
+
+def sdf_frame_witness(model, call, rays):
+    """The `rays` rays in the middle of a served chunk rendered in float32 and
+    by a float64 copy on float32's trace: (max colour difference, max mask
+    difference, the rays that hit)."""
+    import copy
+
+    import torch
+
+    from pytorch3d_tpu_torch.implicitron.models.renderer import EvaluationMode
+
+    (bundle,), kw = call
+    start = (bundle.lengths.shape[1] - rays) // 2
+    bundle = _middle_rays(bundle, rays)
+    mask = kw.get("object_mask")
+    mask = None if mask is None else mask[:, start:start + rays]
+    renderer, traced = model._renderer, []
+
+    def recording(*args):
+        traced.append(type(renderer).trace(renderer, *args))
+        return traced[-1]
+
+    renderer.trace = recording
+    try:
+        with torch.no_grad():
+            out32 = renderer(bundle, implicit_functions=[model.implicit_function_0],
+                             evaluation_mode=EvaluationMode.EVALUATION, object_mask=mask)
+    finally:
+        del renderer.trace
+    ref = copy.deepcopy(model).double()
+    ref._renderer.trace = lambda *args: tuple(_double(t) for t in traced[0])
+    with torch.no_grad():
+        out64 = ref._renderer(_bundle64(bundle), implicit_functions=[ref.implicit_function_0],
+                              evaluation_mode=EvaluationMode.EVALUATION, object_mask=mask)
+    del ref
+    return (float((out32.features.double() - out64.features).abs().max()),
+            float((out32.masks.double() - out64.masks).abs().max()), int(traced[0][1].sum()))
+
+
+def _idr_steps(model, batches, steps, gen, lr):
+    import torch
+
+    from pytorch3d_tpu_torch.implicitron.models.renderer import EvaluationMode
+
+    opt = torch.optim.Adam(model.parameters(), lr=lr)
+    objectives, step_ms = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        preds = model(**batches[i % len(batches)], evaluation_mode=EvaluationMode.TRAINING, generator=gen)
+        preds["objective"].backward()
+        opt.step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        objectives.append(float(preds["objective"].detach()))
+        del preds
+    return opt, objectives, step_ms
+
+
+def _idr_frame(model, frame, count=None):
+    """One served 400^2 frame: (image, ms, the renderer's first call)."""
+    import torch
+
+    from pytorch3d_tpu_torch.implicitron.models.renderer import EvaluationMode
+
+    calls = []
+    handle = model._renderer.register_forward_pre_hook(
+        lambda m, args, kw: calls.append((args, kw)) if not calls else None, with_kwargs=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        img = model(image_rgb=frame.image_rgb, camera=frame.camera, fg_probability=frame.fg_probability,
+                    sequence_name=[frame.sequence_name], evaluation_mode=EvaluationMode.EVALUATION)["images_render"]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    handle.remove()
+    return img, ms, calls[0]
+
+
+def phase_idr(device, scene, card):
+    """repro_multiseq_idr_ad as written (`IDR_MODEL`) on the provider's
+    sphere at 400^2: step 0 held against float64 on float32's trace
+    (`sdf_witness`: the objective and every gradient, the eikonal's and the
+    normals' second-order terms included; the rays whose hit flips in
+    float64's own trace counted), IDR_STEPS Adam steps at repro_base's lr
+    5e-4 on IDR_IMAGES images x 1024 rays whose objective must fall, one
+    400^2 frame served in chunks of 102 400 rays with one chunk held against
+    float64; then the colouring network at its defaults
+    (`IDR_RGB_MODEL`: 4 x 512, mode idr): IDR_RGB_STEPS steps and a served
+    frame.  Plain PyTorch: no kernel of the port."""
+    import numpy as np
+    import torch
+
+    reset_counts()
+    model = scene.model(40, IDR_MODEL)
+    order = np.random.RandomState(40).permutation(len(scene.train))
+    batches = []
+    for k in range(len(scene.train) // IDR_IMAGES):
+        frames = [scene.train[int(i)] for i in np.roll(order, -IDR_IMAGES * k)[:IDR_IMAGES]]
+        batches.append(dict(frames_batch(frames), sequence_name=[f.sequence_name for f in frames]))
+    n_rays = IDR_IMAGES * IDR_MODEL["raysampler_args"]["n_rays_per_image_sampled_from_mask"]
+    eikonal = torch.rand((n_rays // 2, 3), generator=torch.Generator(device=device).manual_seed(41),
+                         device=device) * 2 - 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    objective, loss32, loss64, ratios, flips, rays = sdf_witness(model, batches[0], eikonal, 42)
+    witness_s = time.perf_counter() - t0
+    worst = max(ratios, key=ratios.get)
+    loss_off = abs(loss32 - loss64) / abs(loss64)
+    log(f"idr [repro_multiseq_idr_ad: IDR 8 x 512, skip 6, 6 harmonics, bias 0.6, weight norm, geometric init; the SDF"
+        f" renderer with n_steps 32; a 256-wide SequenceAutodecoder; {IDR_IMAGES} x 1024 rays]: step 0 objective"
+        f" {objective:.8f}; the witness float32 {loss32:.10f}, float64 on float32's trace {loss64:.10f} (relative"
+        f" {loss_off:.3e}); gradients float32 against float64: worst {worst} {ratios[worst]:.3e} (gate"
+        f" {IDR_GRAD_GATE:g}); {flips} of {rays} rays flip their hit in float64's own trace; {witness_s:.1f} s")
+    check(abs(loss32 - objective) <= 1e-6 * abs(objective), "idr: the witness's objective is not the step's")
+    check(loss_off <= IDR_LOSS_RTOL and ratios[worst] <= IDR_GRAD_GATE, "idr: step 0 off float64")
+    gen = torch.Generator(device=device).manual_seed(43)
+    torch.cuda.reset_peak_memory_stats()
+    rows = _Rows(model.implicit_function_0)
+    opt, objectives, step_ms = _idr_steps(model, batches, IDR_STEPS, gen, IMPLICITRON_LR)
+    rows.handle.remove()
+    train_per_ray = rows.rows / (IDR_STEPS * n_rays)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    first, last = sum(objectives[:3]) / 3, sum(objectives[-3:]) / 3
+    log(f"idr: {IDR_STEPS} Adam steps: objectives {[round(v, 6) for v in objectives]}; {train_per_ray:.1f} SDF"
+        f" evaluations a ray a step; torch.cuda.max_memory_allocated() {torch.cuda.max_memory_allocated()} bytes")
+    check(all(math.isfinite(v) for v in objectives), "idr: non-finite objective")
+    check(last < first, f"idr: the mean of the last 3 objectives {last:.6f} is not below the first 3's {first:.6f}")
+    check(all(bool(torch.isfinite(p).all()) for p in model.parameters()), "idr: non-finite weights")
+    frame = scene.test[0]
+    torch.cuda.reset_peak_memory_stats()
+    rows = _Rows(model.implicit_function_0)
+    img, frame_ms, call = _idr_frame(model, frame)
+    rows.handle.remove()
+    serve_gb = torch.cuda.max_memory_allocated() / 1e9
+    frame_per_ray = rows.rows / IMPLICITRON_RES**2
+    check(img.shape == (1, IMPLICITRON_RES, IMPLICITRON_RES, 3) and bool(torch.isfinite(img).all()),
+          f"idr: the frame of shape {tuple(img.shape)} or not finite")
+    colour_off, mask_off, hits = sdf_frame_witness(model, call, VOXEL_WITNESS_RAYS)
+    timed = sorted(step_ms[2:])
+    log(f"idr: {VOXEL_WITNESS_RAYS} rays in the middle of the first chunk ({hits} hit) against float64 on float32's"
+        f" trace: colours"
+        f" {colour_off:.3e}, masks {mask_off:.3e} (gate {IDR_FRAME_GATE:g}); rgb range [{float(img.min()):.4f},"
+        f" {float(img.max()):.4f}]")
+    log(f"times [idr, {card}] step median of steps 3-{IDR_STEPS} {timed[len(timed) // 2]:.3f} ms (min {timed[0]:.3f},"
+        f" max {timed[-1]:.3f}); frame {frame_ms:.3f} ms ({frame_per_ray:.1f} SDF evaluations a ray); peak memory"
+        f" training {peak_gb:.3f} GB, serving {serve_gb:.3f} GB")
+    check(colour_off <= IDR_FRAME_GATE and mask_off <= IDR_FRAME_GATE and hits > 0,
+          "idr: the served chunk off float64, or no ray of it hits")
+
+    def one_step():
+        from pytorch3d_tpu_torch.implicitron.models.renderer import EvaluationMode
+
+        opt.zero_grad(set_to_none=True)
+        model(**batches[0], evaluation_mode=EvaluationMode.TRAINING, generator=gen)["objective"].backward()
+        opt.step()
+
+    profile("idr step", one_step, 1)
+    del model, opt
+    torch.cuda.empty_cache()
+
+    model = scene.model(44, IDR_RGB_MODEL)
+    net = model._renderer.rgb_network
+    check(net.n_layers == 5 and net.linear0.kernel.shape[1] == 512, "idr: the colouring network is not 4 x 512")
+    torch.cuda.reset_peak_memory_stats()
+    opt, objectives, step_ms = _idr_steps(model, batches, IDR_RGB_STEPS, gen, IMPLICITRON_LR)
+    img, frame_ms, _ = _idr_frame(model, frame)
+    log(f"times [idr with RayNormalColoringNetwork 4 x 512, {card}] {IDR_RGB_STEPS} steps"
+        f" {[round(v, 3) for v in step_ms]} ms (objectives {[round(v, 6) for v in objectives]}); frame"
+        f" {frame_ms:.3f} ms; peak memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    check(all(math.isfinite(v) for v in objectives) and bool(torch.isfinite(img).all()),
+          "idr: the colouring network's steps or frame are not finite")
+    profile("idr frame with the colouring network", lambda: _idr_frame(model, frame), 1)
+    del model, opt
+    torch.cuda.empty_cache()
+    return read_counts()
+
+
 def main() -> int:
     try:
         import torch
@@ -8375,6 +9000,23 @@ def main() -> int:
             f" {sum(seconds19.values()):.1f} in all")
         for kernel, err in wide_errors.items():
             errors[kernel] = max(errors[kernel], err)
+        slice20, seconds20, t20 = {}, {}, time.perf_counter()
+        phase = "training: voxel-grid"
+        reset_counts()
+        scene20 = ImplicitronScene(device)
+        slice20["voxel-grid"] = phase_voxel_grid(device, scene20, card)
+        seconds20[phase], t20 = time.perf_counter() - t20, time.perf_counter()
+        phase = "training: idr"
+        slice20["idr"] = phase_idr(device, scene20, card)
+        del scene20
+        seconds20[phase] = time.perf_counter() - t20
+        for counts in slice20.values():
+            for kernel, n in counts.items():
+                launches[kernel] += n
+        check(slice20["voxel-grid"]["rasterize_fine"] > 0, "the provider's render launched no #1")
+        log(f"launches by path (slice 20): {slice20}; summed over every path {launches}")
+        log(f"slice 20's phases, seconds: {', '.join(f'{k} {v:.1f}' for k, v in seconds20.items())};"
+            f" {sum(seconds20.values()):.1f} in all")
         kernels = kernel_rows(launches, errors, fine, grad, knn_t, points_t, points_grad_t, *nerf_t, slice5, band_t)
     except Exception as e:  # report which phase failed, then exit non-zero
         import traceback

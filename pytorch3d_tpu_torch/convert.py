@@ -335,7 +335,8 @@ def nerf_state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
 
 def generic_model_state_dict_from_flax(variables: Mapping, device: Device = DEFAULT_DEVICE) -> Dict[str, torch.Tensor]:
     """An Implicitron `GenericModel` state_dict from the flax variables
-    (`{"params": ...}` or its inside) as numpy, name for name:
+    (`{"params": ..., "buffers": ...}`, or the params' inside) as numpy,
+    name for name:
     - each `implicit_function_{i}` (one where the passes share it): its
       trunk (`xyz_encoder/layer{l}`, or NeRFormer's `first`, `skip{l}`,
       `last` and `pool{l}` / `ray{l}` with `self_attn/{query, key, value,
@@ -343,13 +344,19 @@ def generic_model_state_dict_from_flax(variables: Mapping, device: Device = DEFA
       layers, and any decoder (`network/layer{l}`, `skip_affine{l}{a, b}`):
       dense and attention kernels copied as they are (the port keeps flax's
       (in, out) and (d, heads, d / heads) layouts), layer norms' `scale` and
-      `bias` too;
+      `bias` too; IDR's `linear{l}` with weight norm's `scale`; a voxel
+      grid function's grid values, and from the `buffers` collection its
+      grids' `extents` / `translation`, the scaffold's `voxel_grid` and
+      `scaffold_ready`;
+    - the SDF renderer's colouring network (`_renderer_flax_module` ->
+      `_renderer.rgb_network`);
     - the global encoder's table (`_global_encoder/autodecoder/Embed_0/
       embedding` -> `_global_encoder.autodecoder.embedding`);
     - `_image_feature_extractor`: conv kernels HWIO -> OIHW as `weight`
       (the projections' `bias` beside), the four `FrozenBatchNorm` vectors
       as they are."""
-    tree = variables.get("params", variables)
+    trees = [variables["params"], variables.get("buffers", {})] if "params" in variables else [variables]
+    renamed = {"_renderer_flax_module": ["_renderer", "rgb_network"]}
     state = {}
 
     def walk(node, path):
@@ -362,9 +369,12 @@ def generic_model_state_dict_from_flax(variables: Mapping, device: Device = DEFA
                 key, value = "weight", value.transpose(3, 2, 0, 1)
             state[".".join(path + [key])] = torch.as_tensor(value, dtype=torch.float32, device=device)
 
-    for top in tree:
-        if top.startswith("implicit_function_") or top in ("_global_encoder", "_image_feature_extractor"):
-            walk(tree[top], [top])
-        else:
-            raise ValueError(f"no port of the flax GenericModel's {top!r} variables yet")
+    for tree in trees:
+        for top in tree:
+            if top.startswith("implicit_function_") or top in ("_global_encoder", "_image_feature_extractor"):
+                walk(tree[top], [top])
+            elif top in renamed:
+                walk(tree[top], renamed[top])
+            else:
+                raise ValueError(f"no port of the flax GenericModel's {top!r} variables yet")
     return state

@@ -11,10 +11,18 @@ submodules `implicit_function_{i}` (one, shared by every pass, with
 flax variables (`convert.generic_model_state_dict_from_flax`).
 
 Every random draw (the rays, their stratified depths, the refine's
-quantiles) comes from a `torch.Generator`, or is handed in through `draws`
-(`select`, `u_jiggle`, `camera_ids`, `u_pdf`), so a test can feed the JAX
-package's.  Evaluation renders the full grid in chunks of
-`chunk_size_grid` rays; the result equals the unchunked render.
+quantiles, the SDF renderer's eikonal points) comes from a
+`torch.Generator`, or is handed in through `draws` (`select`, `u_jiggle`,
+`camera_ids`, `u_pdf`, `eikonal`), so a test can feed the JAX package's.
+A renderer that asks for the object mask (the SDF renderer) gets the
+thresholded foreground at each ray, as upstream's model samples it (the
+JAX module passes none); a renderer with weights is the submodule
+`_renderer`.  Functions without a `latent_dim` (the voxel grid, IDR) take
+no global code, as in the JAX package.  `apply_epoch_callbacks` runs the
+functions' epoch schedule (the voxel grid's) on a state dict, which
+`models.utils.load_state_dict_resized` loads back.  Evaluation renders the
+full grid in chunks of `chunk_size_grid` rays; the result equals the
+unchunked render.
 
 With `view_pooler_enabled`, a ResNet (`_image_feature_extractor`) extracts
 feature maps from the batch's images (and masks, ones where none are
@@ -29,6 +37,7 @@ so a pose with no image of its own can be rendered (render_flyaround).
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple, Union
 
@@ -40,16 +49,20 @@ from ..tools.config import expand_args_fields, registry
 from ..tools.image_utils import mask_background
 from .base_model import ImplicitronModelBase
 from .global_encoder.global_encoder import GlobalEncoderBase
+from ...renderer.utils import ndc_grid_sample
 from .implicit_function.base import ImplicitFunctionBase
 from .feature_extractor.resnet_feature_extractor import ResNetFeatureExtractor
+from .implicit_function.idr_feature_field import IdrFeatureField  # noqa: F401 (registers)
 from .implicit_function.neural_radiance_field import (  # noqa: F401 (registers)
     NeRFormerImplicitFunction,
     NeuralRadianceFieldImplicitFunction,
 )
+from .implicit_function.voxel_grid_implicit_function import VoxelGridImplicitFunction  # noqa: F401 (registers)
 from .metrics import RegularizationMetrics, ViewMetrics
 from .renderer.base import BaseRenderer, EvaluationMode, ImplicitronRayBundle, RendererOutput
 from .renderer.multipass_ea import MultiPassEmissionAbsorptionRenderer  # noqa: F401 (registers)
 from .renderer.ray_sampler import AdaptiveRaySampler, RaySamplerBase  # noqa: F401 (registers)
+from .renderer.sdf_renderer import SignedDistanceFunctionRenderer  # noqa: F401 (registers)
 from .view_pooler.view_pooler import ViewPooler
 
 Device = Union[str, torch.device]
@@ -59,6 +72,14 @@ _RAY_DRAWS = ("select", "u_jiggle", "camera_ids")
 
 def _default_loss_weights() -> Dict[str, float]:
     return {"loss_rgb_mse": 1.0, "loss_prev_stage_rgb_mse": 1.0}
+
+
+def _build(cls, args: Optional[Dict[str, Any]], **made):
+    """cls(**args) with those of `made` (device, generator, latent_dim)
+    that cls has as fields."""
+    expand_args_fields(cls)
+    fields = {f.name for f in dataclasses.fields(cls)}
+    return cls(**{**(args or {}), **{k: v for k, v in made.items() if k in fields}})
 
 
 @registry.register
@@ -101,9 +122,10 @@ class GenericModel(ImplicitronModelBase, nn.Module):
         rs_args.setdefault("image_width", self.render_image_width)
         rs_args.setdefault("image_height", self.render_image_height)
         self._raysampler = registry.get(RaySamplerBase, self.raysampler_class_type)(**rs_args)
-        self._renderer = registry.get(BaseRenderer, self.renderer_class_type)(**(self.renderer_args or {}))
-
         made = {"device": self.device, "generator": self.generator}
+        # a renderer with weights (the SDF renderer's colouring network) is a submodule
+        self._renderer = _build(registry.get(BaseRenderer, self.renderer_class_type), self.renderer_args, **made)
+
         # the code and the pooled features are concatenated to the embedding: the trunk's input widens by both
         latent_dim = 0
         if self.global_encoder_class_type:
@@ -124,9 +146,7 @@ class GenericModel(ImplicitronModelBase, nn.Module):
         latent = {"latent_dim": latent_dim} if latent_dim else {}
 
         def make_fn(class_type, args):
-            cls = registry.get(ImplicitFunctionBase, class_type)
-            expand_args_fields(cls)
-            return cls(**{**(args or {}), **latent, **made})
+            return _build(registry.get(ImplicitFunctionBase, class_type), args, **latent, **made)
 
         n_made = 1 if self.share_implicit_function_across_passes else self.num_passes
         for i in range(n_made):
@@ -205,6 +225,12 @@ class GenericModel(ImplicitronModelBase, nn.Module):
                                       **{k: draws[k] for k in _RAY_DRAWS if k in draws})
 
         renderer_kwargs: Dict[str, Any] = {"generator": generator}
+        if "eikonal" in draws:
+            renderer_kwargs["eikonal_points"] = draws["eikonal"]
+        if fg_probability is not None and self._renderer.requires_object_mask():
+            # the foreground at each ray, as upstream samples it for the SDF renderer
+            sampled = ndc_grid_sample(fg_probability.movedim(-1, 1), ray_bundle.xys, mode="nearest")
+            renderer_kwargs["object_mask"] = (sampled[:, 0] > 0.5).reshape(sampled.shape[0], -1)
         if self.view_pooler_enabled:
             if source_views is not None:
                 src_image, src_mask, _ = self._preprocess_input(
@@ -279,13 +305,17 @@ class GenericModel(ImplicitronModelBase, nn.Module):
         flat = {k: getattr(ray_bundle, k).reshape(B, n_rays, -1) for k in ("origins", "directions", "lengths", "xys")}
         if u_pdf is not None:
             u_pdf = u_pdf.reshape(B, n_rays, -1)
+        object_mask = renderer_kwargs.get("object_mask")
         parts = []
         for start in range(0, n_rays, self.chunk_size_grid):
             sl = slice(start, start + self.chunk_size_grid)
+            chunk_kwargs = dict(renderer_kwargs)
+            if object_mask is not None:
+                chunk_kwargs["object_mask"] = object_mask[:, sl]
             out = self._renderer(
                 ImplicitronRayBundle(**{k: v[:, sl] for k, v in flat.items()}),
                 implicit_functions=self._implicit_functions, evaluation_mode=evaluation_mode,
-                u_pdf=None if u_pdf is None else u_pdf[:, sl], **renderer_kwargs,
+                u_pdf=None if u_pdf is None else u_pdf[:, sl], **chunk_kwargs,
             )
             parts.append((out.features, out.depths, out.masks))
 

@@ -175,6 +175,7 @@ class MLPDecoder(DecoderFunctionBase, nn.Module):
     def __post_init__(self):
         args = dict(self.network_args or {})
         args.setdefault("input_dim", self.input_dim)
+        args.setdefault("skip_dim", args["input_dim"])  # the skips take the decoder's input again
         self.network = MLPWithInputSkips(**args, device=self.device, generator=self.generator)
         self.generator = None  # used once; a module keeps no generator
 

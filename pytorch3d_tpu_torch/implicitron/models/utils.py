@@ -115,3 +115,28 @@ def weighted_sum_losses(preds, loss_weights):
         warnings.warn("No main objective found.")
         return None
     return sum(losses_weighted)
+
+
+def load_state_dict_resized(module: torch.nn.Module, state_dict: Dict[str, torch.Tensor]) -> None:
+    """`module.load_state_dict(state_dict, strict=True)` where a tensor may
+    have another shape than the module's (a voxel grid after a resolution
+    change): such a parameter or buffer is replaced by the new tensor (a
+    new `nn.Parameter` for a parameter, so an optimizer over the old one
+    must be rebuilt); the others are copied in place."""
+    own = module.state_dict(keep_vars=True)
+    missing, unexpected = sorted(set(own) - set(state_dict)), sorted(set(state_dict) - set(own))
+    if missing or unexpected:
+        raise KeyError(f"state dict keys: missing {missing}, unexpected {unexpected}")
+    with torch.no_grad():
+        for name, value in state_dict.items():
+            current = own[name]
+            if current.shape == value.shape:
+                current.copy_(value)
+                continue
+            owner_name, _, attr = name.rpartition(".")
+            owner = module.get_submodule(owner_name)
+            if isinstance(current, torch.nn.Parameter):
+                setattr(owner, attr, torch.nn.Parameter(value.detach().clone().to(current.device, current.dtype),
+                                                        requires_grad=current.requires_grad))
+            else:
+                owner.register_buffer(attr, value.detach().clone().to(current.device, current.dtype))

@@ -1349,3 +1349,137 @@ def test_model_dbir_through_the_points_kernel_matches_plain(cuda_device):
     assert torch.equal(got["masks_render"], want["masks_render"]) and float(got["masks_render"].mean()) > 0.05
     assert torch.equal(got["depths_render"], want["depths_render"])
     assert float((got["images_render"] - want["images_render"]).abs().max()) <= 1e-6
+
+
+# --------------------------------------------------------------------------- #
+# The voxel-grid and IDR GenericModels (plain PyTorch) on the card against the CPU
+# --------------------------------------------------------------------------- #
+
+_VOXEL_MODEL = dict(
+    render_image_width=32, render_image_height=32, num_passes=1, chunk_size_grid=700,
+    raysampler_args=dict(n_rays_per_image_sampled_from_mask=128, n_pts_per_ray_training=32,
+                         n_pts_per_ray_evaluation=32, scene_extent=3.0),
+    implicit_function_class_type="VoxelGridImplicitFunction",
+    implicit_function_args=dict(
+        voxel_grid_density_args=dict(voxel_grid_class_type="VMFactorizedVoxelGrid", extents=(3.0, 3.0, 3.0),
+                                     init_std=1.0, voxel_grid_args=dict(n_components=12, basis_matrix=False,
+                                                          resolution_changes={0: [16, 16, 16], 2: [24, 24, 24]})),
+        voxel_grid_color_args=dict(voxel_grid_class_type="VMFactorizedVoxelGrid", extents=(3.0, 3.0, 3.0),
+                                   voxel_grid_args=dict(n_components=12, n_features=9,
+                                                        resolution_changes={0: [16, 16, 16], 2: [24, 24, 24]})),
+        decoder_density_args=dict(shift=-1.0, operation="softplus"), density_activation="identity",
+        harmonic_embedder_xyz_color_args=dict(n_harmonic_functions=2, append_input=True),
+        decoder_color_args=dict(network_args=dict(n_layers=3, hidden_dim=32, output_dim=3, input_skips=(),
+                                                  last_activation="sigmoid")),
+        scaffold_calculating_epochs=(1,), scaffold_resolution=(16, 16, 16), scaffold_empty_space_threshold=6.0,
+        volume_cropping_epochs=(2,)),
+)
+_IDR_MODEL = dict(
+    render_image_width=32, render_image_height=32, num_passes=1, chunk_size_grid=700,
+    loss_weights={"loss_rgb_mse": 1.0, "loss_mask_bce": 1.0, "loss_eikonal": 0.1},
+    raysampler_args=dict(n_rays_per_image_sampled_from_mask=128, n_pts_per_ray_training=4,
+                         n_pts_per_ray_evaluation=4, scene_extent=3.0),
+    implicit_function_class_type="IdrFeatureField",
+    implicit_function_args=dict(n_harmonic_functions_xyz=4, dims=(64, 64, 64), skip_in=(2,), bias=0.6),
+    renderer_class_type="SignedDistanceFunctionRenderer",
+    renderer_args=dict(ray_tracer_args=dict(n_steps=16), ray_normal_coloring_network_args=dict(dims=(64, 64))),
+)
+
+
+def _models_on_both(device, cfg):
+    """The same GenericModel (weights from a CPU generator) on the CPU and on
+    the card."""
+    from pytorch3d_tpu_torch.implicitron.models import GenericModel
+
+    cpu = GenericModel(**cfg, device="cpu", generator=torch.Generator().manual_seed(5))
+    card = GenericModel(**cfg, device=device)
+    card.load_state_dict(cpu.state_dict(), strict=True)
+    return cpu, card
+
+
+def _step_on_both(cpu, card, frames, draws):
+    """Objective and gradients of a training step of both models on the same
+    frames and draws: (objective CPU, card), ({name: max |card - cpu| /
+    max |cpu|})."""
+    from pytorch3d_tpu_torch.implicitron.models.renderer import EvaluationMode
+
+    out = []
+    for model in (cpu, card):
+        dev = next(model.parameters()).device
+        cams, image, fg = (f.to(dev) for f in frames)
+        model.zero_grad(set_to_none=True)
+        preds = model(image_rgb=image, camera=cams, fg_probability=fg, evaluation_mode=EvaluationMode.TRAINING,
+                      draws={k: v.to(dev) for k, v in draws.items()})
+        preds["objective"].backward()
+        out.append((float(preds["objective"].detach()), {n: p.grad.cpu() for n, p in model.named_parameters()
+                                                 if p.grad is not None}))
+    (o_cpu, g_cpu), (o_card, g_card) = out
+    assert sorted(g_cpu) == sorted(g_card)
+    return (o_cpu, o_card), {n: float((g_card[n] - g_cpu[n]).abs().max() / g_cpu[n].abs().max().clamp(min=1e-30))
+                             for n in g_cpu}
+
+
+def _render_on_both(cpu, card, frames):
+    from pytorch3d_tpu_torch.implicitron.models.renderer import EvaluationMode
+
+    images = []
+    for model in (cpu, card):
+        dev = next(model.parameters()).device
+        cams, image, fg = (f.to(dev) for f in frames)
+        with torch.no_grad():
+            images.append(model(image_rgb=image, camera=cams, fg_probability=fg,
+                                evaluation_mode=EvaluationMode.EVALUATION)["images_render"].cpu())
+    return images
+
+
+def _ray_draws(n_images, n_rays, n_pts, size, seed):
+    gen = torch.Generator().manual_seed(seed)
+    u = torch.rand((n_images, n_rays, size * size), generator=gen).clamp(1e-12, 1 - 1e-7)
+    return {"select": -torch.log(-torch.log(u)), "u_jiggle": torch.rand((n_images, n_rays, n_pts), generator=gen)}
+
+
+def test_voxel_grid_generic_model_on_the_card_matches_cpu(cuda_device):
+    """The voxel-grid GenericModel (VM 16^3 -> 24^3, the scaffold at epoch
+    1, the crop at epoch 2) on the card against the same model on the CPU:
+    every `apply_epoch_callbacks` state within 1e-6 (the scaffold equal),
+    then a training step on the same draws (objective within 1e-5, every
+    gradient within 1e-5 of its largest entry) and an evaluation render
+    (within 1e-5)."""
+    from pytorch3d_tpu_torch.implicitron.models.utils import load_state_dict_resized
+
+    cpu, card = _models_on_both(cuda_device, _VOXEL_MODEL)
+    frames = _implicitron_frames(torch.device("cpu"), 32)
+    for epoch in (1, 2):
+        states = [m.apply_epoch_callbacks(m.state_dict(), epoch) for m in (cpu, card)]
+        assert states[0][1] == states[1][1]
+        for name, value in states[0][0].items():
+            got = states[1][0][name].cpu()
+            assert got.shape == value.shape, name
+            assert float((got - value).abs().max()) <= 1e-6 * max(float(value.abs().max()), 1.0), (epoch, name)
+        for model, (state, _) in zip((cpu, card), states):
+            load_state_dict_resized(model, state)
+    scaffold = cpu.implicit_function_0.voxel_grid_scaffold.voxel_grid
+    assert torch.equal(card.implicit_function_0.voxel_grid_scaffold.voxel_grid.cpu(), scaffold)
+    assert 0 < float(scaffold.mean()) < 1
+    (o_cpu, o_card), ratios = _step_on_both(cpu, card, frames, _ray_draws(2, 128, 32, 32, 6))
+    assert abs(o_card - o_cpu) <= 1e-5 * abs(o_cpu)
+    assert max(ratios.values()) <= 1e-5, max(ratios.items(), key=lambda kv: kv[1])
+    got, want = _render_on_both(cpu, card, frames)
+    assert float((got - want).abs().max()) <= 1e-5
+
+
+def test_idr_generic_model_on_the_card_matches_cpu(cuda_device):
+    """IDR (3 x 64, the skip at 2) with the SDF renderer and its colouring
+    network on the card against the CPU: a training step on the same draws
+    (rays and eikonal points): the objective within 1e-5 and every
+    gradient within 1e-4 of its largest entry (second-order terms
+    included); an evaluation render within 1e-4."""
+    cpu, card = _models_on_both(cuda_device, _IDR_MODEL)
+    frames = _implicitron_frames(torch.device("cpu"), 32)
+    draws = _ray_draws(2, 128, 4, 32, 7)
+    draws["eikonal"] = torch.rand((128, 3), generator=torch.Generator().manual_seed(8)) * 2 - 1
+    (o_cpu, o_card), ratios = _step_on_both(cpu, card, frames, draws)
+    assert abs(o_card - o_cpu) <= 1e-5 * abs(o_cpu)
+    assert max(ratios.values()) <= 1e-4, max(ratios.items(), key=lambda kv: kv[1])
+    got, want = _render_on_both(cpu, card, frames)
+    assert float((got - want).abs().max()) <= 1e-4

@@ -22,15 +22,8 @@ MODULES = ["transforms", "renderer", "renderer/mesh", "renderer/points", "render
 NOT_YET = {
     "3. the rest of NeRF that needs nothing of Implicitron": [],
     "6. Implicitron and the trainers": [
-        # the voxel grids
-        "CPFactorizedVoxelGrid", "CPFactorizedVoxelGridValues", "FullResolutionVoxelGrid",
-        "FullResolutionVoxelGridValues", "VMFactorizedVoxelGrid", "VMFactorizedVoxelGridValues", "VoxelGridBase",
-        "VoxelGridValuesBase", "VoxelGridModule", "VoxelGridImplicitFunction", "apply_resolution_change",
-        "crop_values", "interpolate_line", "interpolate_plane", "interpolate_tensor", "interpolate_volume",
-        # IDR and the SRNs
-        "IdrFeatureField", "SRNHyperNetImplicitFunction", "SRNImplicitFunction",
-        # the LSTM and SDF renderers
-        "LSTMRenderer", "RayTracing", "SignedDistanceFunctionRenderer",
+        # the SRNs and the LSTM renderer
+        "SRNHyperNetImplicitFunction", "SRNImplicitFunction", "LSTMRenderer",
     ],
 }
 _QUEUED = {name: item for item, names in NOT_YET.items() for name in names}
